@@ -49,6 +49,8 @@ BLOCKS = (256, 64)
 REPLACES = {"quantize_pack": "src/repro/kernels/quantize/quantize.py:46",
             "unpack_dequant": "src/repro/kernels/quantize/quantize.py:73"}
 SOURCE = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
+#: device-memory rate of an H100 SXM (NVIDIA's H100 data sheet), bytes/s
+MEMORY_RATE = 3.35e12
 #: peak float32 rate outside the tensor cores (H100 SXM data sheet)
 F32_OPS_PER_S = 67e12
 #: elementwise operations per element: abs, max, divide, round, 2 clamps, and
@@ -64,14 +66,6 @@ def fail(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         fail(msg)
-
-
-def memory_rate(smi_name: str) -> tuple:
-    """Published device-memory rate (bytes/s) of the card nvidia-smi names:
-    H200 SXM 4.8 TB/s, else H100 SXM 3.35 TB/s (NVIDIA's data sheets)."""
-    if "H200" in smi_name:
-        return 4.8e12, "H200 SXM 4.8 TB/s"
-    return 3.35e12, "H100 SXM 3.35 TB/s"
 
 
 def time_ms(torch, fn, reps: int = 21, group: int = 5) -> float:
@@ -121,7 +115,7 @@ def phase_backend(torch, backend) -> str:
     return rep["nvidia_smi"]
 
 
-def phase_kernels(torch, rate: float) -> dict:
+def phase_kernels(torch) -> dict:
     from repro_torch.kernels.quantize.quantize import (
         packed_nbytes, quantize_pack, quantize_pack_ref, unpack_dequant,
         unpack_dequant_ref)
@@ -170,7 +164,7 @@ def phase_kernels(torch, rate: float) -> dict:
                                time_ms(torch, lambda: unpack_dequant_ref(packed, n_blocks, block))),
         }
         for name, (ms, plain_ms) in times.items():
-            bytes_ms = io[name] / rate * 1e3
+            bytes_ms = io[name] / MEMORY_RATE * 1e3
             ops_ms = OPS_PER_ELEM[name] * n / F32_OPS_PER_S * 1e3
             results[(name, block)] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -266,9 +260,8 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is missing: {e}", file=sys.stderr)
         return 2
     smi = phase_backend(torch, backend)
-    rate, rate_name = memory_rate(smi)
-    print(f"memory rate used for the bound: {rate_name}")
-    timed = phase_kernels(torch, rate)
+    print(f"memory rate used for the bound: H100 SXM {MEMORY_RATE / 1e12} TB/s")
+    timed = phase_kernels(torch)
     launches, batches = phase_main_path(torch)
     phase_profile(torch, batches)
     kernels = []

@@ -70,9 +70,13 @@ def chunk_payload(payload: bytes, hdr: dict, *,
 
 def _flat_on(msgs: List[Any], pad: int, dev: torch.device) -> torch.Tensor:
     """The batch as one flat f32 tensor on ``dev``, zero-padded by ``pad``:
-    one concat on the device when every message lies there, else one concat
-    on the host and one copy to the device."""
+    one concat on the device when every message lies there, else (numpy
+    arrays or CPU tensors among them) one concat on the host and one copy to
+    the device. A message on any other device raises."""
     parts = [torch.as_tensor(m).reshape(-1) for m in msgs]
+    for p in parts:
+        if p.device != dev and p.device.type != "cpu":
+            raise ValueError(f"a message lies on {p.device}, the wire encodes on {dev}")
     where = dev if all(p.device == dev for p in parts) else torch.device("cpu")
     parts = [p.to(where, torch.float32) for p in parts]
     parts.append(torch.zeros(pad, dtype=torch.float32, device=where))

@@ -161,8 +161,7 @@ class ReconfigController:
         now: clock override for deterministic tests.
         max_history: bound on the retained ``decisions`` audit log. Lifetime
             totals survive eviction — read ``counts()`` for them; only the
-            per-decision snapshots are windowed. (``max_decisions`` is the
-            legacy spelling of the same knob.)
+            per-decision snapshots are windowed.
 
     Call ``tick(snapshot)`` once per control interval with a telemetry
     snapshot (``ConnTelemetry.snapshot()``); read ``decisions`` /
@@ -179,7 +178,6 @@ class ReconfigController:
         cooldown_s: float = 5.0,
         now: Callable[[], float] = time.monotonic,
         max_history: int = 4096,
-        max_decisions: Optional[int] = None,
     ):
         names = [r.name for r in rules]
         if len(set(names)) != len(names):
@@ -195,8 +193,6 @@ class ReconfigController:
         self._ticks = 0
         # bounded: a long-lived loop ticking every step must not grow memory
         # linearly in run length (each Decision retains a snapshot dict)
-        if max_decisions is not None:   # legacy alias for max_history
-            max_history = max_decisions
         self.decisions: Deque[Decision] = deque(maxlen=max_history)
         # lifetime totals: decisions fall off the deque, these never reset
         self.total_fired = 0

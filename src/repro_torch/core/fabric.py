@@ -19,7 +19,6 @@ import queue
 import random
 import threading
 import time
-import warnings
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -49,11 +48,6 @@ class FabricCounters:
     sent_bytes: int = 0
     delivered_bytes: int = 0
 
-    #: Pre-split aliases still found in older dashboards/scripts → the
-    #: canonical split field they read today. The exporter schema
-    #: (repro.obs.metrics) only ever sees snapshot()'s canonical names.
-    LEGACY_ALIASES = {"sent_msgs": "sent", "sent_bytes": "sent_bytes"}
-
     def snapshot(self) -> dict:
         return {
             "sent": self.sent,
@@ -64,22 +58,6 @@ class FabricCounters:
             "sent_bytes": self.sent_bytes,
             "delivered_bytes": self.delivered_bytes,
         }
-
-    def legacy(self, name: str) -> int:
-        """Single deprecation funnel for pre-split counter names.
-
-        Every legacy surface (``Fabric.sent_msgs``/``Fabric.sent_bytes``)
-        routes here so there is exactly one warning site to delete when
-        the aliases are removed."""
-        try:
-            canon = self.LEGACY_ALIASES[name]
-        except KeyError:
-            raise AttributeError(f"unknown legacy counter alias: {name!r}")
-        warnings.warn(
-            f"counter alias {name!r} is deprecated; read the split name "
-            f"{canon!r} via FabricCounters.snapshot()",
-            DeprecationWarning, stacklevel=3)
-        return getattr(self, canon)
 
 
 class Endpoint:
@@ -304,15 +282,6 @@ class Fabric:
         if accepted < len(items) and TRACER.enabled:
             TRACER.record_batch("fabric.deliver", len(items), accepted,
                                 {"dst": ep.addr, "drop_reason": "overflow"})
-
-    # -- legacy accounting aliases (deprecated: read counters.snapshot()) --------
-    @property
-    def sent_msgs(self) -> int:
-        return self.counters.legacy("sent_msgs")
-
-    @property
-    def sent_bytes(self) -> int:
-        return self.counters.legacy("sent_bytes")
 
 
 def approx_size(msg: Any) -> int:

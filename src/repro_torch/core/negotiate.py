@@ -77,8 +77,8 @@ def pick_compatible(
     Ties (including the common all-neutral-cost-model case) break toward
     server preference order, with client preference as the per-option
     tiebreak — so unannotated stacks negotiate exactly as the historical
-    first-compatible rule did. ``mode="first"`` forces that legacy behavior
-    (kept for the scored-vs-first comparison in bench_reconfigure).
+    first-compatible rule did. ``mode="first"`` forces that rule; the
+    negotiator uses it when it has no objective or telemetry to score by.
 
     Returns (server_choice, client_option_index) or None when no pair is
     compatible. ``scores`` (when given a dict) is filled with the

@@ -27,7 +27,10 @@
 // packed buffer. One warp owns one row; its lanes stride the row, so loads
 // and stores are coalesced. quantize_pack reads its row twice (max, then
 // codes); the second read hits L1/L2. Wider loads and several rows per warp
-// are left for later.
+// are left for later. unpack_dequant keeps a warp per row too, with the
+// row's scale read once: one thread per element, grid-strided and reading
+// its scale per element, was 1.6-1.8x slower at block 256 and only about 5%
+// faster at block 64 on an H100 (PERF.md).
 //
 // NaN and Inf inputs are out of scope, as in the reference's tests: fmaxf
 // drops a NaN where jnp.max propagates it.

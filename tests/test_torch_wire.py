@@ -201,3 +201,8 @@ class TestOnCard:
         got = drain(rx, 2)
         assert [tuple(t.shape) for t in got] == [(1000, 7), (3,)]
         assert all(t.device.type == "cuda" for t in got)
+
+    def test_message_on_another_device_raises(self, cuda):
+        msgs = [torch.randn(100, device=cuda)]
+        with pytest.raises(ValueError, match="lies on cuda"):
+            wire.encode_batch(msgs, block=64, device="cpu")
