@@ -5,20 +5,38 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-Three phases, each of which exits non-zero on any failed check:
+Phases, each of which exits non-zero on any failed check:
 
 1. backend: the report of ``python -m repro_torch.backend``, then the build of
-   every kernel from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``;
-2. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path — the gradient of one llama3.2-1b decoder layer at
-   its published widths (d_model 2048, 32 heads and 8 KV heads of 64,
-   d_ff 8192: 60,821,504 float32) — byte- or bit-equal, then timed with CUDA
-   events beside the plain version and the bound of the card's memory rate;
-3. main path: two host agents negotiate a Select of two int8 wires
+   every kernel from ``src/repro_torch/kernels/*/csrc`` with ``nvcc`` (one per
+   source, started together) and each library's ``ptxas`` register lines;
+2. quantize kernels: each against its plain PyTorch version on the card, at
+   the shapes of the connection path — the gradient of one llama3.2-1b
+   decoder layer at its published widths (d_model 2048, 32 heads and 8 KV
+   heads of 64, d_ff 8192: 60,821,504 float32) — byte- or bit-equal, then
+   timed with CUDA events beside the plain version and the bound of the
+   card's memory rate;
+3. flash attention: the kernel against its plain version at the serving
+   path's prefill shape (q 4 x 2048 x 32 x 64, k/v 4 x 2048 x 8 x 64, bf16,
+   causal), a ragged length, a 1024 window, non-causal, float32 and head
+   dim 128, each within its stated tolerance; then timed beside the plain
+   version and ``scaled_dot_product_attention`` (a yardstick the port never
+   calls) and the card's bound;
+4. connection path: two host agents negotiate a Select of two int8 wires
    (block 256, block 64), stream the layer's gradients as two batches, swap
-   the wire under two-phase commit and stream them again. The kernels'
-   launch counters are set to 0 just before and read just after. The same
-   run is then repeated under torch.profiler for the device's idle share.
+   the wire under two-phase commit and stream them again. The quantize
+   kernels' launch counters are set to 0 just before and read just after.
+   The same run is then repeated under torch.profiler for the device's idle
+   share;
+5. serving path: ``python -m repro_torch.launch.serve --arch llama3.2-1b
+   --batch 4 --prompt-len 2048 --gen 32`` through its ``main``, at the full
+   published config (16 layers, 1,235,814,400 float32 parameters drawn from
+   a seed), with the flash kernel's counter set to 0 just before and read
+   just after: one launch per layer of the prefill, none in decode. Then, on
+   a model built again from the same seed: the prefill's logits against the
+   same prefill with plain dense attention, decode step 1's logits against
+   a prefill over the S + 1 tokens, warm timings, and a profile of prefill
+   and decode.
 
 The line before the last is one JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -56,6 +74,20 @@ F32_OPS_PER_S = 67e12
 #: elementwise operations per element: abs, max, divide, round, 2 clamps, and
 #: the scale's multiply per row; unpack: convert and multiply
 OPS_PER_ELEM = {"quantize_pack": 6, "unpack_dequant": 2}
+#: dense bf16 tensor-core peak of an H100 SXM (NVIDIA's H100 data sheet)
+BF16_OPS_PER_S = 989e12
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:109"
+#: the serving path: four prompts of 2048 tokens, then 32 decode steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+#: kernel against plain version, max abs error: one bf16 step at the outputs'
+#: magnitude, and float32 summation order (tightened from the reference's own
+#: 2e-2 / 2e-3, tests/test_kernels.py)
+FLASH_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
+#: serving checks, max abs error on logits of magnitude up to about 5: the
+#: kernel's and the dense path's bf16 attention outputs differ by a rounding
+#: step, and 16 layers of bf16 residual stream carry it to the logits
+LOGITS_TOL = 0.1
 
 
 def fail(msg: str) -> None:
@@ -176,6 +208,64 @@ def phase_kernels(torch) -> dict:
     return results
 
 
+def phase_flash(torch) -> dict:
+    """The flash-attention kernel against its plain version, then timed at
+    the serving path's prefill shape."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def qkv(B, S, hd, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((B, S, N_HEADS, hd), (B, S, N_KV, hd), (B, S, N_KV, hd))]
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("prefill", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16), dict(causal=True)),
+             ("ragged S=2000", (SERVE_BATCH, 2000, HEAD_DIM, bf16), dict(causal=True)),
+             ("window 1024", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16),
+              dict(causal=True, window=1024)),
+             ("non-causal", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16), dict(causal=False)),
+             ("float32", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, f32), dict(causal=True)),
+             ("hd128", (1, 1024, 128, bf16), dict(causal=True))]
+    errs = {}
+    for label, (B, S, hd, dtype), kw in cases:
+        q, k, v = qkv(B, S, hd, dtype)
+        out = flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(out.shape == q.shape and out.dtype == dtype, f"flash {label}: {out.dtype} {out.shape}")
+        err = (out.float() - want.float()).abs().max().item()
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        print(f"kernel check flash_attention {label}: q {tuple(q.shape)} {dtype} {kw} "
+              f"max abs err {err} (tolerance {tol})")
+        check(err <= tol, f"flash_attention {label}: max abs err {err} > {tol}")
+        errs[label] = err
+
+    q, k, v = qkv(SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2).float()
+               - flash_attention_ref(q, k, v).float()).abs().max().item()
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), reps=5, group=2)
+    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    B, S, H, hd = q.shape
+    # causal: S(S+1)/2 kept (q, k) pairs per head, 2 flops each for QK^T and PV
+    flops = 2 * B * H * hd * S * (S + 1)
+    io = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read, o written, bf16
+    ops_ms, bytes_ms = flops / BF16_OPS_PER_S * 1e3, io / MEMORY_RATE * 1e3
+    res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "max_abs_err": errs["prefill"], "flops": flops, "bytes": io}
+    print(f"time flash_attention prefill: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+          f"sdpa {library_ms:.4f} ms, sdpa vs plain max abs err {lib_err}, "
+          f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}: {flops} flops at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, {io} bytes; {flops / ms / 1e9:.1f} TFLOP/s)")
+    return res
+
+
 def phase_main_path(torch) -> dict:
     from repro_torch.comm.session import run_swap_session
     from repro_torch.kernels.quantize.quantize import INV127, quantize_pack, unpack_dequant
@@ -217,6 +307,14 @@ def phase_main_path(torch) -> dict:
     return launches, batches
 
 
+def device_events(torch, prof) -> list:
+    """(device us, name, count) of a profile, largest first. Device-side events
+    only: a host op (aten::copy_) also carries the device time of the copy it
+    launched, and would count it twice."""
+    return sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+
+
 def phase_profile(torch, batches) -> None:
     """The main path once more under torch.profiler: the device's busy time
     (kernels and copies) against the wall time of the run, and the count of
@@ -228,10 +326,7 @@ def phase_profile(torch, batches) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = run_swap_session(batches + batches, blocks=BLOCKS, swap_after=2,
                                device="cuda")
-    # device-side events only: a host op (aten::copy_) also carries the
-    # device time of the copy it launched, and would count it twice
-    dev = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    dev = device_events(torch, prof)
     busy_s = sum(us for us, _, _ in dev) / 1e6
     print(f"profile: wall {res.seconds:.4f} s, device busy {busy_s:.4f} s, "
           f"idle share {1 - busy_s / res.seconds:.4f}")
@@ -245,6 +340,103 @@ def phase_profile(torch, batches) -> None:
                        ("Memcpy DtoH", n), ("Memcpy HtoD", n)):
         got = sum(c for _, k, c in dev if part in k)
         check(got == want, f"profile: {got} x {part} in {n} batches, want {want}")
+
+
+def phase_serve(torch):
+    """The serving path through the launcher's ``main``, with the flash
+    kernel's counter read around it; then the checks and timings on a model
+    built again from the same seed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import grow_cache
+
+    argv = ["--arch", "llama3.2-1b", "--batch", str(SERVE_BATCH), "--prompt-len",
+            str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
+    print("serve: python -m repro_torch.launch.serve", " ".join(argv))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    res = serve.main(argv)
+    launches = flash_attention.launches
+    cfg = get_config("llama3.2-1b")
+    print(f"serve: flash_attention launches {launches} (want {cfg.num_layers}, one per layer "
+          f"of the prefill, none in decode); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == cfg.num_layers, f"flash_attention launched {launches} times in serving")
+    check(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_GEN + 1), "generated tokens' shape")
+    check(bool(torch.isfinite(res.logits).all()), "non-finite logits")
+    print(f"serve (first call): prefill {res.prefill_s * 1e3:.3f} ms, decode "
+          f"{res.decode_ms_per_token:.4f} ms/token, {res.tokens_per_s:.1f} tokens/s")
+
+    model = build(cfg.replace(attn_impl="pallas"), device="cuda", seed=serve.SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 1_235_814_400, f"{n_params} parameters, want 1,235,814,400")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1), generator=gen,
+                           device="cuda")
+    prompt = tokens[:, :SERVE_PROMPT]
+
+    n0 = flash_attention.launches
+    cache, logits = model.prefill(prompt)
+    check(flash_attention.launches == n0 + cfg.num_layers, "flash launches in one prefill")
+    model.attn_impl = "xla_dense"
+    _, logits_dense = model.prefill(prompt)
+    model.attn_impl = "pallas"
+    err = (logits.float() - logits_dense.float()).abs().max().item()
+    agree = (logits.argmax(-1) == logits_dense.argmax(-1)).float().mean().item()
+    print(f"serve check: prefill logits, flash kernel vs xla_dense: max abs err {err} "
+          f"(tolerance {LOGITS_TOL}), |logits| max {logits.float().abs().max().item()}, "
+          f"argmax agree {agree}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    check(err <= LOGITS_TOL, f"flash vs dense prefill logits differ by {err}")
+
+    n0 = flash_attention.launches
+    _, logits_step = model.decode_step(grow_cache(cache, 1), tokens[:, SERVE_PROMPT:])
+    check(flash_attention.launches == n0, "decode launched the flash kernel")
+    _, logits_long = model.prefill(tokens)
+    err = (logits_step.float() - logits_long.float()).abs().max().item()
+    agree = (logits_step.argmax(-1) == logits_long.argmax(-1)).float().mean().item()
+    print(f"serve check: decode step 1 vs prefill over {SERVE_PROMPT + 1} tokens: max abs err "
+          f"{err} (tolerance {LOGITS_TOL}), argmax agree {agree}")
+    check(err <= LOGITS_TOL, f"decode vs prefill logits differ by {err}")
+
+    # warm timings of the same model, each phase ending in a synchronise
+    warm = serve.serve(model, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN)
+    print(f"serve (warm): prefill {warm.prefill_s * 1e3:.3f} ms, decode "
+          f"{warm.decode_ms_per_token:.4f} ms/token, {warm.tokens_per_s:.1f} tokens/s")
+    check(torch.equal(warm.tokens, res.tokens), "the same seed served other tokens")
+
+    for label, fn in (("prefill", lambda: model.prefill(prompt)),
+                      ("decode x8",
+                       lambda: _decode_steps(model, grow_cache(cache, 8), tokens[:, -1:], 8))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = device_events(torch, prof)
+        busy = sum(us for us, _, _ in dev) / 1e6
+        print(f"profile serve {label}: wall {wall:.4f} s, device busy {busy:.4f} s, "
+              f"idle share {1 - busy / wall:.4f}")
+        print(f"profile serve {label}: {sum(c for _, _, c in dev)} device kernels and copies")
+        for us, key, count in dev[:8]:
+            print(f"profile serve {label}: device {us / 1e3:.3f} ms in {count} x {key[:90]}")
+        host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+        for us, key, count in host[:6]:
+            print(f"profile serve {label}: host {us / 1e3:.3f} ms in {count} x {key[:90]}")
+    return launches
+
+
+def _decode_steps(model, cache, tok, n):
+    for _ in range(n):
+        cache, logits = model.decode_step(cache, tok)
+        tok = logits.argmax(dim=-1, keepdim=True)
 
 
 def main() -> int:
@@ -262,8 +454,10 @@ def main() -> int:
     smi = phase_backend(torch, backend)
     print(f"memory rate used for the bound: H100 SXM {MEMORY_RATE / 1e12} TB/s")
     timed = phase_kernels(torch)
+    flash = phase_flash(torch)
     launches, batches = phase_main_path(torch)
     phase_profile(torch, batches)
+    launches["flash_attention"] = phase_serve(torch)
     kernels = []
     for name in ("quantize_pack", "unpack_dequant"):
         r = timed[(name, 256)]
@@ -272,7 +466,11 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
-    print(json.dumps({"block64": {name: timed[(name, 64)] for name in launches}}))
+    kernels.append({"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+                    "replaces": FLASH_REPLACES, "launches": launches["flash_attention"],
+                    **{k: flash[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}})
+    print(json.dumps({"block64": {name: timed[(name, 64)] for name in REPLACES}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -37,6 +37,7 @@ BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "kernels"
 #: every kernel source of the package, by library name
 KERNEL_SOURCES: Dict[str, Path] = {
     "quantize": PACKAGE_DIR / "kernels" / "quantize" / "csrc" / "quantize.cu",
+    "flash_attention": PACKAGE_DIR / "kernels" / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
 #: IEEE division and rounding stay on: no --use_fast_math, -prec-div=false or

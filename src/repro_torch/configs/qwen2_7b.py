@@ -1,0 +1,34 @@
+"""qwen2-7b [dense] — 28L d_model=3584 28H (GQA kv=4) d_ff=18944 vocab=152064.
+
+GQA with QKV bias. [arXiv:2407.10671; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-7b",
+    family="dense",
+    num_layers=28,
+    d_model=3584,
+    num_heads=28,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=18944,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1e6,
+    norm_eps=1e-6,
+)
+
+
+def smoke_config() -> ModelConfig:
+    return CONFIG.replace(
+        name="qwen2-7b-smoke",
+        num_layers=2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+        attn_impl="xla_dense",
+    )

@@ -1,0 +1,189 @@
+"""Dense GQA transformer LM (llama / qwen / mistral / granite), for serving.
+
+The counterpart of the serving half of ``src/repro/models/transformer.py``:
+``DenseLM.prefill(tokens) -> (cache, logits_last)`` and
+``DenseLM.decode_step(cache, tokens) -> (cache, logits)``, with the
+reference's KV cache ``{"k", "v"}: (L, B, S, KH, hd)`` bfloat16 plus ``"len"``
+(here a Python int). The loop over ``layers`` threads each layer's cache as
+``stacking.apply_stack_with_cache`` does on one device.
+
+Parameter names follow the reference's tree (``embed.table``,
+``layers.{i}.attn.wq.w``, ``final_norm.scale``, ...) so that
+``convert.params_from_reference`` maps leaf to parameter by name.
+
+``attn_impl`` starts as the config's and can be switched on a built model;
+it is the Select of ``models.attention.attention`` (``"pallas"`` is the
+Hopper flash-attention kernel). Decode attends through
+``decode_attention_local`` in every case, as the reference's default.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    COMPUTE,
+    MLP,
+    Embedding,
+    Linear,
+    Norm,
+    mask_padded_vocab,
+    rope_cos_sin,
+    rotate,
+)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        hd = cfg.head_dim_
+        self.cfg = cfg
+        self.wq = Linear(cfg.d_model, cfg.num_heads * hd, bias=cfg.qkv_bias, device=device)
+        self.wk = Linear(cfg.d_model, cfg.num_kv_heads * hd, bias=cfg.qkv_bias, device=device)
+        self.wv = Linear(cfg.d_model, cfg.num_kv_heads * hd, bias=cfg.qkv_bias, device=device)
+        self.wo = Linear(cfg.num_heads * hd, cfg.d_model, device=device)
+
+    def init(self, gen: torch.Generator) -> None:
+        for lin in (self.wq, self.wk, self.wv, self.wo):
+            lin.init(gen)
+
+    def qkv(self, x: torch.Tensor, rope: tuple):
+        """q, k, v of ``x`` (B, S, D), q and k rotated by ``rope`` (the
+        ``rope_cos_sin`` of their positions)."""
+        B, S, _ = x.shape
+        cfg, hd = self.cfg, self.cfg.head_dim_
+        q = self.wq(x).reshape(B, S, cfg.num_heads, hd)
+        k = self.wk(x).reshape(B, S, cfg.num_kv_heads, hd)
+        v = self.wv(x).reshape(B, S, cfg.num_kv_heads, hd)
+        return rotate(q, *rope), rotate(k, *rope), v
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln1 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, device=device)
+        self.attn = Attention(cfg, device=device)
+        self.ln2 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated, act=cfg.act, device=device)
+
+    def init(self, gen: torch.Generator) -> None:
+        self.ln1.init()
+        self.attn.init(gen)
+        self.ln2.init()
+        self.mlp.init(gen)
+
+
+class DenseLM(nn.Module):
+    """The dense family's model. Built with ``generator=None`` its parameters
+    are left unset for the caller to fill (``convert.params_from_reference``);
+    with a generator they are drawn from the reference's distributions. Call
+    :meth:`prepare` after the parameters are set (``registry.build`` and
+    ``convert.params_from_reference`` do)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise ValueError(f"DenseLM serves the dense family, not {cfg.family!r}")
+        cfg.validate()
+        self.cfg = cfg
+        self.attn_impl = cfg.attn_impl
+        self.embed = Embedding(cfg.vocab_padded, cfg.d_model, device=device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device=device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, device=device)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else Linear(cfg.d_model, cfg.vocab_padded, device=device))
+        if generator is not None:
+            self.embed.init(generator)
+            for layer in self.layers:
+                layer.init(generator)
+            self.final_norm.init()
+            if self.lm_head is not None:
+                self.lm_head.init(generator)
+            self.prepare()
+
+    def prepare(self) -> "DenseLM":
+        """Make the bfloat16 copies the forward pass multiplies with."""
+        for m in self.modules():
+            if isinstance(m, (Linear, Embedding)):
+                m.prepare()
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def _logits(self, x_last: torch.Tensor) -> torch.Tensor:
+        """(B, D) bfloat16 -> (B, vocab_padded) bfloat16 logits, the padded
+        columns at -1e30."""
+        if self.lm_head is None:
+            logits = x_last @ self.embed.table16.T
+        else:
+            logits = x_last @ self.lm_head.w16
+        return mask_padded_vocab(logits, self.cfg.vocab_size)
+
+    def init_cache(self, batch: int, capacity: int) -> dict:
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.head_dim_)
+        return {"k": torch.zeros(shape, dtype=COMPUTE, device=self.device),
+                "v": torch.zeros(shape, dtype=COMPUTE, device=self.device),
+                "len": 0}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor):
+        """Process the whole prompt ``(B, S)``; return the cache of its S
+        positions and the last position's logits ``(B, vocab_padded)``."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed(tokens)
+        rope = rope_cos_sin(torch.arange(S, device=x.device), cfg.head_dim_, cfg.rope_theta)
+        ks, vs = [], []
+        for layer in self.layers:
+            q, k, v = layer.attn.qkv(layer.ln1(x), rope)
+            o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
+                               window=cfg.sliding_window, chunk=cfg.attn_chunk)
+            x = x + layer.attn.wo(o.reshape(B, S, -1))
+            x = x + layer.mlp(layer.ln2(x))
+            ks.append(k.to(COMPUTE))
+            vs.append(v.to(COMPUTE))
+        x = self.final_norm(x)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": S}
+        return cache, self._logits(x[:, -1])
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """One token per row, ``tokens`` ``(B, 1)``, against the cache: its K
+        and V are written at position ``cache["len"]`` and the token attends
+        to ``len + 1`` entries. The cache's tensors are updated in place (the
+        reference returns new arrays); the returned cache shares them."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        pos = int(cache["len"])
+        if pos >= cache["k"].shape[2]:
+            raise ValueError(f"the cache holds {cache['k'].shape[2]} positions, all used; "
+                             "grow it before decoding")
+        x = self.embed(tokens)
+        rope = rope_cos_sin(torch.arange(pos, pos + 1, device=x.device), cfg.head_dim_,
+                            cfg.rope_theta)
+        for i, layer in enumerate(self.layers):
+            q, k, v = layer.attn.qkv(layer.ln1(x), rope)
+            cache["k"][i, :, pos] = k[:, 0].to(COMPUTE)
+            cache["v"][i, :, pos] = v[:, 0].to(COMPUTE)
+            o = attn.decode_attention_local(q, cache["k"][i], cache["v"][i], pos + 1,
+                                            window=cfg.sliding_window)
+            x = x + layer.attn.wo(o.reshape(B, 1, -1))
+            x = x + layer.mlp(layer.ln2(x))
+        x = self.final_norm(x)
+        return {"k": cache["k"], "v": cache["v"], "len": pos + 1}, self._logits(x[:, -1])
+
+
+def grow_cache(cache: dict, extra: int) -> dict:
+    """The cache with ``extra`` more (zero) positions, for generation."""
+    pad = (0, 0, 0, 0, 0, extra)
+    return {"k": torch.nn.functional.pad(cache["k"], pad),
+            "v": torch.nn.functional.pad(cache["v"], pad), "len": cache["len"]}

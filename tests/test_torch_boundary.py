@@ -32,7 +32,10 @@ def test_imports_with_jax_and_reference_blocked():
     code = ("import sys\n"
             "sys.modules['jax'] = sys.modules['repro'] = None\n"
             "import repro_torch.backend, repro_torch.core, repro_torch.comm.wire\n"
-            "import repro_torch.comm.session, repro_torch.obs\n")
+            "import repro_torch.comm.session, repro_torch.obs\n"
+            "import repro_torch.models.transformer, repro_torch.models.convert\n"
+            "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.flash_attention.flash_attention\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
