@@ -36,7 +36,23 @@ Phases, each of which exits non-zero on any failed check:
    a model built again from the same seed: the prefill's logits against the
    same prefill with plain dense attention, decode step 1's logits against
    a prefill over the S + 1 tokens, warm timings, and a profile of prefill
-   and decode.
+   and decode;
+6. SSM scan: the kernel against its plain version on the card at the
+   hybrid serving path's prefill chunk (a, bx 4 x 256 x 3200 x 16 float32),
+   its decode step (C = 1), a d_in of 300, a chunk that is a strided view of
+   a longer sequence, two half chunks against one whole, and a = 1 against
+   a float64 sum, each within 1e-5; then timed beside the plain version and
+   the bound of the card's memory rate;
+7. hybrid serving path: ``python -m repro_torch.launch.serve --arch
+   hymba-1.5b --batch 4 --prompt-len 2048 --gen 32`` through its ``main``, at
+   the full published config (32 layers, d_model 1600, 25 heads and 5 KV
+   heads of 64, 29 of them with a 1024 window; 1,663,080,000 float32
+   parameters drawn from a seed), with the flash and SSM-scan kernels'
+   counters set to 0 just before and read just after: one flash launch per
+   layer of the prefill and none in decode, one scan launch per chunk of 256
+   per layer of the prefill and one per layer of each decode step (256 +
+   32 x 32). Then the checks of phase 5, the plain side also scanning with
+   the scan's plain version, warm timings and a profile.
 
 The line before the last is one JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -78,6 +94,15 @@ OPS_PER_ELEM = {"quantize_pack": 6, "unpack_dequant": 2}
 BF16_OPS_PER_S = 989e12
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:109"
+SSM_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+SSM_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:57"
+#: hymba-1.5b's attention (25 query heads over 5 KV heads, window 1024) and
+#: SSM scan widths (d_in = 2 x 1600, state 16), and the prefill's scan chunk
+HYMBA_HEADS, HYMBA_KV, HYMBA_WINDOW = 25, 5, 1024
+SSM_D_IN, SSM_N, SSM_CHUNK = 3200, 16, 256
+#: scan kernel against its plain version: the reference's own atol = rtol
+#: (tests/test_kernels.py::TestSsmScanKernel)
+SSM_TOL = 1e-5
 #: the serving path: four prompts of 2048 tokens, then 32 decode steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 #: kernel against plain version, max abs error: one bf16 step at the outputs'
@@ -88,6 +113,12 @@ FLASH_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
 #: kernel's and the dense path's bf16 attention outputs differ by a rounding
 #: step, and 16 layers of bf16 residual stream carry it to the logits
 LOGITS_TOL = 0.1
+#: hymba's serving checks, max abs error on logits of the same magnitude: the
+#: scan kernel agrees with its plain version bit for bit, so the difference
+#: is again the flash kernel's bf16 rounding step against the dense path,
+#: now carried by 32 layers of bf16 residual (twice llama's 16), through
+#: each layer's two normalised branches
+HYMBA_LOGITS_TOL = 0.15
 
 
 def fail(msg: str) -> None:
@@ -216,9 +247,10 @@ def phase_flash(torch) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
-    def qkv(B, S, hd, dtype):
+    def qkv(B, S, hd, dtype, heads=(N_HEADS, N_KV)):
+        H, KH = heads
         return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                for shape in ((B, S, N_HEADS, hd), (B, S, N_KV, hd), (B, S, N_KV, hd))]
+                for shape in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd))]
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("prefill", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16), dict(causal=True)),
@@ -227,10 +259,15 @@ def phase_flash(torch) -> dict:
               dict(causal=True, window=1024)),
              ("non-causal", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16), dict(causal=False)),
              ("float32", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, f32), dict(causal=True)),
-             ("hd128", (1, 1024, 128, bf16), dict(causal=True))]
+             ("hd128", (1, 1024, 128, bf16), dict(causal=True)),
+             ("hymba GQA 5, window 1024", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16),
+              dict(causal=True, window=HYMBA_WINDOW)),
+             ("hymba GQA 5, global", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16),
+              dict(causal=True))]
     errs = {}
     for label, (B, S, hd, dtype), kw in cases:
-        q, k, v = qkv(B, S, hd, dtype)
+        q, k, v = qkv(B, S, hd, dtype, (HYMBA_HEADS, HYMBA_KV) if "hymba" in label
+                      else (N_HEADS, N_KV))
         out = flash_attention(q, k, v, **kw)
         want = flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -263,6 +300,25 @@ def phase_flash(torch) -> dict:
           f"sdpa {library_ms:.4f} ms, sdpa vs plain max abs err {lib_err}, "
           f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}: {flops} flops at "
           f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, {io} bytes; {flops / ms / 1e9:.1f} TFLOP/s)")
+
+    # hymba's two prefill shapes: 29 layers with the window, 3 without
+    q, k, v = qkv(SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16, (HYMBA_HEADS, HYMBA_KV))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(SERVE_PROMPT, device="cuda")
+    for label, window in (("window 1024", HYMBA_WINDOW), ("global", None)):
+        ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window))
+        # sdpa's boolean mask keeps True: causal and inside the window
+        mask = None if window is None else (
+            (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window))
+        lib = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, is_causal=window is None,
+                                          enable_gqa=True))
+        pairs = sum(min(i + 1, window or i + 1) for i in range(SERVE_PROMPT))
+        flops = 4 * SERVE_BATCH * HYMBA_HEADS * HEAD_DIM * pairs
+        io = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bound = max(flops / BF16_OPS_PER_S, io / MEMORY_RATE) * 1e3
+        res[f"hymba {label}"] = {"ms": ms, "library_ms": lib, "bound_ms": bound}
+        print(f"time flash_attention hymba {label}: q {tuple(q.shape)} bf16: {ms:.4f} ms "
+              f"(sdpa {lib:.4f} ms, bound {bound:.4f} ms: {flops} flops, {io} bytes)")
     return res
 
 
@@ -342,77 +398,188 @@ def phase_profile(torch, batches) -> None:
         check(got == want, f"profile: {got} x {part} in {n} batches, want {want}")
 
 
-def phase_serve(torch):
-    """The serving path through the launcher's ``main``, with the flash
-    kernel's counter read around it; then the checks and timings on a model
-    built again from the same seed."""
+def phase_ssm_scan(torch) -> dict:
+    """The SSM-scan kernel against its plain version on the card, then timed
+    at the hybrid serving path's prefill chunk and decode step."""
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_scan_chunk, ssm_scan_chunk_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def inputs(B, C, d, h0_scale=0.1):
+        """The reference's test inputs: a = sigmoid(normal), a decay in
+        (0, 1); bx and h0 normal, scaled."""
+        a = torch.sigmoid(torch.randn((B, C, d, SSM_N), generator=gen, device="cuda"))
+        bx = torch.randn((B, C, d, SSM_N), generator=gen, device="cuda") * 0.1
+        h0 = torch.randn((B, d, SSM_N), generator=gen, device="cuda") * h0_scale
+        return a, bx, h0
+
+    def compare(label, got, want) -> float:
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        ok = all(torch.allclose(g, w, atol=SSM_TOL, rtol=SSM_TOL) for g, w in zip(got, want))
+        print(f"kernel check ssm_scan_chunk {label}: max abs err {err} "
+              f"(atol = rtol = {SSM_TOL})")
+        check(ok, f"ssm_scan_chunk {label}: max abs err {err} above atol = rtol = {SSM_TOL}")
+        return err
+
+    B = SERVE_BATCH
+    prefill, decode = inputs(B, SSM_CHUNK, SSM_D_IN), inputs(B, 1, SSM_D_IN)
+    errs = []
+    for label, (a, bx, h0) in (("prefill chunk", prefill), ("decode step", decode),
+                               ("d_in 300", inputs(3, 8, 300))):
+        n0 = ssm_scan_chunk.launches
+        got = ssm_scan_chunk(a, bx, h0)
+        check(ssm_scan_chunk.launches == n0 + 1, "ssm_scan_chunk: one launch per call")
+        check(got[0].shape == a.shape and got[1].shape == h0.shape
+              and got[0].dtype == torch.float32, f"ssm_scan_chunk {label}: output shapes")
+        errs.append(compare(f"{label} {tuple(a.shape)}", got, ssm_scan_chunk_ref(a, bx, h0)))
+    # a chunk that is a view of a longer sequence, as ssm_apply passes it
+    a, bx, h0 = inputs(B, 2 * SSM_CHUNK, SSM_D_IN)
+    a, bx = a[:, SSM_CHUNK:], bx[:, SSM_CHUNK:]
+    check(not a.is_contiguous(), "the strided case must be a view")
+    errs.append(compare(f"strided view, batch stride {a.stride(0)}",
+                        ssm_scan_chunk(a, bx, h0), ssm_scan_chunk_ref(a, bx, h0)))
+    # two half chunks in turn against the whole chunk
+    a, bx, h0 = prefill
+    half = SSM_CHUNK // 2
+    seq1, h1 = ssm_scan_chunk(a[:, :half], bx[:, :half], h0)
+    seq2, h2 = ssm_scan_chunk(a[:, half:], bx[:, half:], h1)
+    errs.append(compare("two half chunks vs one whole", (torch.cat([seq1, seq2], dim=1), h2),
+                        ssm_scan_chunk(a, bx, h0)))
+    # a = 1 accumulates: h_last = h0 + sum_t bx_t, against a float64 sum
+    _, bx1, h01 = inputs(B, SSM_CHUNK, SSM_D_IN, h0_scale=1.0)
+    compare("a = 1 vs h0 + sum bx in float64", ssm_scan_chunk(torch.ones_like(bx1), bx1, h01)[1:],
+            ((h01.double() + bx1.double().sum(dim=1)).float(),))
+
+    ms = time_ms(torch, lambda: ssm_scan_chunk(a, bx, h0))
+    plain_ms = time_ms(torch, lambda: ssm_scan_chunk_ref(a, bx, h0), reps=5, group=2)
+    decode_ms = time_ms(torch, lambda: ssm_scan_chunk(*decode))
+    # a and bx read, h_seq written, h0 read and h_last written, float32; a
+    # multiply and an add per lane and step
+    io = 4 * (3 * a.numel() + 2 * h0.numel())
+    flops = 2 * a.numel()
+    bytes_ms, ops_ms = io / MEMORY_RATE * 1e3, flops / F32_OPS_PER_S * 1e3
+    res = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "max_abs_err": max(errs), "bytes": io, "flops": flops, "decode_ms": decode_ms}
+    print(f"time ssm_scan_chunk prefill chunk {tuple(a.shape)}: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms by {res['bound_by']}: {io} bytes, "
+          f"{flops} flops; {io / ms / 1e6:.1f} GB/s); decode step {tuple(decode[0].shape)}: "
+          f"{decode_ms:.4f} ms")
+    return res
+
+
+def _wrappers():
+    """The serving path's kernel wrappers, by name."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_scan_chunk
+
+    return {"flash_attention": flash_attention, "ssm_scan_chunk": ssm_scan_chunk}
+
+
+def _counts() -> dict:
+    return {name: w.launches for name, w in _wrappers().items()}
+
+
+def _since(before: dict) -> dict:
+    return {name: n - before[name] for name, n in _counts().items()}
+
+
+def phase_serve(torch, arch: str, n_params: int, tol: float) -> dict:
+    """The serving path of ``arch`` through the launcher's ``main``, with the
+    kernels' counters set to 0 just before and read just after; then the
+    checks and timings on a model built again from the same seed. Returns
+    the counts of the ``main`` run."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.launch import serve
     from repro_torch.models.registry import build
-    from repro_torch.models.transformer import grow_cache
 
-    argv = ["--arch", "llama3.2-1b", "--batch", str(SERVE_BATCH), "--prompt-len",
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    L = cfg.num_layers
+    # one scan launch per chunk of 256 per layer in prefill, one per layer
+    # and decode step; one flash launch per layer of the prefill
+    scans = -(-SERVE_PROMPT // SSM_CHUNK) * L if hybrid else 0
+    want_main = {"flash_attention": L, "ssm_scan_chunk": scans + SERVE_GEN * L * hybrid}
+    argv = ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
             str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
-    print("serve: python -m repro_torch.launch.serve", " ".join(argv))
+    print(f"serve {arch}: python -m repro_torch.launch.serve", " ".join(argv))
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    for w in _wrappers().values():
+        w.launches = 0
     res = serve.main(argv)
-    launches = flash_attention.launches
-    cfg = get_config("llama3.2-1b")
-    print(f"serve: flash_attention launches {launches} (want {cfg.num_layers}, one per layer "
-          f"of the prefill, none in decode); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(launches == cfg.num_layers, f"flash_attention launched {launches} times in serving")
+    launches = _counts()
+    print(f"serve {arch}: launches {json.dumps(launches)} (want {json.dumps(want_main)}: one "
+          f"flash launch per layer of the prefill and none in decode"
+          + (f"; one scan per {SSM_CHUNK}-token chunk and layer of the prefill, one per "
+             f"layer and decode step" if hybrid else "")
+          + f"); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.max_memory_allocated()} bytes)")
+    check(launches == want_main, f"serve {arch}: launches {launches}, want {want_main}")
     check(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_GEN + 1), "generated tokens' shape")
     check(bool(torch.isfinite(res.logits).all()), "non-finite logits")
-    print(f"serve (first call): prefill {res.prefill_s * 1e3:.3f} ms, decode "
+    print(f"serve {arch} (first call): prefill {res.prefill_s * 1e3:.3f} ms, decode "
           f"{res.decode_ms_per_token:.4f} ms/token, {res.tokens_per_s:.1f} tokens/s")
 
     model = build(cfg.replace(attn_impl="pallas"), device="cuda", seed=serve.SEED)
-    n_params = sum(p.numel() for p in model.parameters())
-    check(n_params == 1_235_814_400, f"{n_params} parameters, want 1,235,814,400")
+    got_params = sum(p.numel() for p in model.parameters())
+    check(got_params == n_params, f"{got_params} parameters, want {n_params}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1), generator=gen,
                            device="cuda")
     prompt = tokens[:, :SERVE_PROMPT]
 
-    n0 = flash_attention.launches
+    n0 = _counts()
     cache, logits = model.prefill(prompt)
-    check(flash_attention.launches == n0 + cfg.num_layers, "flash launches in one prefill")
+    got = _since(n0)
+    check(got == {"flash_attention": L, "ssm_scan_chunk": scans}, f"one prefill launched {got}")
+    # the plain side: dense attention, and the scan's plain version
     model.attn_impl = "xla_dense"
-    _, logits_dense = model.prefill(prompt)
+    if hybrid:
+        model.ssm_impl = "jnp"
+    n0 = _counts()
+    _, logits_plain = model.prefill(prompt)
+    check(_since(n0) == {"flash_attention": 0, "ssm_scan_chunk": 0},
+          "the plain prefill launched a kernel")
     model.attn_impl = "pallas"
-    err = (logits.float() - logits_dense.float()).abs().max().item()
-    agree = (logits.argmax(-1) == logits_dense.argmax(-1)).float().mean().item()
-    print(f"serve check: prefill logits, flash kernel vs xla_dense: max abs err {err} "
-          f"(tolerance {LOGITS_TOL}), |logits| max {logits.float().abs().max().item()}, "
+    if hybrid:
+        model.ssm_impl = "pallas"
+    err = (logits.float() - logits_plain.float()).abs().max().item()
+    agree = (logits.argmax(-1) == logits_plain.argmax(-1)).float().mean().item()
+    plain = "xla_dense" + (" and the plain scan" if hybrid else "")
+    print(f"serve {arch} check: prefill logits, kernels vs {plain}: max abs err {err} "
+          f"(tolerance {tol}), |logits| max over the real vocab "
+          f"{logits[:, :cfg.vocab_size].float().abs().max().item()}, "
           f"argmax agree {agree}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
-    check(err <= LOGITS_TOL, f"flash vs dense prefill logits differ by {err}")
+    check(err <= tol, f"{arch}: kernel vs plain prefill logits differ by {err}")
 
-    n0 = flash_attention.launches
-    _, logits_step = model.decode_step(grow_cache(cache, 1), tokens[:, SERVE_PROMPT:])
-    check(flash_attention.launches == n0, "decode launched the flash kernel")
+    n0 = _counts()
+    _, logits_step = model.decode_step(model.grow_cache(cache, 1), tokens[:, SERVE_PROMPT:])
+    got = _since(n0)
+    check(got == {"flash_attention": 0, "ssm_scan_chunk": L * hybrid},
+          f"one decode step launched {got}")
     _, logits_long = model.prefill(tokens)
     err = (logits_step.float() - logits_long.float()).abs().max().item()
     agree = (logits_step.argmax(-1) == logits_long.argmax(-1)).float().mean().item()
-    print(f"serve check: decode step 1 vs prefill over {SERVE_PROMPT + 1} tokens: max abs err "
-          f"{err} (tolerance {LOGITS_TOL}), argmax agree {agree}")
-    check(err <= LOGITS_TOL, f"decode vs prefill logits differ by {err}")
+    print(f"serve {arch} check: decode step 1 vs prefill over {SERVE_PROMPT + 1} tokens: max "
+          f"abs err {err} (tolerance {tol}), argmax agree {agree}")
+    check(err <= tol, f"{arch}: decode vs prefill logits differ by {err}")
 
     # warm timings of the same model, each phase ending in a synchronise
     warm = serve.serve(model, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN)
-    print(f"serve (warm): prefill {warm.prefill_s * 1e3:.3f} ms, decode "
+    print(f"serve {arch} (warm): prefill {warm.prefill_s * 1e3:.3f} ms, decode "
           f"{warm.decode_ms_per_token:.4f} ms/token, {warm.tokens_per_s:.1f} tokens/s")
     check(torch.equal(warm.tokens, res.tokens), "the same seed served other tokens")
 
     for label, fn in (("prefill", lambda: model.prefill(prompt)),
-                      ("decode x8",
-                       lambda: _decode_steps(model, grow_cache(cache, 8), tokens[:, -1:], 8))):
+                      ("decode x8", lambda: _decode_steps(model, model.grow_cache(cache, 8),
+                                                         tokens[:, -1:], 8))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -421,15 +588,16 @@ def phase_serve(torch):
             wall = time.perf_counter() - t0
         dev = device_events(torch, prof)
         busy = sum(us for us, _, _ in dev) / 1e6
-        print(f"profile serve {label}: wall {wall:.4f} s, device busy {busy:.4f} s, "
+        tag = f"profile serve {arch} {label}"
+        print(f"{tag}: wall {wall:.4f} s, device busy {busy:.4f} s, "
               f"idle share {1 - busy / wall:.4f}")
-        print(f"profile serve {label}: {sum(c for _, _, c in dev)} device kernels and copies")
+        print(f"{tag}: {sum(c for _, _, c in dev)} device kernels and copies")
         for us, key, count in dev[:8]:
-            print(f"profile serve {label}: device {us / 1e3:.3f} ms in {count} x {key[:90]}")
+            print(f"{tag}: device {us / 1e3:.3f} ms in {count} x {key[:90]}")
         host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CPU), reverse=True)
         for us, key, count in host[:6]:
-            print(f"profile serve {label}: host {us / 1e3:.3f} ms in {count} x {key[:90]}")
+            print(f"{tag}: host {us / 1e3:.3f} ms in {count} x {key[:90]}")
     return launches
 
 
@@ -457,7 +625,15 @@ def main() -> int:
     flash = phase_flash(torch)
     launches, batches = phase_main_path(torch)
     phase_profile(torch, batches)
-    launches["flash_attention"] = phase_serve(torch)
+    paths = {"connection": dict(launches)}
+    paths["serve llama3.2-1b"] = phase_serve(torch, "llama3.2-1b", 1_235_814_400, LOGITS_TOL)
+    scan = phase_ssm_scan(torch)
+    paths["serve hymba-1.5b"] = phase_serve(torch, "hymba-1.5b", 1_663_080_000,
+                                            HYMBA_LOGITS_TOL)
+    by_path = {name: {path: n[name] for path, n in paths.items() if n.get(name)}
+               for name in ("quantize_pack", "unpack_dequant", "flash_attention",
+                            "ssm_scan_chunk")}
+    print("launches by path:", json.dumps(by_path))
     kernels = []
     for name in ("quantize_pack", "unpack_dequant"):
         r = timed[(name, 256)]
@@ -465,11 +641,16 @@ def main() -> int:
                         "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
-    kernels.append({"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-                    "replaces": FLASH_REPLACES, "launches": launches["flash_attention"],
-                    **{k: flash[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}})
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "launches_by_path": by_path[name]})
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # launches: the count of this slice's path, the hymba serve run
+    for name, source, replaces, r in (
+            ("flash_attention", FLASH_SOURCE, FLASH_REPLACES, flash),
+            ("ssm_scan_chunk", SSM_SOURCE, SSM_REPLACES, scan)):
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": paths["serve hymba-1.5b"][name],
+                        **{k: r[k] for k in keys}, "launches_by_path": by_path[name]})
     print(json.dumps({"block64": {name: timed[(name, 64)] for name in REPLACES}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -38,6 +38,7 @@ BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "kernels"
 KERNEL_SOURCES: Dict[str, Path] = {
     "quantize": PACKAGE_DIR / "kernels" / "quantize" / "csrc" / "quantize.cu",
     "flash_attention": PACKAGE_DIR / "kernels" / "flash_attention" / "csrc" / "flash_attention.cu",
+    "ssm_scan": PACKAGE_DIR / "kernels" / "ssm_scan" / "csrc" / "ssm_scan.cu",
 }
 
 #: IEEE division and rounding stay on: no --use_fast_math, -prec-div=false or

@@ -1,8 +1,8 @@
 """Architecture config registry of the port: ``--arch <id>`` resolves here.
 
-The port serves the dense family so far; ``base.py`` and the four arch
-modules are copies of the reference's. An arch of another family raises
-``KeyError`` and says it is not ported yet.
+The port serves the dense and hybrid families so far; ``base.py`` and the
+five arch modules are copies of the reference's. An arch of another family
+raises ``KeyError`` and says it is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,11 +22,12 @@ _ARCH_MODULES = {
     "granite-34b": "repro_torch.configs.granite_34b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
 }
 
 #: archs of the reference that the port does not serve yet
 NOT_PORTED = ("qwen3-moe-235b-a22b", "dbrx-132b", "xlstm-125m", "seamless-m4t-medium",
-              "phi-3-vision-4.2b", "hymba-1.5b")
+              "phi-3-vision-4.2b")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 

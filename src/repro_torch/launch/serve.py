@@ -2,17 +2,21 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --batch 2 --prompt-len 32 --gen 4
 
-The counterpart of ``src/repro/launch/serve.py`` for the dense family. It
-serves parameters drawn from seed 0 (the reference serves its random init
-from ``PRNGKey(0)``) on ``--device`` (``cuda`` by default, which raises
-without a GPU), with attention in prefill by ``--attn-impl`` (``pallas``,
-the Hopper flash-attention kernel, by default). The prompt tokens come from
-a ``torch.Generator`` seeded with 0. After prefill the cache grows by
-``gen + 1`` positions, as in the reference. The last line printed gives
-prefill ms, decode ms per token and the first row of generated tokens.
+The counterpart of ``src/repro/launch/serve.py`` for the dense and hybrid
+families. It serves parameters drawn from seed 0 (the reference serves its
+random init from ``PRNGKey(0)``) on ``--device`` (``cuda`` by default, which
+raises without a GPU), with attention in prefill by ``--attn-impl``
+(``pallas``, the Hopper flash-attention kernel, by default); the hybrid
+family's SSM layers scan with the Hopper SSM-scan kernel. The prompt tokens
+come from a ``torch.Generator`` seeded with 0. After prefill the model grows
+its cache by ``gen + 1`` positions, as in the reference (the hybrid family
+grows only its global layers' K/V). The last line printed gives prefill ms,
+decode ms per token and the first row of generated tokens.
 """
 from __future__ import annotations
 
@@ -27,7 +31,6 @@ from repro_torch import backend
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.attention import IMPLS
 from repro_torch.models.registry import build
-from repro_torch.models.transformer import grow_cache
 
 SEED = 0
 
@@ -73,7 +76,7 @@ def serve(model, *, batch: int, prompt_len: int, gen: int) -> ServeResult:
     _sync(dev)
     t_pre = time.perf_counter() - t0
 
-    cache = grow_cache(cache, gen + 1)
+    cache = model.grow_cache(cache, gen + 1)
     toks = logits.argmax(dim=-1, keepdim=True)
     out = [toks]
     _sync(dev)

@@ -1,0 +1,168 @@
+"""Hymba: hybrid-head LM, attention and SSM branches side by side in every
+layer (arXiv:2411.13676), for serving.
+
+The counterpart of the serving half of ``src/repro/models/hymba.py``:
+``HymbaLM.prefill(tokens) -> (cache, logits_last)`` and
+``HymbaLM.decode_step(cache, tokens) -> (cache, logits)``. Layers are unrolled
+because their caches differ: sliding-window layers keep a ring buffer of
+``min(window, capacity)`` K/V entries, the global layers (``cfg.global_layers``)
+the full K/V, and every layer its SSM state (``ssm_h`` float32,
+``ssm_conv``). The cache is ``{"layers": [{"k", "v", "ssm_h", "ssm_conv"}, ...],
+"len": int}``.
+
+Decode attends over a ring by count, ``min(pos + 1, cap)`` entries, with no
+window mask, as the reference does: slot order does not matter to the
+softmax, and a ring of ``cap`` slots holds the last ``cap`` positions. A ring
+made by a prompt shorter than the window has ``cap = S`` slots, so decode
+overwrites position 0 although it is still inside the window: a quirk of
+the reference that the port keeps.
+
+Two Selects can be switched on a built model: ``attn_impl`` (prefill
+attention, ``pallas`` = the Hopper flash-attention kernel) and ``ssm_impl``
+(each chunk's scan, ``pallas`` = the Hopper SSM-scan kernel, by default;
+``jnp`` = its plain version).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm
+from repro_torch.models.layers import COMPUTE, MLP, Norm, rope_cos_sin
+from repro_torch.models.transformer import Attention, DenseLM
+
+
+class HymbaLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        norm = lambda: Norm(cfg.d_model, cfg.norm, cfg.norm_eps, device=device)  # noqa: E731
+        self.ln1 = norm()
+        self.attn = Attention(cfg, device=device)
+        self.ssm = ssm.SSM(cfg.d_model, cfg.ssm, device=device)
+        self.gn_attn = norm()
+        self.gn_ssm = norm()
+        self.ln2 = norm()
+        # the reference's hymba_layer_init makes a gated MLP whatever mlp_gated says
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, gated=True, act=cfg.act, device=device)
+
+    def init(self, gen: torch.Generator) -> None:
+        for norm in (self.ln1, self.gn_attn, self.gn_ssm, self.ln2):
+            norm.init()
+        self.attn.init(gen)
+        self.ssm.init(gen)
+        self.mlp.init(gen)
+
+    def fuse(self, x: torch.Tensor, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        """The residual stream after the layer, from its input ``x`` and the
+        two branches' outputs: their normalised mean, then the MLP."""
+        x = x + 0.5 * (self.gn_attn(a) + self.gn_ssm(s))
+        return x + self.mlp(self.ln2(x))
+
+
+class HymbaLM(DenseLM):
+    """The hybrid family's model: ``DenseLM``'s embedding, final norm, head,
+    parameter drawing and ``prepare``, with hymba's layers, caches, prefill
+    and decode."""
+
+    FAMILY, LAYER = "hybrid", HymbaLayer
+    #: the SSM scan's Select, switchable on a built model like ``attn_impl``
+    ssm_impl = "pallas"
+
+    def _is_global(self, idx: int) -> bool:
+        return idx in self.cfg.global_layers
+
+    def _kv_capacity(self, idx: int, capacity: int) -> int:
+        return capacity if self._is_global(idx) else min(self.cfg.sliding_window, capacity)
+
+    def init_cache(self, batch: int, capacity: int) -> dict:
+        cfg, dev = self.cfg, self.device
+        layers = []
+        for idx in range(cfg.num_layers):
+            shape = (batch, self._kv_capacity(idx, capacity), cfg.num_kv_heads, cfg.head_dim_)
+            st = ssm.init_state(batch, cfg.d_model, cfg.ssm, device=dev)
+            layers.append({"k": torch.zeros(shape, dtype=COMPUTE, device=dev),
+                           "v": torch.zeros(shape, dtype=COMPUTE, device=dev),
+                           "ssm_h": st.h, "ssm_conv": st.conv})
+        return {"layers": layers, "len": 0}
+
+    def grow_cache(self, cache: dict, extra: int) -> dict:
+        """The cache with ``extra`` more (zero) K/V positions in the global
+        layers, for generation; the rings keep their size. Its K/V tensors
+        are new, as the dense family's are, so decoding into it (in place)
+        leaves the given cache as it was."""
+        pad = (0, 0, 0, 0, 0, extra)
+        layers = []
+        for i, c in enumerate(cache["layers"]):
+            grow = self._is_global(i)
+            layers.append(dict(c, **{n: torch.nn.functional.pad(c[n], pad) if grow
+                                     else c[n].clone() for n in ("k", "v")}))
+        return {"layers": layers, "len": cache["len"]}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor):
+        """Process the whole prompt ``(B, S)``; return the cache of its S
+        positions (the last ``window`` of them, ring-aligned, in the
+        sliding-window layers) and the last position's logits
+        ``(B, vocab_padded)``."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed(tokens)
+        rope = rope_cos_sin(torch.arange(S, device=x.device), cfg.head_dim_, cfg.rope_theta)
+        layers = []
+        for idx, layer in enumerate(self.layers):
+            is_global = self._is_global(idx)
+            xn = layer.ln1(x)
+            q, k, v = layer.attn.qkv(xn, rope)
+            o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
+                               window=None if is_global else cfg.sliding_window,
+                               chunk=cfg.attn_chunk)
+            a = layer.attn.wo(o.reshape(B, S, -1))
+            s, st = ssm.ssm_apply(layer.ssm, xn, cfg.ssm, impl=self.ssm_impl)
+            x = layer.fuse(x, a, s)
+            kk, vv = k.to(COMPUTE), v.to(COMPUTE)
+            cap = self._kv_capacity(idx, S)
+            if not is_global and S > cap:
+                # keep the last cap entries, ring-aligned so that slot j holds
+                # the position p with p % cap == j
+                roll = (S - cap) % cap
+                kk = torch.roll(kk[:, S - cap:], roll, dims=1)
+                vv = torch.roll(vv[:, S - cap:], roll, dims=1)
+            layers.append({"k": kk, "v": vv, "ssm_h": st.h, "ssm_conv": st.conv})
+        return {"layers": layers, "len": S}, self._logits(self.final_norm(x)[:, -1])
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """One token per row, ``tokens`` ``(B, 1)``, against the cache: its K
+        and V are written at position ``len`` of a global layer and at slot
+        ``len % cap`` of a ring. The K/V tensors are updated in place (the
+        reference returns new arrays); the returned cache shares them."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        pos = int(cache["len"])
+        x = self.embed(tokens)
+        rope = rope_cos_sin(torch.arange(pos, pos + 1, device=x.device), cfg.head_dim_,
+                            cfg.rope_theta)
+        layers = []
+        for idx, (layer, c) in enumerate(zip(self.layers, cache["layers"])):
+            cap = c["k"].shape[1]
+            if self._is_global(idx):
+                if pos >= cap:
+                    raise ValueError(f"layer {idx} holds {cap} positions, all used; "
+                                     "grow the cache before decoding")
+                write = pos
+            else:
+                write = pos % cap  # ring buffer
+            xn = layer.ln1(x)
+            q, k, v = layer.attn.qkv(xn, rope)
+            c["k"][:, write] = k[:, 0].to(c["k"].dtype)
+            c["v"][:, write] = v[:, 0].to(c["v"].dtype)
+            o = attn.decode_attention_local(q, c["k"], c["v"], min(pos + 1, cap))
+            a = layer.attn.wo(o.reshape(B, 1, -1))
+            s, st = ssm.ssm_decode(layer.ssm, xn, cfg.ssm,
+                                   ssm.SSMState(h=c["ssm_h"], conv=c["ssm_conv"]),
+                                   impl=self.ssm_impl)
+            x = layer.fuse(x, a, s)
+            layers.append({"k": c["k"], "v": c["v"], "ssm_h": st.h, "ssm_conv": st.conv})
+        return {"layers": layers, "len": pos + 1}, self._logits(self.final_norm(x)[:, -1])

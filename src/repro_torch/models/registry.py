@@ -1,6 +1,6 @@
 """Model classes by family, imported lazily: a family's module loads only
-when a config of that family is built. The port serves the dense family so
-far; the others raise and say they are not ported yet."""
+when a config of that family is built. The port serves the dense and hybrid
+families so far; the others raise and say they are not ported yet."""
 from __future__ import annotations
 
 import importlib
@@ -11,7 +11,8 @@ from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
 
 #: family -> (module, class)
-_FAMILIES = {"dense": ("repro_torch.models.transformer", "DenseLM")}
+_FAMILIES = {"dense": ("repro_torch.models.transformer", "DenseLM"),
+             "hybrid": ("repro_torch.models.hymba", "HymbaLM")}
 
 
 def model_class(cfg: ModelConfig):

@@ -84,16 +84,20 @@ class DenseLM(nn.Module):
     :meth:`prepare` after the parameters are set (``registry.build`` and
     ``convert.params_from_reference`` do)."""
 
+    #: the family served, and its layer's module (a subclass sets both)
+    FAMILY, LAYER = "dense", DecoderLayer
+
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense":
-            raise ValueError(f"DenseLM serves the dense family, not {cfg.family!r}")
+        if cfg.family != self.FAMILY:
+            raise ValueError(f"{type(self).__name__} serves the {self.FAMILY} family, "
+                             f"not {cfg.family!r}")
         cfg.validate()
         self.cfg = cfg
         self.attn_impl = cfg.attn_impl
         self.embed = Embedding(cfg.vocab_padded, cfg.d_model, device=device)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device=device)
+        self.layers = nn.ModuleList(self.LAYER(cfg, device=device)
                                     for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, device=device)
         self.lm_head = (None if cfg.tie_embeddings
@@ -154,6 +158,10 @@ class DenseLM(nn.Module):
         x = self.final_norm(x)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": S}
         return cache, self._logits(x[:, -1])
+
+    def grow_cache(self, cache: dict, extra: int) -> dict:
+        """The cache with ``extra`` more (zero) positions, for generation."""
+        return grow_cache(cache, extra)
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor):

@@ -35,7 +35,9 @@ def test_imports_with_jax_and_reference_blocked():
             "import repro_torch.comm.session, repro_torch.obs\n"
             "import repro_torch.models.transformer, repro_torch.models.convert\n"
             "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
-            "import repro_torch.kernels.flash_attention.flash_attention\n")
+            "import repro_torch.kernels.flash_attention.flash_attention\n"
+            "import repro_torch.kernels.ssm_scan.ssm_scan\n"
+            "import repro_torch.models.ssm, repro_torch.models.hymba\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

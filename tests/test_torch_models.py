@@ -243,13 +243,13 @@ class TestConvertAndRegistry:
         model = model_class(cfg)(cfg, device="meta")
         assert sum(p.numel() for p in model.parameters()) == 1_235_814_400
 
-    @pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen3-moe-235b-a22b", "no-such-arch"])
+    @pytest.mark.parametrize("arch", ["xlstm-125m", "qwen3-moe-235b-a22b", "no-such-arch"])
     def test_other_archs_raise(self, arch):
         with pytest.raises(KeyError):
             tconfigs.get_config(arch)
 
     def test_other_family_raises(self):
-        cfg = tconfigs.get_smoke_config("llama3.2-1b").replace(family="hybrid")
+        cfg = tconfigs.get_smoke_config("llama3.2-1b").replace(family="ssm")
         with pytest.raises(KeyError, match="not ported yet"):
             build(cfg, device="cpu")
 
