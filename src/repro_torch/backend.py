@@ -9,7 +9,8 @@ Kernels are CUDA C++ sources under ``repro_torch/kernels/*/csrc/``. They are
 compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface and loaded with ``ctypes`` — at first use, never at import, so the
 package imports on a host that has no ``nvcc``. The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt.
+carries a hash of its flags and of every file in its ``csrc/``, so an edited
+source or header is rebuilt.
 
 ``python -m repro_torch.backend`` prints the report: torch and CUDA versions,
 the device name and capability, the ``nvcc`` path and the card's name and
@@ -103,8 +104,11 @@ def report() -> dict:
 
 
 def lib_path(name: str) -> Path:
-    src = KERNEL_SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the flags and of every file in
+    its source's directory, so that an edited header rebuilds it too."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in KERNEL_SOURCES[name].parent.rglob("*") if p.is_file()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -4,7 +4,21 @@
 (``src/repro/kernels/flash_attention/flash_attention.py``, via
 ``flash_attention`` and the wrapper in ``ops.py``). The kernel is CUDA C++ in
 ``csrc/flash_attention.cu``, whose head note says what it computes, what
-bounds it and how it is laid out.
+bounds it and how it is laid out. It has two routes, chosen by dtype:
+
+- bfloat16 (what the served configs compute in): a Hopper kernel on the
+  tensor cores (``wgmma``), fed by TMA loads through an mbarrier ring. The
+  tensor cores take the softmax weights p in bf16 for the P.V product, so p
+  is rounded there while the row sum l adds the float32 p; the result
+  agrees with the plain float32 function within atol = rtol = 1e-2. TMA
+  needs a 16-byte-aligned base and byte strides that are multiples of 16
+  (``tma_strides``): the wrapper raises on anything else, and never copies
+  or falls back.
+- float32: a kernel on the float32 CUDA cores, within 2e-5 of the plain
+  version (TF32 tensor cores could not meet that).
+
+At llama3.2-1b's prefill shape the work is bound by operations (68,753,031,168
+flops against 83,886,080 bytes of q, k, v and o).
 
 Layouts are the reference's: q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KH, hd)``
 with ``H % KH == 0`` (GQA reads KV head ``h // (H // KH)``); the output is
@@ -13,8 +27,8 @@ and key positions both start at 0), and a window keeps ``qpos - kpos < window``.
 
 The wrapper runs the kernel on CUDA tensors and ``flash_attention_ref`` on
 CPU tensors, and raises on anything else, on a dtype other than bfloat16 or
-float32, and on a head dim the kernel was not built for. ``launches`` on the
-wrapper counts kernel launches.
+float32, on a head dim the kernel was not built for, and on bf16 tensors
+that TMA cannot read. ``launches`` on the wrapper counts kernel launches.
 """
 from __future__ import annotations
 
@@ -77,6 +91,24 @@ def _check(ok: bool, what: str) -> None:
         raise ValueError(what)
 
 
+def tma_strides(t: torch.Tensor) -> tuple:
+    """The (batch, seq, head) strides, in elements, of a bf16 tensor
+    ``(B, S, heads, hd)`` that the tensor-core route reads through a TMA
+    tensor map. Raises ``ValueError`` where TMA's 16-byte rule breaks: the
+    base address, or the byte stride of a dim longer than 1, not a positive
+    multiple of 16. A dim of length 1 is never stepped, so its stride is given as
+    ``hd`` (a multiple of 8 elements for every head dim in ``HEAD_DIMS``)."""
+    _check(t.data_ptr() % 16 == 0,
+           "flash_attention's bf16 route needs 16-byte-aligned q, k and v (TMA)")
+    strides = []
+    for n, st in zip(t.shape[:3], t.stride()[:3]):
+        _check(n == 1 or (st > 0 and (st * t.element_size()) % 16 == 0),
+               f"flash_attention's bf16 route needs strides of multiples of 16 bytes (TMA), "
+               f"not {tuple(t.stride())} for shape {tuple(t.shape)}")
+        strides.append(st if n > 1 else t.shape[3])
+    return tuple(strides)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """Causal or windowed GQA attention, q ``(B, Sq, H, hd)``, k/v
@@ -98,12 +130,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(hd in HEAD_DIMS, f"the flash-attention kernel is built for head dims {HEAD_DIMS}, not {hd}")
     _check(q.stride(3) == k.stride(3) == v.stride(3) == 1,
            "flash_attention needs the head dim contiguous")
+    bf16 = q.dtype == torch.bfloat16
+    strides = [tma_strides(t) if bf16 else t.stride()[:3] for t in (q, k, v)]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _lib().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, KH, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(bf16), B, Sq, Skv, H, KH, hd, *strides[0], *strides[1], *strides[2],
             int(causal), int(window is not None), 0 if window is None else int(window),
             hd**-0.5, torch.cuda.current_stream().cuda_stream)
     backend.check_launch("flash_attention", err)

@@ -14,6 +14,13 @@ compute in float32 and round once at the end, so they differ where the
 float32 results straddle a rounding boundary). The reference's own tests
 allow 2e-2 and 3e-3.
 
+On the card, bfloat16 inputs take the tensor-core route, which rounds the
+softmax weights p to bfloat16 for the P.V product (the A operand of the
+tensor cores) while it sums l from the unrounded float32 p. ``emulate_tc``
+states that arithmetic in plain PyTorch, and ``TestTensorCoreContract``
+holds it to the reference's Pallas kernel within atol = rtol = 1e-2, the
+tolerance the card's kernel is held to against the plain version.
+
 Tests marked ``cuda`` hold the Hopper kernel to the plain version on the
 card and skip without one.
 """
@@ -25,6 +32,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     HEAD_DIMS,
     flash_attention,
     flash_attention_ref,
+    tma_strides,
 )
 
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
@@ -107,6 +115,108 @@ class TestAgainstReference:
                                           block_k=32), "float32")
 
 
+def emulate_tc(q, k, v, *, causal=True, window=None):
+    """The tensor-core route's arithmetic: bfloat16 inputs, float32 scores,
+    an online softmax over key tiles of 128 (64 at head dim 128), p rounded
+    to bfloat16 for each tile's P.V, l the sum of the float32 p, and the
+    output cast to q's dtype."""
+    B, Sq, H, hd = q.shape
+    Skv, group = k.shape[1], H // k.shape[2]
+    bk = 64 if hd > 64 else 128
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    qpos = torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros(B, H, Sq)
+    acc = torch.zeros(B, H, Sq, hd)
+    for k0 in range(0, Skv, bk):
+        kpos = torch.arange(k0, min(Skv, k0 + bk))[None, :]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + bk]) * hd**-0.5
+        ok = torch.ones(Sq, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= qpos - kpos < window
+        s = s.masked_fill(~ok, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, k0:k0 + bk])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    o = acc / l.clamp_min(1e-20)[..., None]
+    return o.transpose(1, 2).to(q.dtype)
+
+
+class TestTensorCoreContract:
+    """The bf16 route's rounding of p, emulated, against the Pallas kernel."""
+
+    @pytest.mark.parametrize("B,Sq,H,KH,hd,skv,kw", [
+        (1, 128, 4, 4, 64, None, dict(causal=True)),
+        (2, 256, 8, 2, 32, None, dict(causal=True)),
+        (1, 384, 6, 1, 64, None, dict(causal=True)),
+        (2, 96, 4, 2, 16, None, dict(causal=True)),
+        (1, 192, 4, 2, 128, None, dict(causal=True)),
+        (1, 300, 5, 1, 64, None, dict(causal=True, window=128)),
+        (2, 64, 2, 2, 16, None, dict(causal=False)),
+        (2, 64, 4, 2, 32, 160, dict(causal=True)),
+        (2, 96, 4, 2, 32, 40, dict(causal=True)),
+    ], ids=["mha", "gqa", "mqa", "ragged-hd16", "hd128", "window", "noncausal", "skv-longer",
+            "skv-shorter"])
+    def test_emulated_rounding_matches_pallas(self, ref_ops, B, Sq, H, KH, hd, skv, kw):
+        q, k, v = make_qkv(B, Sq, H, KH, hd, "bfloat16", seed=Sq + hd + 7, Skv=skv)
+        got = emulate_tc(q, k, v, **kw)
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        want = run_reference(ref_ops, q, k, v, block_q=64, block_k=64, **kw)
+        np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2, rtol=1e-2)
+
+    def test_emulation_differs_from_plain_only_by_rounding_p(self):
+        """Across tiles of 128 keys the emulation and the plain f32 version
+        agree within the bf16 route's tolerance, and not bit for bit: the
+        rounding of p is a real change, stated rather than hidden."""
+        q, k, v = make_qkv(1, 512, 4, 1, 64, "bfloat16", seed=11)
+        got, want = emulate_tc(q, k, v), flash_attention_ref(q, k, v)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+        assert not torch.equal(got, want)
+
+    def test_row_with_nothing_kept_is_zero(self):
+        q, k, v = make_qkv(1, 96, 2, 1, 64, "bfloat16", seed=5, Skv=40)
+        out = emulate_tc(q, k, v, causal=True, window=16)
+        assert torch.equal(out[:, 55:], torch.zeros_like(out[:, 55:]))
+        assert out[:, :55].abs().amax() > 0
+
+
+class TestTmaStrides:
+    """The bf16 route's layout check, which runs before any launch."""
+
+    def test_contiguous_and_fused_slices_pass(self):
+        q = torch.zeros(2, 16, 4, 32, dtype=torch.bfloat16)
+        assert tma_strides(q) == q.stride()[:3]
+        qkv = torch.zeros(2, 16, 12, 32, dtype=torch.bfloat16)
+        for part in (qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]):
+            assert tma_strides(part) == part.stride()[:3]
+
+    def test_length_one_dims_take_a_valid_stride(self):
+        x = torch.zeros(1, 16, 20, 16, dtype=torch.bfloat16)[:, :, :1]
+        assert x.stride() == (5120, 320, 16, 1)
+        assert tma_strides(x) == (16, 320, 16)
+
+    @pytest.mark.parametrize("bad", ["head-stride", "seq-stride", "base", "broadcast"])
+    def test_rejects_what_tma_cannot_read(self, bad):
+        if bad == "head-stride":  # 20 bf16 = 40 bytes between heads
+            x = torch.zeros(1, 8, 4, 20, dtype=torch.bfloat16)[..., :16]
+        elif bad == "seq-stride":  # 3 heads of 16 = 96 bytes, then 2 more elements
+            x = torch.zeros(1, 8, 3 * 16 + 2, dtype=torch.bfloat16)[..., :48].unflatten(2, (3, 16))
+        elif bad == "base":
+            x = torch.zeros(1 + 8 * 2 * 16, dtype=torch.bfloat16)[1:].view(1, 8, 2, 16)
+        else:
+            x = torch.zeros(1, 1, 2, 16, dtype=torch.bfloat16).expand(1, 8, 2, 16)
+        with pytest.raises(ValueError):
+            tma_strides(x)
+
+
 class TestPlainVersion:
     def test_top_left_alignment(self):
         """Query row 0 sees key 0 alone, so its output is v[0] of its KV head."""
@@ -187,3 +297,62 @@ class TestKernelAgainstPlain:
         assert 48 not in HEAD_DIMS
         with pytest.raises(ValueError):
             flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+class TestTensorCoreRoute:
+    """bfloat16 inputs on the card: the wgmma + TMA kernel, held to the plain
+    version within atol = rtol = 1e-2 (p is rounded to bf16 for P.V)."""
+
+    @pytest.mark.parametrize("case", [
+        dict(shape=(2, 200, 8, 2, 64), causal=True),
+        dict(shape=(1, 2000, 8, 2, 64), causal=True),
+        dict(shape=(2, 64, 4, 2, 64), skv=300, causal=True),
+        dict(shape=(2, 300, 4, 2, 64), skv=100, causal=True),
+        dict(shape=(2, 300, 4, 2, 64), skv=700, causal=False),
+        dict(shape=(1, 512, 4, 1, 64), causal=True, window=128),
+        dict(shape=(1, 2048, 5, 1, 64), causal=True, window=1024),
+        dict(shape=(1, 384, 25, 5, 64), causal=True),
+        dict(shape=(2, 256, 4, 2, 16), causal=True),
+        dict(shape=(2, 256, 4, 2, 32), causal=True),
+        dict(shape=(2, 256, 4, 2, 64), causal=False),
+        dict(shape=(2, 320, 4, 2, 128), causal=True, window=100),
+    ], ids=["sq200", "sq2000", "skv-longer", "skv-shorter", "noncausal-skv-longer",
+            "window128", "window1024", "gqa25-5", "hd16", "hd32", "hd64-noncausal",
+            "hd128-window"])
+    def test_matches_plain(self, cuda, case):
+        B, S, H, KH, hd = case["shape"]
+        q, k, v = (t.to(cuda) for t in make_qkv(B, S, H, KH, hd, "bfloat16", seed=S + hd,
+                                                Skv=case.get("skv")))
+        kw = dict(causal=case["causal"], window=case.get("window"))
+        n0 = flash_attention.launches
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == n0 + 1
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+        torch.testing.assert_close(got.float(), emulate_tc(q.cpu(), k.cpu(), v.cpu(), **kw)
+                                   .float().to(cuda), atol=1e-2, rtol=1e-2)
+
+    def test_row_with_nothing_kept_is_zero(self, cuda):
+        """Rows from 55 on keep no key (qpos - kpos < 16 needs kpos > 39)."""
+        q, k, v = (t.to(cuda) for t in make_qkv(1, 96, 2, 1, 64, "bfloat16", seed=5, Skv=40))
+        got = flash_attention(q, k, v, causal=True, window=16)
+        assert torch.equal(got[:, 55:], torch.zeros_like(got[:, 55:]))
+        torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v, causal=True,
+                                                                    window=16).float(),
+                                   atol=1e-2, rtol=1e-2)
+
+    def test_fused_qkv_slices(self, cuda):
+        qkv = torch.randn(2, 256, 12, 64, device=cuda).bfloat16()
+        q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+        torch.testing.assert_close(flash_attention(q, k, v).float(),
+                                   flash_attention_ref(q, k, v).float(), atol=1e-2, rtol=1e-2)
+
+    def test_misaligned_stride_raises(self, cuda):
+        x = torch.randn(1, 64, 4, 20, device=cuda).bfloat16()[..., :16]
+        n0 = flash_attention.launches
+        with pytest.raises(ValueError):
+            flash_attention(x, x[:, :, :2], x[:, :, :2])
+        assert flash_attention.launches == n0
