@@ -13,9 +13,13 @@ Phases, each of which exits non-zero on any failed check:
 2. quantize kernels: each against its plain PyTorch version on the card, at
    the shapes of the connection path — the gradient of one llama3.2-1b
    decoder layer at its published widths (d_model 2048, 32 heads and 8 KV
-   heads of 64, d_ff 8192: 60,821,504 float32) — byte- or bit-equal, then
-   timed with CUDA events beside the plain version and the bound of the
-   card's memory rate;
+   heads of 64, d_ff 8192: 60,821,504 float32) at blocks 256 and 64 — and at
+   blocks 4, 128, 1024, a ragged tail, block 101 and an offset view, each
+   byte- or bit-equal and on the route the wrapper must choose (vector for
+   aligned powers of two, else scalar); then timed with CUDA events at
+   blocks 256 and 64 beside the plain version and the bound of the card's
+   memory rate, and each route through its C entry point, in turns, with
+   its GB/s and share of the bound;
 3. flash attention: the tensor-core kernel's ptxas registers and spills
    (0 spill bytes required) and its wgmma and TMA instructions in the built
    library (``cuobjdump -sass``: HGMMA and UTMALDG, both nonzero); then the
@@ -29,7 +33,8 @@ Phases, each of which exits non-zero on any failed check:
 4. connection path: two host agents negotiate a Select of two int8 wires
    (block 256, block 64), stream the layer's gradients as two batches, swap
    the wire under two-phase commit and stream them again. The quantize
-   kernels' launch counters are set to 0 just before and read just after.
+   kernels' launch counters are set to 0 just before and read just after:
+   2 launches of each kernel at each block, all on the vector route.
    The same run is then repeated under torch.profiler for the device's idle
    share;
 5. serving path: ``python -m repro_torch.launch.serve --arch llama3.2-1b
@@ -191,7 +196,7 @@ def phase_backend(torch, backend) -> str:
 
 def phase_kernels(torch) -> dict:
     from repro_torch.kernels.quantize.quantize import (
-        packed_nbytes, quantize_pack, quantize_pack_ref, unpack_dequant,
+        launch, packed_nbytes, quantize_pack, quantize_pack_ref, unpack_dequant,
         unpack_dequant_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -199,38 +204,65 @@ def phase_kernels(torch) -> dict:
     check(flat.numel() == LAYER_NUMEL, f"layer payload {flat.numel()} f32")
     ragged = LAYER_NUMEL - 77
     n_attn = sum(math.prod(shape) for _, shape in ATTN)
-    # the whole layer (timed), the main path's two batches at both of its
-    # blocks, a ragged tail padded as encode_batch pads it, and a block that
-    # puts the scales at an odd byte
-    cases = [(label, block, x) for block in BLOCKS for label, x in
+    # (label, block, floats, bytes the packed buffer is moved off a 16-byte
+    # boundary before unpacking): the whole layer (timed at the main path's
+    # blocks) and the main path's two batches at both of its blocks, the
+    # layer at the vector route's smallest, a middle and its largest block,
+    # a ragged tail padded as encode_batch pads it, a block that puts the
+    # scales at an odd byte, and an offset view (floats one float and a
+    # packed buffer one byte past a 16-byte boundary), which takes the scalar
+    # route
+    cases = [(label, block, x, 0) for block in BLOCKS for label, x in
              (("layer", flat), ("attention batch", flat[:n_attn]), ("mlp batch", flat[n_attn:]))]
-    cases += [("ragged", 256, torch.nn.functional.pad(flat[:ragged], (0, (-ragged) % 256))),
-              ("odd-block", 101, flat[:101 * 9999].clone())]
+    cases += [("layer", block, flat, 0) for block in (4, 128, 1024)]
+    cases += [("ragged", 256, torch.nn.functional.pad(flat[:ragged], (0, (-ragged) % 256)), 0),
+              ("odd-block", 101, flat[:101 * 9999].clone(), 0),
+              ("offset view", 64, flat[1:1 + 64 * 9999], 1)]
     results = {}
-    for label, block, x in cases:
+    for label, block, x, shift in cases:
         x2d = x.view(-1, block)
         n_blocks = x2d.shape[0]
+        want = "scalar" if label in ("odd-block", "offset view") else "vector"
+        check((x2d.data_ptr() % 16 == 4) == (label == "offset view"),
+              f"{label}: floats at data_ptr % 16 = {x2d.data_ptr() % 16}")
+        n0 = quantize_pack.route_launches.copy()
         packed = quantize_pack(x2d)
         packed_ref = quantize_pack_ref(x2d)
         torch.cuda.synchronize()
+        check(quantize_pack.route_launches - n0 == {(want, block): 1},
+              f"quantize_pack at {label} b{block}: want one {want} launch")
         check(packed.shape == (packed_nbytes(n_blocks, block),), "packed shape")
         q_err = (packed.int() - packed_ref.int()).abs().max().item()
         check(torch.equal(packed, packed_ref),
               f"quantize_pack != plain at {label} b{block}: max byte diff {q_err}")
-        y = unpack_dequant(packed, n_blocks, block)
+        q_route = want
+        src = packed
+        if shift:
+            src = torch.empty(packed.numel() + shift, dtype=torch.uint8, device="cuda")[shift:]
+            src.copy_(packed)
+        check(src.data_ptr() % 16 == shift, f"{label}: packed at data_ptr % 16 = "
+              f"{src.data_ptr() % 16}, want {shift}")
+        n0 = unpack_dequant.route_launches.copy()
+        y = unpack_dequant(src, n_blocks, block)
         y_ref = unpack_dequant_ref(packed, n_blocks, block)
         torch.cuda.synchronize()
+        check(unpack_dequant.route_launches - n0 == {(want, block): 1},
+              f"unpack_dequant at {label} b{block}: want one {want} launch")
         d_err = (y - y_ref).abs().max().item()
         check(torch.equal(y.view(torch.int32), y_ref.view(torch.int32)),
               f"unpack_dequant != plain at {label} b{block}: max abs diff {d_err}")
         s = packed[n_blocks * block:].clone().view(torch.float32)
         check(bool(within_half_scale(torch, x2d, y.view(n_blocks, block), s).all()),
               f"error above scale/2 at {label}")
-        print(f"kernel check {label} b{block}: n_blocks {n_blocks} byte-equal, bit-equal")
-        if label != "layer":
+        print(f"kernel check {label} b{block}: n_blocks {n_blocks}, data_ptr % 16 of floats "
+              f"{x2d.data_ptr() % 16} and packed {src.data_ptr() % 16}, routes {q_route} and "
+              f"{want}: byte-equal, bit-equal")
+        if label != "layer" or block not in BLOCKS:
             continue
         n = x2d.numel()
         io = {"quantize_pack": 4 * n + packed.numel(), "unpack_dequant": packed.numel() + 4 * n}
+        y_out = torch.empty_like(y)
+        args = {"quantize_pack": (x2d, torch.empty_like(packed)), "unpack_dequant": (packed, y_out)}
         times = {
             "quantize_pack": (time_ms(torch, lambda: quantize_pack(x2d)),
                               time_ms(torch, lambda: quantize_pack_ref(x2d))),
@@ -238,15 +270,28 @@ def phase_kernels(torch) -> dict:
                                time_ms(torch, lambda: unpack_dequant_ref(packed, n_blocks, block))),
         }
         for name, (ms, plain_ms) in times.items():
+            # both routes through their C entry points, in turns: vector,
+            # scalar, scalar, vector; the lower of each route's two times
+            route_ms = {"vector": [], "scalar": []}
+            for which in ("vector", "scalar", "scalar", "vector"):
+                route_ms[which].append(time_ms(
+                    torch, lambda: launch(name, which, *args[name], n_blocks, block)))
+            route_ms = {which: min(t) for which, t in route_ms.items()}
             bytes_ms = io[name] / MEMORY_RATE * 1e3
             ops_ms = OPS_PER_ELEM[name] * n / F32_OPS_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
             results[(name, block)] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": io[name], "max_abs_err": q_err if name == "quantize_pack" else d_err}
+                "bytes": io[name], "max_abs_err": q_err if name == "quantize_pack" else d_err,
+                "routes": {which: {"ms": t, "share_of_bound": bound / t}
+                           for which, t in route_ms.items()}}
             print(f"time {name} b{block}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                  f"bound {max(bytes_ms, ops_ms):.4f} ms, {io[name]} bytes, "
-                  f"{io[name] / ms / 1e6:.1f} GB/s)")
+                  f"bound {bound:.4f} ms, {io[name]} bytes, "
+                  f"{io[name] / ms / 1e6:.1f} GB/s, {bound / ms:.1%} of the bound)")
+            for which, t in route_ms.items():
+                print(f"time {name} b{block} {which} route: {t:.4f} ms, "
+                      f"{io[name] / t / 1e6:.1f} GB/s, {bound / t:.1%} of the bound")
     return results
 
 
@@ -384,19 +429,25 @@ def phase_main_path(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     batches = [layer_grads(torch, ATTN, gen), layer_grads(torch, MLP, gen)]
     torch.cuda.synchronize()
-    quantize_pack.launches = 0
-    unpack_dequant.launches = 0
+    wrappers = {"quantize_pack": quantize_pack, "unpack_dequant": unpack_dequant}
+    for w in wrappers.values():
+        w.launches = 0
+        w.route_launches.clear()
     res = run_swap_session(batches + batches, blocks=BLOCKS, swap_after=2, device="cuda")
-    launches = {"quantize_pack": quantize_pack.launches,
-                "unpack_dequant": unpack_dequant.launches}
+    launches = {name: w.launches for name, w in wrappers.items()}
+    by_route = {name: {f"{which} b{block}": n for (which, block), n in w.route_launches.items()}
+                for name, w in wrappers.items()}
     print(f"main path: wire blocks client {res.client_blocks} server {res.server_blocks}, "
-          f"switches {res.client_switches}/{res.server_switches}, launches {launches}")
+          f"switches {res.client_switches}/{res.server_switches}, launches {launches}, "
+          f"by route and block {json.dumps(by_route)}")
     check(res.swapped and res.client_switches == 1 and res.server_switches == 1,
           "the 2PC swap did not happen exactly once on both sides")
     check(res.client_blocks == [256, 256, 64, 64] == res.server_blocks,
           "both wires must carry traffic, the swap between batch 2 and 3")
     check(launches == {"quantize_pack": 4, "unpack_dequant": 4},
           f"launches {launches}: want one encode and one decode per batch")
+    check(all(r == {"vector b256": 2, "vector b64": 2} for r in by_route.values()),
+          f"launches by route {by_route}: want all 8 on the vector route, 2 per kernel and block")
     for sent, got, block in zip(batches + batches, res.received, res.client_blocks):
         check(len(got) == len(sent), "tensors lost")
         for a, b in zip(sent, got):
@@ -415,7 +466,7 @@ def phase_main_path(torch) -> dict:
     gbps = payload / res.seconds / 1e9
     print(f"main path: {payload} payload bytes in {res.seconds:.4f} s = {gbps:.3f} GB/s "
           f"through the connection, 2PC swap included")
-    return launches, batches
+    return launches, by_route, batches
 
 
 def device_events(torch, prof) -> list:
@@ -445,9 +496,10 @@ def phase_profile(torch, batches) -> None:
         print(f"profile: device {us / 1e3:.3f} ms in {count} x {key}")
     # the cost contract of a batch whose tensors lie on the card: one launch
     # and one device-to-host copy to send, one host-to-device copy and one
-    # launch to receive
+    # launch to receive; every launch the vector route's
     n = len(batches) * 2
-    for part, want in (("quantize_pack_kernel", n), ("unpack_dequant_kernel", n),
+    for part, want in (("quantize_pack", n), ("unpack_dequant", n),
+                       ("quantize_pack_vec_kernel", n), ("unpack_dequant_vec_kernel", n),
                        ("Memcpy DtoH", n), ("Memcpy HtoD", n)):
         got = sum(c for _, k, c in dev if part in k)
         check(got == want, f"profile: {got} x {part} in {n} batches, want {want}")
@@ -679,7 +731,7 @@ def main() -> int:
     timed = phase_kernels(torch)
     flash_build_report(backend)
     flash = phase_flash(torch)
-    launches, batches = phase_main_path(torch)
+    launches, by_route, batches = phase_main_path(torch)
     phase_profile(torch, batches)
     paths = {"connection": dict(launches)}
     paths["serve llama3.2-1b"] = phase_serve(torch, "llama3.2-1b", 1_235_814_400, LOGITS_TOL)
@@ -691,14 +743,20 @@ def main() -> int:
                             "ssm_scan_chunk")}
     print("launches by path:", json.dumps(by_path))
     kernels = []
+    # the quantize kernels: the numbers at block 256 on top, and each block
+    # of the main path with its launches there and both routes' times
     for name in ("quantize_pack", "unpack_dequant"):
         r = timed[(name, 256)]
+        blocks = {str(b): {"launches": by_route[name].get(f"vector b{b}", 0),
+                           **{k: timed[(name, b)][k] for k in
+                              ("ms", "plain_ms", "bound_ms", "routes")}} for b in BLOCKS}
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
-                        "launches_by_path": by_path[name]})
+                        "launches_by_path": by_path[name], "launches_by_route": by_route[name],
+                        "blocks": blocks})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: the count of this slice's path, the hymba serve run
     for name, source, replaces, r in (
@@ -707,7 +765,6 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": paths["serve hymba-1.5b"][name],
                         **{k: r[k] for k in keys}, "launches_by_path": by_path[name]})
-    print(json.dumps({"block64": {name: timed[(name, 64)] for name in REPLACES}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

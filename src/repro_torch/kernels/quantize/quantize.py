@@ -13,11 +13,16 @@ reference's wire.
 
 Each wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (``*_ref``, the same arithmetic) on a CPU tensor, and raises on anything
-else. ``launches`` on each wrapper counts kernel launches.
+else. Each kernel has two routes, each its own C entry point: ``vector`` for
+blocks that are powers of two from 4 to 1024 when every pointer starts at a
+16-byte boundary, ``scalar`` for the rest (:func:`route`). ``launches`` on
+each wrapper counts its kernel launches; ``route_launches`` counts them by
+``(route, block)``.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import numpy as np
 import torch
@@ -32,12 +37,42 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p]
 
 
+#: the C entry point of each kernel and route
+ENTRY = {("quantize_pack", "scalar"): "repro_quantize_pack",
+         ("quantize_pack", "vector"): "repro_quantize_pack_vec",
+         ("unpack_dequant", "scalar"): "repro_unpack_dequant",
+         ("unpack_dequant", "vector"): "repro_unpack_dequant_vec"}
+#: the blocks the vector route takes: powers of two from 4 to 1024
+VECTOR_BLOCKS = frozenset(4 << k for k in range(9))
+
+
 def _lib() -> ctypes.CDLL:
     lib = backend.load_kernel_library("quantize")
-    for fn in (lib.repro_quantize_pack, lib.repro_unpack_dequant):
+    for name in ENTRY.values():
+        fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return lib
+
+
+def route(block: int, *tensors: torch.Tensor) -> str:
+    """``"vector"`` when ``block`` is a power of two from 4 to 1024 and every
+    tensor starts at a 16-byte boundary, else ``"scalar"``: from the shape
+    and the pointers alone, before any launch."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return "vector" if block in VECTOR_BLOCKS and aligned else "scalar"
+
+
+def launch(kernel: str, which: str, src: torch.Tensor, dst: torch.Tensor,
+           n_blocks: int, block: int) -> None:
+    """One launch of ``kernel`` by route ``which`` from ``src`` into ``dst``,
+    on the current stream; counts nothing. The wrappers call it, and timing
+    code may, to hold the two routes side by side."""
+    with torch.cuda.device(src.device):
+        err = getattr(_lib(), ENTRY[(kernel, which)])(
+            src.data_ptr(), dst.data_ptr(), n_blocks, block,
+            torch.cuda.current_stream().cuda_stream)
+    backend.check_launch(f"{kernel} ({which} route)", err)
 
 
 def packed_nbytes(n_blocks: int, block: int) -> int:
@@ -79,16 +114,15 @@ def quantize_pack(x2d: torch.Tensor) -> torch.Tensor:
     n_blocks, block = x2d.shape
     out = torch.empty(packed_nbytes(n_blocks, block), dtype=torch.uint8,
                       device=x2d.device)
-    with torch.cuda.device(x2d.device):
-        err = _lib().repro_quantize_pack(
-            x2d.data_ptr(), out.data_ptr(), n_blocks, block,
-            torch.cuda.current_stream().cuda_stream)
-    backend.check_launch("quantize_pack", err)
+    which = route(block, x2d, out)
+    launch("quantize_pack", which, x2d, out, n_blocks, block)
     quantize_pack.launches += 1
+    quantize_pack.route_launches[(which, block)] += 1
     return out
 
 
 quantize_pack.launches = 0
+quantize_pack.route_launches = Counter()
 
 
 def unpack_dequant(packed: torch.Tensor, n_blocks: int, block: int) -> torch.Tensor:
@@ -104,13 +138,12 @@ def unpack_dequant(packed: torch.Tensor, n_blocks: int, block: int) -> torch.Ten
     _check(packed.device.type == "cuda",
            f"unpack_dequant takes CPU or CUDA tensors, not {packed.device}")
     out = torch.empty(n_blocks * block, dtype=torch.float32, device=packed.device)
-    with torch.cuda.device(packed.device):
-        err = _lib().repro_unpack_dequant(
-            packed.data_ptr(), out.data_ptr(), n_blocks, block,
-            torch.cuda.current_stream().cuda_stream)
-    backend.check_launch("unpack_dequant", err)
+    which = route(block, packed, out)
+    launch("unpack_dequant", which, packed, out, n_blocks, block)
     unpack_dequant.launches += 1
+    unpack_dequant.route_launches[(which, block)] += 1
     return out
 
 
 unpack_dequant.launches = 0
+unpack_dequant.route_launches = Counter()

@@ -16,9 +16,11 @@ import torch
 
 from repro_torch.kernels.quantize.quantize import (
     INV127,
+    VECTOR_BLOCKS,
     packed_nbytes,
     quantize_pack,
     quantize_pack_ref,
+    route,
     unpack_dequant,
     unpack_dequant_ref,
 )
@@ -64,7 +66,7 @@ def as_bits(a):
 class TestAgainstReference:
     @pytest.mark.parametrize("scale", [1e-3, 3.0, 1e4])
     @pytest.mark.parametrize("n_blocks", [1, 7, 128, 300])
-    @pytest.mark.parametrize("block", [64, 256])
+    @pytest.mark.parametrize("block", [4, 64, 128, 256, 1024])
     def test_encode_bytes_and_decode_bits(self, ref_wire, block, n_blocks, scale):
         import jax.numpy as jnp
 
@@ -182,9 +184,54 @@ class TestWrapperContract:
             unpack_dequant(*args)
 
 
+def offset(t, nbytes):
+    """A view of ``t``'s values that starts ``nbytes`` past a fresh
+    allocation's (16-byte aligned) start."""
+    k = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    view = buf[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+class TestRouteChoice:
+    """The wrappers pick a kernel's route from the block and the pointers
+    alone, before the launch: the same rule on every device."""
+
+    @pytest.mark.parametrize("block", sorted(VECTOR_BLOCKS))
+    def test_aligned_power_of_two_takes_vector(self, block):
+        x = torch.zeros(5, block)
+        packed = torch.empty(packed_nbytes(5, block), dtype=torch.uint8)
+        assert x.data_ptr() % 16 == 0 == packed.data_ptr() % 16
+        assert route(block, x, packed) == "vector"
+
+    @pytest.mark.parametrize("block", [3, 65, 100, 101])
+    def test_other_blocks_take_scalar(self, block):
+        x = torch.zeros(5, block)
+        packed = torch.empty(packed_nbytes(5, block), dtype=torch.uint8)
+        assert route(block, x, packed) == "scalar"
+
+    @pytest.mark.parametrize("block", [4, 64, 256, 1024])
+    def test_float_input_offset_by_one_float_takes_scalar(self, block):
+        x = offset(torch.zeros(5, block), 4)
+        packed = torch.empty(packed_nbytes(5, block), dtype=torch.uint8)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+        assert route(block, x, packed) == "scalar"
+
+    @pytest.mark.parametrize("block", [4, 64, 256, 1024])
+    def test_packed_buffer_offset_by_one_byte_takes_scalar(self, block):
+        packed = offset(torch.zeros(packed_nbytes(5, block), dtype=torch.uint8), 1)
+        out = torch.empty(5 * block)
+        assert packed.is_contiguous() and packed.data_ptr() % 16 == 1
+        assert route(block, packed, out) == "scalar"
+
+    def test_vector_blocks_are_the_powers_of_two_from_4_to_1024(self):
+        assert VECTOR_BLOCKS == {4, 8, 16, 32, 64, 128, 256, 512, 1024}
+
+
 @pytest.mark.cuda
 class TestKernelAgainstPlain:
-    @pytest.mark.parametrize("block", [3, 64, 100, 256])
+    @pytest.mark.parametrize("block", [3, 4, 16, 64, 100, 128, 256, 512, 1024])
     @pytest.mark.parametrize("n_blocks", [1, 7, 300, 4099])
     def test_kernels_equal_plain_on_card(self, cuda, block, n_blocks):
         x = torch.from_numpy(make_rows(n_blocks, block, 3.0, seed=n_blocks)).to(cuda)
@@ -196,6 +243,51 @@ class TestKernelAgainstPlain:
                            unpack_dequant_ref(packed, n_blocks, block).view(torch.int32))
         assert y.device.type == "cuda"
         assert (quantize_pack.launches, unpack_dequant.launches) == (n0[0] + 1, n0[1] + 1)
+
+    @pytest.mark.parametrize("block", [64, 256])
+    def test_aligned_call_is_one_vector_launch(self, cuda, block):
+        x = torch.from_numpy(make_rows(300, block, 3.0, seed=block)).to(cuda)
+        n0 = (quantize_pack.route_launches.copy(), unpack_dequant.route_launches.copy())
+        unpack_dequant(quantize_pack(x), 300, block)
+        for wrapper, before in zip((quantize_pack, unpack_dequant), n0):
+            assert wrapper.route_launches - before == {("vector", block): 1}
+
+    def test_float_input_offset_by_one_float_takes_scalar(self, cuda):
+        x = torch.from_numpy(make_rows(300, 64, 3.0, seed=2)).to(cuda)
+        x_off = offset(x, 4)
+        assert x_off.data_ptr() % 16 == 4
+        n0 = quantize_pack.route_launches.copy()
+        packed = quantize_pack(x_off)
+        assert quantize_pack.route_launches - n0 == {("scalar", 64): 1}
+        assert torch.equal(packed, quantize_pack_ref(x))
+
+    def test_packed_buffer_offset_by_one_byte_takes_scalar(self, cuda):
+        x = torch.from_numpy(make_rows(300, 64, 3.0, seed=3)).to(cuda)
+        packed = quantize_pack_ref(x)
+        packed_off = offset(packed, 1)
+        assert packed_off.data_ptr() % 16 == 1
+        n0 = unpack_dequant.route_launches.copy()
+        y = unpack_dequant(packed_off, 300, 64)
+        assert unpack_dequant.route_launches - n0 == {("scalar", 64): 1}
+        assert torch.equal(y.view(torch.int32),
+                           unpack_dequant_ref(packed, 300, 64).view(torch.int32))
+
+    @pytest.mark.parametrize("block", [64, 256])
+    def test_ties_and_zero_rows_on_vector_route(self, cuda, block):
+        x = torch.from_numpy(make_rows(300, block, 1.0, seed=block)).to(cuda)
+        n0 = quantize_pack.route_launches.copy()
+        packed = quantize_pack(x)
+        assert quantize_pack.route_launches - n0 == {("vector", block): 1}
+        assert torch.equal(packed, quantize_pack_ref(x))
+        codes = packed[:300 * block].view(torch.int8).view(300, block).cpu()
+        scales = packed[300 * block:].view(torch.float32).cpu()
+        assert scales[0] == 1.0 and (codes[0] == 0).all()  # the zero row
+        assert scales[1] == 1.0  # the row of ties: amax 127, scale exactly 1
+        assert codes[1, :6].tolist() == [127, 0, 2, 2, -2, 0]
+        y = unpack_dequant(packed, 300, block)
+        assert (y[:block] == 0).all()
+        assert torch.equal(y.view(torch.int32),
+                           unpack_dequant_ref(packed, 300, block).view(torch.int32))
 
     def test_kernel_bytes_equal_cpu_bytes(self, cuda):
         x = make_rows(300, 256, 1e4, seed=1)
