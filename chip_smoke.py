@@ -37,7 +37,17 @@ Phases, each of which exits non-zero on any failed check:
    2 launches of each kernel at each block, all on the vector route.
    The same run is then repeated under torch.profiler for the device's idle
    share;
-5. serving path: ``python -m repro_torch.launch.serve --arch llama3.2-1b
+5. WAN path: the same two batches, each flattened to one tensor on the card,
+   through a ``WanLinkChunnel`` pair (block 256, MTU 4096, window 8) on a
+   clean link: 2 launches of each quantize kernel, all on the vector route,
+   the received tensors bit-equal to the plain round trip and the wire
+   payload byte-equal to the plain encode; then the attention batch again
+   over a link that drops 2% of frames (retransmits, no failed send, the
+   same bits); then the chaos-regions scenario (``tests/torch_chaos_regions.py``)
+   with the WAN links, the gateway and the tensor blob on the card: its
+   acceptance predicates, one quantize launch per blob sent, one unpack
+   launch per blob the gateway decoded, and no exception in any thread;
+6. serving path: ``python -m repro_torch.launch.serve --arch llama3.2-1b
    --batch 4 --prompt-len 2048 --gen 32`` through its ``main``, at the full
    published config (16 layers, 1,235,814,400 float32 parameters drawn from
    a seed), with the flash kernel's counter set to 0 just before and read
@@ -46,13 +56,13 @@ Phases, each of which exits non-zero on any failed check:
    same prefill with plain dense attention, decode step 1's logits against
    a prefill over the S + 1 tokens, warm timings, and a profile of prefill
    and decode;
-6. SSM scan: the kernel against its plain version on the card at the
+7. SSM scan: the kernel against its plain version on the card at the
    hybrid serving path's prefill chunk (a, bx 4 x 256 x 3200 x 16 float32),
    its decode step (C = 1), a d_in of 300, a chunk that is a strided view of
    a longer sequence, two half chunks against one whole, and a = 1 against
    a float64 sum, each within 1e-5; then timed beside the plain version and
    the bound of the card's memory rate;
-7. hybrid serving path: ``python -m repro_torch.launch.serve --arch
+8. hybrid serving path: ``python -m repro_torch.launch.serve --arch
    hymba-1.5b --batch 4 --prompt-len 2048 --gen 32`` through its ``main``, at
    the full published config (32 layers, d_model 1600, 25 heads and 5 KV
    heads of 64, 29 of them with a 1024 window; 1,663,080,000 float32
@@ -60,7 +70,7 @@ Phases, each of which exits non-zero on any failed check:
    counters set to 0 just before and read just after: one flash launch per
    layer of the prefill and none in decode, one scan launch per chunk of 256
    per layer of the prefill and one per layer of each decode step (256 +
-   32 x 32). Then the checks of phase 5, the plain side also scanning with
+   32 x 32). Then the checks of phase 6, the plain side also scanning with
    the scan's plain version, warm timings and a profile.
 
 The line before the last is one JSON object of the kernels' numbers; the
@@ -75,10 +85,13 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import traceback
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
 GRAD_SCALE = 1e-3
@@ -135,6 +148,17 @@ LOGITS_TOL = 0.1
 #: now carried by 32 layers of bf16 residual (twice llama's 16), through
 #: each layer's two normalised branches
 HYMBA_LOGITS_TOL = 0.15
+#: the WAN phase: the chunnel's own MTU, its window, block 256, and the loss
+#: of the lossy rerun's link
+WAN_BLOCK, WAN_MTU, WAN_WINDOW, WAN_LOSS = 256, 4096, 8, 0.02
+#: exceptions raised in any thread (the WAN receiver, the gateway's loop)
+THREAD_ERRORS: list = []
+
+
+def _record_thread_error(args) -> None:
+    THREAD_ERRORS.append(f"{args.thread.name if args.thread else '?'}: "
+                         f"{args.exc_type.__name__}: {args.exc_value}")
+    traceback.print_exception(args.exc_type, args.exc_value, args.exc_traceback)
 
 
 def fail(msg: str) -> None:
@@ -422,21 +446,36 @@ def flash_build_report(backend) -> None:
     check(all(counts.values()), f"the flash library lacks wgmma or TMA loads: {counts}")
 
 
+def _quantize_counts() -> dict:
+    """Launches of each quantize kernel, and by route and block, since the
+    counters were last set to 0."""
+    from repro_torch.kernels.quantize.quantize import quantize_pack, unpack_dequant
+
+    return {w.__name__: (w.launches, {f"{which} b{block}": n for (which, block), n
+                                       in w.route_launches.items()})
+            for w in (quantize_pack, unpack_dequant)}
+
+
+def _reset_quantize_counts() -> None:
+    from repro_torch.kernels.quantize.quantize import quantize_pack, unpack_dequant
+
+    for w in (quantize_pack, unpack_dequant):
+        w.launches = 0
+        w.route_launches.clear()
+
+
 def phase_main_path(torch) -> dict:
     from repro_torch.comm.session import run_swap_session
-    from repro_torch.kernels.quantize.quantize import INV127, quantize_pack, unpack_dequant
+    from repro_torch.kernels.quantize.quantize import INV127
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     batches = [layer_grads(torch, ATTN, gen), layer_grads(torch, MLP, gen)]
     torch.cuda.synchronize()
-    wrappers = {"quantize_pack": quantize_pack, "unpack_dequant": unpack_dequant}
-    for w in wrappers.values():
-        w.launches = 0
-        w.route_launches.clear()
+    _reset_quantize_counts()
     res = run_swap_session(batches + batches, blocks=BLOCKS, swap_after=2, device="cuda")
-    launches = {name: w.launches for name, w in wrappers.items()}
-    by_route = {name: {f"{which} b{block}": n for (which, block), n in w.route_launches.items()}
-                for name, w in wrappers.items()}
+    counts = _quantize_counts()
+    launches = {name: n for name, (n, _) in counts.items()}
+    by_route = {name: routes for name, (_, routes) in counts.items()}
     print(f"main path: wire blocks client {res.client_blocks} server {res.server_blocks}, "
           f"switches {res.client_switches}/{res.server_switches}, launches {launches}, "
           f"by route and block {json.dumps(by_route)}")
@@ -503,6 +542,157 @@ def phase_profile(torch, batches) -> None:
                        ("Memcpy DtoH", n), ("Memcpy HtoD", n)):
         got = sum(c for _, k, c in dev if part in k)
         check(got == want, f"profile: {got} x {part} in {n} batches, want {want}")
+
+
+def _wan_send(torch, xs, loss: float = 0.0) -> dict:
+    """Each tensor of ``xs`` in its own ``send([t])`` through a fresh
+    ``WanLinkChunnel`` pair on the card, a thread pumping the receiver; the
+    receiver's reassembled payloads are kept. Returns what arrived, the
+    payloads, the sender's counters and the wall time from the first send to
+    the last tensor received and synchronised."""
+    from repro_torch.comm.chunnels import WanLinkChunnel
+    from repro_torch.core.fabric import Fabric, LinkModel
+
+    fabric = Fabric(seed=SEED)
+    if loss:
+        for a, b in (("wan-tx", "wan-rx"), ("wan-rx", "wan-tx")):
+            fabric.set_link(a, b, LinkModel(loss=loss))
+    kw = dict(mtu_bytes=WAN_MTU, window=WAN_WINDOW, block=WAN_BLOCK, device="cuda")
+    tx = WanLinkChunnel(fabric.register("wan-tx"), "wan-rx", **kw).connect_wrap(None)
+    rx = WanLinkChunnel(fabric.register("wan-rx"), "wan-tx", **kw).connect_wrap(None)
+    payloads, got = [], []
+    ingest = rx._reasm.ingest
+
+    def keep(frame):
+        done = ingest(frame)
+        if done is not None:
+            payloads.append(done[0])
+        return done
+
+    rx._reasm.ingest = keep
+
+    def pump():
+        buf = [None]
+        deadline = time.monotonic() + 300.0
+        while len(got) < len(xs) and time.monotonic() < deadline:
+            if rx.recv(buf, timeout=0.05):
+                got.append(buf[0])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    receiver = threading.Thread(target=pump, name="wan-receiver")
+    receiver.start()
+    for x in xs:
+        tx.send([x])
+    receiver.join(timeout=330.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(not receiver.is_alive() and len(got) == len(xs),
+          f"WAN link: {len(got)} of {len(xs)} tensors arrived")
+    frames_each = [-(-(len(pl)) // WAN_MTU) for pl in payloads]
+    return {"got": got, "payloads": payloads, "stats": tx.stats(), "seconds": seconds,
+            "windows": sum(-(-n // WAN_WINDOW) for n in frames_each)}
+
+
+def _check_wan_bits(torch, label, xs, res) -> int:
+    """Every received tensor bit-equal to the plain round trip on the card,
+    and the reassembled wire payloads byte-equal to the plain encode; returns
+    the count of differing payload bytes (0 required)."""
+    import numpy as np
+
+    from repro_torch.kernels.quantize.quantize import quantize_pack_ref, unpack_dequant_ref
+
+    check(len(res["payloads"]) == len(xs), f"{label}: {len(res['payloads'])} blobs reassembled")
+    differing = 0
+    for x, y, payload in zip(xs, res["got"], res["payloads"]):
+        x2d = torch.nn.functional.pad(x.reshape(-1), (0, (-x.numel()) % WAN_BLOCK)).view(
+            -1, WAN_BLOCK)
+        packed = quantize_pack_ref(x2d)
+        want = unpack_dequant_ref(packed, x2d.shape[0], WAN_BLOCK)[:x.numel()].view(x.shape)
+        check(isinstance(y, torch.Tensor) and y.device.type == "cuda"
+              and y.dtype == torch.float32 and y.shape == x.shape,
+              f"{label}: received {type(y).__name__} {getattr(y, 'dtype', None)} "
+              f"{tuple(getattr(y, 'shape', ()))}, sent {tuple(x.shape)}")
+        check(torch.equal(y.view(torch.int32), want.view(torch.int32)),
+              f"{label}: received tensor differs from the plain round trip")
+        plain = np.frombuffer(packed.cpu().numpy().tobytes(), np.uint8)
+        wire = np.frombuffer(payload, np.uint8)
+        check(wire.size == plain.size, f"{label}: payload of {wire.size} bytes, plain {plain.size}")
+        differing += int((wire != plain).sum())
+    check(differing == 0, f"{label}: {differing} payload bytes differ from the plain encode")
+    return differing
+
+
+def phase_wan(torch) -> dict:
+    """The WAN path on the card: the layer gradient at full width through a
+    WAN link pair, the attention batch again over a lossy link, then the
+    chaos-regions scenario. Returns the quantize launches of the three."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_chaos_regions import assert_regions_acceptance, reference_blob, run_chaos_regions
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    xs = [torch.cat([g.reshape(-1) for g in layer_grads(torch, spec, gen)]) for spec in (ATTN, MLP)]
+    check([x.numel() for x in xs] == [10_487_808, 50_333_696], "WAN batch sizes")
+    total = {"quantize_pack": 0, "unpack_dequant": 0}
+    want_routes = {"vector b256": 2}
+
+    def count(label, want_launches):
+        counts = _quantize_counts()
+        for name, (n, routes) in counts.items():
+            check(n == want_launches[name], f"{label}: {n} {name} launches, want "
+                  f"{want_launches[name]}")
+            check(set(routes) == {f"vector b{WAN_BLOCK}"} and sum(routes.values()) == n,
+                  f"{label}: {name} by route {routes}, want all on the vector route")
+            total[name] += n
+        check(not THREAD_ERRORS, f"{label}: exceptions in threads: {THREAD_ERRORS}")
+        return {name: routes for name, (_, routes) in counts.items()}
+
+    payload = sum(x.numel() * 4 for x in xs)
+    _reset_quantize_counts()
+    res = _wan_send(torch, xs)
+    routes = count("WAN full width", {"quantize_pack": 2, "unpack_dequant": 2})
+    check(all(r == want_routes for r in routes.values()), f"WAN full width: routes {routes}")
+    differing = _check_wan_bits(torch, "WAN full width", xs, res)
+    st = res["stats"]
+    wire = sum(len(pl) for pl in res["payloads"])
+    print(f"WAN full width: {payload} payload bytes ({wire} wire bytes) in {res['seconds']:.4f} s "
+          f"= {payload / res['seconds'] / 1e9:.4f} GB/s payload, {st['frames_sent']} frames in "
+          f"{res['windows']} windows of {WAN_WINDOW}, {st['retransmits']} retransmits, "
+          f"{st['failed_sends']} failed sends; launches by route {json.dumps(routes)}; "
+          f"received bit-equal to the plain round trip, {differing} payload bytes differ")
+
+    _reset_quantize_counts()
+    lossy = _wan_send(torch, xs[:1], loss=WAN_LOSS)
+    count("WAN lossy", {"quantize_pack": 1, "unpack_dequant": 1})
+    _check_wan_bits(torch, "WAN lossy", xs[:1], lossy)
+    st = lossy["stats"]
+    print(f"WAN lossy (loss {WAN_LOSS} each way): {xs[0].numel() * 4} payload bytes in "
+          f"{lossy['seconds']:.4f} s = {xs[0].numel() * 4 / lossy['seconds'] / 1e9:.4f} GB/s "
+          f"payload, {st['frames_sent']} frames, {st['retransmits']} retransmits, "
+          f"{st['failed_sends']} failed sends; received bit-equal")
+    check(st["retransmits"] > 0 and st["failed_sends"] == 0,
+          f"WAN lossy: retransmits {st['retransmits']}, failed sends {st['failed_sends']}")
+
+    _reset_quantize_counts()
+    t0 = time.perf_counter()
+    scen = run_chaos_regions(fast=True, device="cuda",
+                             blob=torch.from_numpy(reference_blob()).cuda())
+    seconds = time.perf_counter() - t0
+    try:
+        assert_regions_acceptance(scen)
+    except AssertionError as e:
+        fail(f"WAN scenario: acceptance predicate failed: {e}")
+    gw, ls = scen["gateway"], scen["wan"]["link_stats"]
+    sent = scen["wan"]["blobs_sent"]
+    routes = count("WAN scenario", {"quantize_pack": sent, "unpack_dequant": gw["wan_blobs"]})
+    check(sent >= gw["wan_blobs"] >= 1, f"WAN scenario: {sent} blobs sent, "
+          f"{gw['wan_blobs']} decoded by the gateway")
+    print(f"WAN scenario (chaos regions, fast): {seconds:.4f} s; WAN region switched at tick "
+          f"{scen['wan']['switch_tick']}, storm at {scen['storm_tick']}; {sent} blobs sent, "
+          f"{gw['wan_blobs']} decoded by the gateway; link retransmits {ls['retransmits']}, "
+          f"failed sends {ls['failed_sends']}, keepalive failures {ls['keepalive_failures']}; "
+          f"launches by route {json.dumps(routes)}")
+    return total
 
 
 def phase_ssm_scan(torch) -> dict:
@@ -726,6 +916,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing: {e}", file=sys.stderr)
         return 2
+    threading.excepthook = _record_thread_error
     smi = phase_backend(torch, backend)
     print(f"memory rate used for the bound: H100 SXM {MEMORY_RATE / 1e12} TB/s")
     timed = phase_kernels(torch)
@@ -733,7 +924,7 @@ def main() -> int:
     flash = phase_flash(torch)
     launches, by_route, batches = phase_main_path(torch)
     phase_profile(torch, batches)
-    paths = {"connection": dict(launches)}
+    paths = {"connection": dict(launches), "wan": phase_wan(torch)}
     paths["serve llama3.2-1b"] = phase_serve(torch, "llama3.2-1b", 1_235_814_400, LOGITS_TOL)
     scan = phase_ssm_scan(torch)
     paths["serve hymba-1.5b"] = phase_serve(torch, "hymba-1.5b", 1_663_080_000,
@@ -751,7 +942,8 @@ def main() -> int:
                            **{k: timed[(name, b)][k] for k in
                               ("ms", "plain_ms", "bound_ms", "routes")}} for b in BLOCKS}
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name], "launches": launches[name],
+                        "replaces": REPLACES[name],
+                        "launches": launches[name] + paths["wan"][name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
@@ -765,6 +957,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": paths["serve hymba-1.5b"][name],
                         **{k: r[k] for k in keys}, "launches_by_path": by_path[name]})
+    check(not THREAD_ERRORS, f"exceptions in threads: {THREAD_ERRORS}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

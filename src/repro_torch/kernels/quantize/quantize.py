@@ -17,11 +17,13 @@ else. Each kernel has two routes, each its own C entry point: ``vector`` for
 blocks that are powers of two from 4 to 1024 when every pointer starts at a
 16-byte boundary, ``scalar`` for the rest (:func:`route`). ``launches`` on
 each wrapper counts its kernel launches; ``route_launches`` counts them by
-``(route, block)``.
+``(route, block)``. Both counts are bumped under one lock, because a wire
+may encode in one thread while another decodes (``WanGateway``).
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 
 import numpy as np
@@ -75,6 +77,18 @@ def launch(kernel: str, which: str, src: torch.Tensor, dst: torch.Tensor,
     backend.check_launch(f"{kernel} ({which} route)", err)
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, which: str, block: int) -> None:
+    """One launch of ``wrapper``'s kernel by route ``which`` at ``block``,
+    added to ``wrapper.launches`` and ``wrapper.route_launches`` under a
+    lock, so that threads launching at once lose no count."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.route_launches[(which, block)] += 1
+
+
 def packed_nbytes(n_blocks: int, block: int) -> int:
     return n_blocks * block + 4 * n_blocks
 
@@ -116,8 +130,7 @@ def quantize_pack(x2d: torch.Tensor) -> torch.Tensor:
                       device=x2d.device)
     which = route(block, x2d, out)
     launch("quantize_pack", which, x2d, out, n_blocks, block)
-    quantize_pack.launches += 1
-    quantize_pack.route_launches[(which, block)] += 1
+    count_launch(quantize_pack, which, block)
     return out
 
 
@@ -140,8 +153,7 @@ def unpack_dequant(packed: torch.Tensor, n_blocks: int, block: int) -> torch.Ten
     out = torch.empty(n_blocks * block, dtype=torch.float32, device=packed.device)
     which = route(block, packed, out)
     launch("unpack_dequant", which, packed, out, n_blocks, block)
-    unpack_dequant.launches += 1
-    unpack_dequant.route_launches[(which, block)] += 1
+    count_launch(unpack_dequant, which, block)
     return out
 
 

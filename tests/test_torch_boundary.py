@@ -37,7 +37,12 @@ def test_imports_with_jax_and_reference_blocked():
             "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
             "import repro_torch.kernels.flash_attention.flash_attention\n"
             "import repro_torch.kernels.ssm_scan.ssm_scan\n"
-            "import repro_torch.models.ssm, repro_torch.models.hymba\n")
+            "import repro_torch.models.ssm, repro_torch.models.hymba\n"
+            "import repro_torch.comm, repro_torch.comm.chunnels, repro_torch.chaos\n"
+            "import repro_torch.serving.gateway, repro_torch.serving.pubsub\n"
+            "import repro_torch.serving.router, repro_torch.fleet\n"
+            "import repro_torch.obs.calibrate, repro_torch.obs.federate\n"
+            "import repro_torch.obs.scenario, repro_torch.obs.__main__\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -293,3 +293,67 @@ class TestKernelAgainstPlain:
         x = make_rows(300, 256, 1e4, seed=1)
         on_card = quantize_pack(torch.from_numpy(x).to(cuda)).cpu()
         assert torch.equal(on_card, quantize_pack(torch.from_numpy(x)))
+
+
+class TestLaunchCountLock:
+    """A wire may encode in one thread while another decodes (the WAN
+    gateway decodes in its own thread), so the wrappers' launch counts are
+    bumped under a lock: two threads counting N launches each leave exactly
+    2N, in total and by route and block."""
+
+    @pytest.mark.parametrize("wrapper", [quantize_pack, unpack_dequant],
+                             ids=["quantize_pack", "unpack_dequant"])
+    def test_two_threads_lose_no_count(self, wrapper):
+        import sys
+        import threading
+
+        from repro_torch.kernels.quantize.quantize import count_launch
+
+        n = 20_000
+        saved = wrapper.launches, wrapper.route_launches.copy()
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)  # switch threads as often as it can
+        try:
+            wrapper.launches = 0
+            wrapper.route_launches.clear()
+            start = threading.Barrier(2)
+
+            def bump():
+                start.wait()
+                for _ in range(n):
+                    count_launch(wrapper, "vector", 256)
+
+            threads = [threading.Thread(target=bump) for _ in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            assert wrapper.launches == 2 * n
+            assert wrapper.route_launches == {("vector", 256): 2 * n}
+        finally:
+            sys.setswitchinterval(interval)
+            wrapper.launches = saved[0]
+            wrapper.route_launches.clear()
+            wrapper.route_launches.update(saved[1])
+
+    def test_count_waits_for_the_lock(self):
+        """The count is taken under the wrappers' lock: while another holder
+        has it, a launch's count waits."""
+        import threading
+
+        from repro_torch.kernels.quantize import quantize as q
+
+        saved = q.quantize_pack.launches, q.quantize_pack.route_launches.copy()
+        try:
+            q.quantize_pack.launches = 0
+            with q._COUNT_LOCK:
+                t = threading.Thread(target=q.count_launch, args=(q.quantize_pack, "scalar", 101))
+                t.start()
+                t.join(timeout=0.2)
+                assert t.is_alive() and q.quantize_pack.launches == 0
+            t.join()
+            assert q.quantize_pack.launches == 1
+        finally:
+            q.quantize_pack.launches = saved[0]
+            q.quantize_pack.route_launches.clear()
+            q.quantize_pack.route_launches.update(saved[1])
