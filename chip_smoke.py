@@ -71,7 +71,38 @@ Phases, each of which exits non-zero on any failed check:
    layer of the prefill and none in decode, one scan launch per chunk of 256
    per layer of the prefill and one per layer of each decode step (256 +
    32 x 32). Then the checks of phase 6, the plain side also scanning with
-   the scan's plain version, warm timings and a profile.
+   the scan's plain version, warm timings and a profile;
+9. the n-way dequantize-sum kernel ``unpack_dequant_sum`` (not a TPU kernel:
+   it computes the body of the reference's ``compressed_allgather_sum``)
+   against its plain version on the card, bit-equal: at the gradient of
+   phase 10 (n_blocks 1,501,224, block 256) with n = 2 and n = 4, at n = 1
+   (the error feedback's dequantize), a ragged tail, block 64 and an offset
+   view (the scalar route); then timed at n = 2 and 4 beside the plain
+   version and the bound of the card's memory rate;
+10. training on one rank: ``python -m repro_torch.launch.train --arch
+    llama3.2-1b --steps 8 --batch 8 --seq 128 --transport xla --ckpt <tmp>
+    --ckpt-every 4`` through its ``main``, at the full published config (16
+    layers, 1,235,814,400 float32 parameters from seed 0), every kernel
+    counter set to 0 just before and read just after (no kernel runs on
+    this path: one rank builds no transport chunnel); every loss finite.
+    Then the step-4 checkpoint restored into a trainer built again, steps
+    4-7 run again, their losses equal to the uninterrupted run's; one warm
+    step profiled;
+11. training on two ranks that share the card: two processes on cuda:0 in
+    a ``gloo`` world (NCCL refuses two ranks on one device), a mesh of
+    ``pod`` = 2, llama3.2-1b's published widths with depth cut to 2 layers
+    (384,313,344 parameters, 11 reference leaves), global batch 8 x 128,
+    the hosts offering [psum, compressed_int8]: 3 steps of psum, a 2PC
+    reconfiguration to compressed_int8, 3 steps of it, save, restore and 1
+    more step. Each rank's counters are set to 0 before each step and read
+    after it: no kernel in a psum step; in each compressed step 12
+    ``quantize_pack`` and 12 ``unpack_dequant_sum`` launches (the flat
+    gradient's, at n = 2, and one per reference leaf for the error
+    feedback, at n = 1), all on the vector route at block 256. The
+    parameters are bit-equal on both ranks after every step (an exchanged
+    checksum), the first compressed step's all-gather-sum is bit-equal to
+    its plain version on the same gathered codes, every loss is finite,
+    and both processes exit 0 with no exception in any thread.
 
 The line before the last is one JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -79,12 +110,15 @@ the package beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -151,6 +185,20 @@ HYMBA_LOGITS_TOL = 0.15
 #: the WAN phase: the chunnel's own MTU, its window, block 256, and the loss
 #: of the lossy rerun's link
 WAN_BLOCK, WAN_MTU, WAN_WINDOW, WAN_LOSS = 256, 4096, 8, 0.02
+#: the n-way dequantize-sum (not a TPU kernel: the body of the reference's
+#: compressed all-gather-sum, src/repro/comm/collectives.py:147-150)
+SUM_REPLACES = "src/repro/comm/collectives.py:147 (not a TPU kernel)"
+#: the training phases: llama3.2-1b at full width on one rank; its widths
+#: with 2 of 16 layers on two ranks that share the card
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY = 8, 8, 128, 4
+TRAIN2_LAYERS, TRAIN2_PARAMS, TRAIN2_LEAVES = 2, 384_313_344, 11
+#: the two-rank phase's gradient at block 256
+SUM_N_BLOCKS = TRAIN2_PARAMS // 256
+#: restart continuity: steps 4-7 after restoring the step-4 checkpoint
+#: against the uninterrupted run's, relative. The state restores bit for
+#: bit and the data is deterministic, so only a run-to-run difference of a
+#: library's reduction order could move a loss; none is expected
+RESTART_RTOL = 1e-6
 #: exceptions raised in any thread (the WAN receiver, the gateway's loop)
 THREAD_ERRORS: list = []
 
@@ -394,15 +442,17 @@ def phase_flash(torch) -> dict:
         q, k, v = qkv(SERVE_BATCH, SERVE_PROMPT, hd, bf16, heads)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window))
+        plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True,
+                                                              window=window), reps=5, group=2)
         # sdpa's boolean mask keeps True: causal and inside the window
         mask = None if window is None else (
             (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window))
         lib = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, is_causal=window is None,
                                           enable_gqa=True))
         b = flash_bound(q, k, window)
-        res[label] = {"ms": ms, "library_ms": lib, **b}
+        res[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, **b}
         print(f"time flash_attention {label}: q {tuple(q.shape)} bf16: {ms:.4f} ms "
-              f"(sdpa {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}: "
+              f"(plain {plain_ms:.4f} ms, sdpa {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}: "
               f"{b['flops']} flops, {b['bytes']} bytes; {b['flops'] / ms / 1e9:.1f} TFLOP/s, "
               f"{b['bound_ms'] / ms:.1%} of the bound)")
     return res
@@ -751,6 +801,7 @@ def phase_ssm_scan(torch) -> dict:
     ms = time_ms(torch, lambda: ssm_scan_chunk(a, bx, h0))
     plain_ms = time_ms(torch, lambda: ssm_scan_chunk_ref(a, bx, h0), reps=5, group=2)
     decode_ms = time_ms(torch, lambda: ssm_scan_chunk(*decode))
+    decode_plain_ms = time_ms(torch, lambda: ssm_scan_chunk_ref(*decode))
     # a and bx read, h_seq written, h0 read and h_last written, float32; a
     # multiply and an add per lane and step
     io = 4 * (3 * a.numel() + 2 * h0.numel())
@@ -759,11 +810,12 @@ def phase_ssm_scan(torch) -> dict:
     res = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "max_abs_err": max(errs), "bytes": io, "flops": flops, "decode_ms": decode_ms}
+           "max_abs_err": max(errs), "bytes": io, "flops": flops, "decode_ms": decode_ms,
+           "decode_plain_ms": decode_plain_ms}
     print(f"time ssm_scan_chunk prefill chunk {tuple(a.shape)}: {ms:.4f} ms (plain "
           f"{plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms by {res['bound_by']}: {io} bytes, "
           f"{flops} flops; {io / ms / 1e6:.1f} GB/s); decode step {tuple(decode[0].shape)}: "
-          f"{decode_ms:.4f} ms")
+          f"{decode_ms:.4f} ms (plain {decode_plain_ms:.4f} ms)")
     return res
 
 
@@ -904,6 +956,358 @@ def _decode_steps(model, cache, tok, n):
         tok = logits.argmax(dim=-1, keepdim=True)
 
 
+def _all_counts() -> dict:
+    """Launches of every kernel wrapper since its counter was last set to 0."""
+    from repro_torch.kernels.quantize.quantize import (quantize_pack, unpack_dequant,
+                                                       unpack_dequant_sum)
+
+    ws = {**_wrappers(), "quantize_pack": quantize_pack, "unpack_dequant": unpack_dequant,
+          "unpack_dequant_sum": unpack_dequant_sum}
+    return {name: w.launches for name, w in ws.items()}
+
+
+def _reset_all_counts() -> None:
+    from repro_torch.kernels.quantize.quantize import unpack_dequant_sum
+
+    _reset_quantize_counts()
+    unpack_dequant_sum.launches = 0
+    unpack_dequant_sum.route_launches.clear()
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def phase_sum_kernel(torch) -> dict:
+    """``unpack_dequant_sum`` against its plain version on the card, then
+    timed at the two-rank phase's gradient."""
+    from repro_torch.kernels.quantize.quantize import (launch_sum, quantize_pack,
+                                                       unpack_dequant_sum,
+                                                       unpack_dequant_sum_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def gathered(n, n_blocks, block):
+        """n ranks' codes and scales, each rank's from its own quantized
+        gradient-sized draw, stacked as an all-gather leaves them."""
+        codes = torch.empty((n, n_blocks, block), dtype=torch.int8, device="cuda")
+        scales = torch.empty((n, n_blocks), dtype=torch.float32, device="cuda")
+        nq = n_blocks * block
+        for k in range(n):
+            x = torch.randn((n_blocks, block), generator=gen, device="cuda") * GRAD_SCALE
+            packed = quantize_pack(x)
+            codes[k] = packed[:nq].view(torch.int8).view(n_blocks, block)
+            scales[k] = packed[nq:].view(torch.float32)
+            del x, packed
+        return codes, scales
+
+    def check_case(label, codes, scales, want_route):
+        n, n_blocks, block = codes.shape
+        n0 = unpack_dequant_sum.route_launches.copy()
+        out = unpack_dequant_sum(codes, scales)
+        ref = unpack_dequant_sum_ref(codes, scales)
+        torch.cuda.synchronize()
+        check(unpack_dequant_sum.route_launches - n0 == {(want_route, block): 1},
+              f"unpack_dequant_sum {label}: want one {want_route} launch")
+        check(out.shape == (n_blocks * block,) and out.dtype == torch.float32,
+              f"unpack_dequant_sum {label}: {out.dtype} {tuple(out.shape)}")
+        err = (out - ref).abs().max().item()
+        check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+              f"unpack_dequant_sum {label} != plain: max abs diff {err}")
+        print(f"kernel check unpack_dequant_sum {label}: n {n}, n_blocks {n_blocks}, block "
+              f"{block}, codes at data_ptr % 16 = {codes.data_ptr() % 16}, {want_route} route: "
+              "bit-equal")
+        return err
+
+    errs = []
+    res = {}
+    for n in (2, 4, 1):
+        codes, scales = gathered(n, SUM_N_BLOCKS, 256)
+        errs.append(check_case(f"gradient n={n}", codes, scales, "vector"))
+        if n == 1:
+            continue
+        out = torch.empty(SUM_N_BLOCKS * 256, dtype=torch.float32, device="cuda")
+        ms = time_ms(torch, lambda: unpack_dequant_sum(codes, scales))
+        vec_ms = time_ms(torch, lambda: launch_sum("vector", codes, scales, out))
+        plain_ms = time_ms(torch, lambda: unpack_dequant_sum_ref(codes, scales), reps=5, group=2)
+        io = codes.numel() + 4 * scales.numel() + 4 * out.numel()
+        flops = (2 * n - 1) * out.numel()
+        bytes_ms, ops_ms = io / MEMORY_RATE * 1e3, flops / F32_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        res[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                  "bytes": io, "flops": flops, "vector_entry_ms": vec_ms}
+        print(f"time unpack_dequant_sum n={n} (codes {tuple(codes.shape)}): {ms:.4f} ms "
+              f"(the vector entry point alone {vec_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{bound:.4f} ms by {res[n]['bound_by']}: {io} bytes, {flops} flops; "
+              f"{io / ms / 1e6:.1f} GB/s, {bound / ms:.1%} of the bound)")
+        del codes, scales, out
+        torch.cuda.empty_cache()
+    codes, scales = gathered(2, 1001, 256)  # a ragged tail of the vector route's tiles
+    errs.append(check_case("ragged n_blocks=1001", codes, scales, "vector"))
+    codes, scales = gathered(2, 4 * 9999, 64)
+    errs.append(check_case("block 64", codes, scales, "vector"))
+    codes_off = torch.empty(codes.numel() + 1, dtype=torch.int8, device="cuda")[1:]
+    codes_off = codes_off.view(codes.shape)
+    codes_off.copy_(codes)
+    check(codes_off.data_ptr() % 16 == 1, "the offset view must sit one byte off")
+    errs.append(check_case("offset view", codes_off, scales, "scalar"))
+    res["max_abs_err"] = max(errs)
+    return res
+
+
+def phase_train_one(torch, n_params: int) -> dict:
+    """The one-rank training path through the launcher's ``main`` at full
+    width, with every kernel counter set to 0 just before and read just
+    after; then restart continuity from the step-4 checkpoint and a profile
+    of one warm step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        argv = ["--arch", "llama3.2-1b", "--steps", str(TRAIN_STEPS), "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--transport", "xla", "--ckpt", ckpt,
+                "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+        print("train 1 rank: python -m repro_torch.launch.train", " ".join(argv))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        run = train.main(argv)
+        wall = time.perf_counter() - t0
+        launches = _all_counts()
+        print(f"train 1 rank: launches {json.dumps(launches)} (want 0 of each: one rank "
+              f"builds no transport chunnel, and training attends with xla_chunked)")
+        check(not any(launches.values()), f"train 1 rank launched kernels: {launches}")
+        losses = run.losses
+        check(len(losses) == TRAIN_STEPS and all(math.isfinite(l) for l in losses),
+              f"train 1 rank: losses {losses}")
+        check(run.transport == "xla", f"negotiated {run.transport}, not xla")
+        print(f"train 1 rank: losses {losses}")
+        print(f"train 1 rank: first step {run.first_ms:.3f} ms, warm {run.warm_ms:.3f} ms/step "
+              f"(median of steps 2-{TRAIN_STEPS}), {run.tokens_per_s:.1f} tokens/s "
+              f"({run.tokens_per_step} tokens a step), peak memory "
+              f"{run.peak_memory_bytes / 2**30:.2f} GiB ({run.peak_memory_bytes} bytes); step ms "
+              f"{[round(t * 1e3, 3) for t in run.step_s]}; main {wall:.3f} s with the "
+              f"checkpoints' writes")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tr = train.build(train.parse(argv), make_mesh((1,), ("data",), device="cuda"))
+        got = sum(p.numel() for p in tr.model.parameters())
+        check(got == n_params, f"train 1 rank: {got} parameters, want {n_params}")
+        t0 = time.perf_counter()
+        state, at = tr.restore(step=TRAIN_CKPT_EVERY)
+        restore_s = time.perf_counter() - t0
+        check(at == TRAIN_CKPT_EVERY and state.step == TRAIN_CKPT_EVERY,
+              f"restored step {at}, state step {state.step}")
+        gen = batches_for(tr.cfg, tr.shape)
+        state, hist = tr.run(state, gen, TRAIN_STEPS - TRAIN_CKPT_EVERY)
+        again = [h["loss"] for h in hist]
+        want = losses[TRAIN_CKPT_EVERY:]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(again, want))
+        print(f"train 1 rank restart: restored step {at} in {restore_s:.3f} s; steps "
+              f"{TRAIN_CKPT_EVERY}-{TRAIN_STEPS - 1} again {again} against {want}: max relative "
+              f"difference {diff} (tolerance {RESTART_RTOL}), "
+              f"{'equal' if again == want else 'not bit-equal'}")
+        check(diff <= RESTART_RTOL, f"restart losses differ by {diff}")
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.run(state, gen, 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = device_events(torch, prof)
+        busy = sum(us for us, _, _ in dev) / 1e6
+        tag = "profile train 1 rank, one warm step"
+        print(f"{tag}: wall {wall:.4f} s, device busy {busy:.4f} s, idle share "
+              f"{1 - busy / wall:.4f}, {sum(c for _, _, c in dev)} device kernels and copies")
+        for us, key, count in dev[:10]:
+            print(f"{tag}: device {us / 1e3:.3f} ms in {count} x {key[:90]}")
+        host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+        for us, key, count in host[:8]:
+            print(f"{tag}: host {us / 1e3:.3f} ms in {count} x {key[:90]}")
+        del tr, state
+        return launches
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _checksum(torch, params) -> list:
+    """Each parameter's float32 bit patterns summed as int64: equal on two
+    ranks when the parameters are bit-equal (a difference in one element
+    always shows)."""
+    return [p.detach().view(torch.int32).sum(dtype=torch.int64).item()
+            for _, p in sorted(params.items())]
+
+
+def train_rank(ckpt_dir: str) -> dict:
+    """One rank of the two-rank phase (run by ``spawn`` in a process of its
+    own; every rank runs the same calls). Returns its per-step records."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.comm import collectives, compress
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.kernels.quantize.quantize import (quantize_pack, unpack_dequant,
+                                                       unpack_dequant_sum,
+                                                       unpack_dequant_sum_ref)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import HostSpec, ReconfigurableTrainer
+
+    errors: list = []
+    threading.excepthook = lambda a: errors.append(f"{a.thread.name}: {a.exc_value!r}")
+    torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    mesh = make_mesh((2,), ("pod",), device="cuda:0")
+    cfg = get_config("llama3.2-1b").replace(num_layers=TRAIN2_LAYERS)
+    shape = ShapeConfig("train2", TRAIN_SEQ, TRAIN_BATCH, "train")
+    offers = ["psum", "compressed_int8"]
+    tr = ReconfigurableTrainer(cfg, shape, mesh,
+                               tcfg=TrainConfig(warmup_steps=10, total_steps=TRAIN_STEPS),
+                               transport="psum", ckpt_dir=ckpt_dir,
+                               hosts=[HostSpec(0, list(offers)), HostSpec(1, list(offers))])
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    n_leaves = len(T.leaves(step_mod.grad_shapes(tr.model)))
+    state = tr.init_state(SEED)
+    gen = batches_for(cfg, shape)
+    tap: dict = {}
+    real_sum = compress.unpack_dequant_sum
+
+    def tapped(codes, scales):
+        """The first all-gather-sum of two ranks, against its plain
+        version on the same gathered codes (not counted: the plain
+        version launches no kernel of the port)."""
+        out = real_sum(codes, scales)
+        if codes.shape[0] == 2 and "bit_equal" not in tap:
+            ref = unpack_dequant_sum_ref(codes, scales)
+            tap["bit_equal"] = bool(torch.equal(out.view(torch.int32), ref.view(torch.int32)))
+            tap["max_abs_err"] = (out - ref).abs().max().item()
+            tap["shape"] = list(codes.shape)
+        return out
+
+    compress.unpack_dequant_sum = tapped
+    wrappers = {"quantize_pack": quantize_pack, "unpack_dequant": unpack_dequant,
+                "unpack_dequant_sum": unpack_dequant_sum}
+    records = []
+
+    def one_step(state, label):
+        for w in wrappers.values():
+            w.launches = 0
+            w.route_launches.clear()
+        sent0 = sum(collectives.SENT.values())
+        state, hist = tr.run(state, gen, 1)
+        sums = [None] * mesh.size
+        dist.all_gather_object(sums, _checksum(torch, state.params))
+        records.append({
+            "label": label, "transport": tr.transport_name, "step": state.step,
+            "loss": hist[0]["loss"], "ms": tr.step_times[-1] * 1e3,
+            "sent_bytes": sum(collectives.SENT.values()) - sent0,
+            "launches": {n: w.launches for n, w in wrappers.items()},
+            "routes": {n: {f"{r} b{b}": c for (r, b), c in w.route_launches.items()}
+                       for n, w in wrappers.items()},
+            "params_equal_on_ranks": all(s == sums[0] for s in sums)})
+        return state
+
+    for _ in range(3):
+        state = one_step(state, "psum")
+    state = tr.reconfigure(state, "compressed_int8")
+    for _ in range(3):
+        state = one_step(state, "compressed_int8")
+    t0 = time.perf_counter()
+    tr.save(state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, at = tr.restore()
+    restore_s = time.perf_counter() - t0
+    state = one_step(state, "compressed_int8 after restore")
+    compress.unpack_dequant_sum = real_sum
+    return {"rank": rank, "n_params": n_params, "n_leaves": n_leaves, "records": records,
+            "reconfig_log": tr.reconfig_log, "restored_at": at, "save_s": save_s,
+            "restore_s": restore_s, "tap": tap, "thread_errors": errors,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_train_two(torch) -> dict:
+    """Two ranks on the one card: spawn, then every check on both ranks'
+    records. Returns the launches of each kernel, over both ranks."""
+    from repro_torch.launch.mesh import spawn
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt2_")
+    why = "the ranks share one GPU; NCCL refuses two ranks on one device"
+    print(f"train 2 ranks: two processes on cuda:0, gloo ({why}); llama3.2-1b widths, "
+          f"{TRAIN2_LAYERS} of 16 layers; global batch {TRAIN_BATCH} x {TRAIN_SEQ}; psum x 3, "
+          "2PC to compressed_int8, compressed_int8 x 3, save, restore, 1 more step")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn("chip_smoke:train_rank", 2, backend="gloo", args=(ckpt,),
+                      timeout_s=900.0, reason=why)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0}
+    for r in ranks:
+        rank = r["rank"]
+        check(not r["thread_errors"], f"rank {rank}: exceptions in threads {r['thread_errors']}")
+        check(r["n_params"] == TRAIN2_PARAMS and r["n_leaves"] == TRAIN2_LEAVES,
+              f"rank {rank}: {r['n_params']} parameters in {r['n_leaves']} leaves")
+        check(r["reconfig_log"] == [{"from": "psum", "to": "compressed_int8", "committed": True,
+                                     "at_step": 3}], f"rank {rank}: {r['reconfig_log']}")
+        check(r["restored_at"] == 6, f"rank {rank}: restored step {r['restored_at']}")
+        tap = r["tap"]
+        check(tap.get("bit_equal") is True,
+              f"rank {rank}: the first all-gather-sum differs from its plain version: {tap}")
+        print(f"train 2 ranks, rank {rank}: first compressed all-gather-sum (codes "
+              f"{tap['shape']}) bit-equal to its plain version on the same gathered codes; "
+              f"save {r['save_s']:.3f} s, restore {r['restore_s']:.3f} s, peak memory "
+              f"{r['peak_memory_bytes'] / 2**30:.2f} GiB")
+        for rec in r["records"]:
+            compressed = rec["transport"] == "compressed_int8"
+            want = ({"quantize_pack": 1 + TRAIN2_LEAVES, "unpack_dequant": 0,
+                     "unpack_dequant_sum": 1 + TRAIN2_LEAVES} if compressed
+                    else {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0})
+            check(rec["launches"] == want, f"rank {rank} step {rec['step']} ({rec['label']}): "
+                  f"launches {rec['launches']}, want {want}")
+            if compressed:
+                for name in ("quantize_pack", "unpack_dequant_sum"):
+                    check(rec["routes"][name] == {"vector b256": want[name]},
+                          f"rank {rank} step {rec['step']}: {name} routes {rec['routes'][name]}")
+            check(rec["params_equal_on_ranks"],
+                  f"rank {rank} step {rec['step']}: parameters differ across the ranks")
+            check(math.isfinite(rec["loss"]), f"rank {rank} step {rec['step']}: loss {rec['loss']}")
+            for name in total:
+                total[name] += rec["launches"][name]
+    r0 = ranks[0]["records"]
+    check([rec["loss"] for rec in r0] == [rec["loss"] for rec in ranks[1]["records"]],
+          "the ranks report different losses")
+    for rec in r0:
+        print(f"train 2 ranks: step {rec['step']} {rec['label']}: loss {rec['loss']:.6f}, "
+              f"{rec['ms']:.3f} ms (rank 0; rank 1 "
+              f"{ranks[1]['records'][r0.index(rec)]['ms']:.3f} ms), {rec['sent_bytes']} bytes "
+              f"sent by rank 0, launches {json.dumps(rec['launches'])}, parameters bit-equal on "
+              "both ranks")
+    for t in ("psum", "compressed_int8"):
+        ms = [rec["ms"] for r in ranks for rec in r["records"] if rec["label"] == t]
+        sent = [rec["sent_bytes"] for rec in r0 if rec["label"] == t]
+        print(f"train 2 ranks: {t}: median {statistics.median(ms):.3f} ms/step over both ranks' "
+              f"{len(ms)} steps (gloo through the host on one shared card, not NCCL), "
+              f"{statistics.median(sent)} bytes sent per rank per step")
+    print(f"train 2 ranks: launches over both ranks {json.dumps(total)}; spawn to exit "
+          f"{wall:.3f} s; both processes exited 0")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -929,9 +1333,15 @@ def main() -> int:
     scan = phase_ssm_scan(torch)
     paths["serve hymba-1.5b"] = phase_serve(torch, "hymba-1.5b", 1_663_080_000,
                                             HYMBA_LOGITS_TOL)
-    by_path = {name: {path: n[name] for path, n in paths.items() if n.get(name)}
-               for name in ("quantize_pack", "unpack_dequant", "flash_attention",
-                            "ssm_scan_chunk")}
+    dsum = phase_sum_kernel(torch)
+    paths["train 1 rank"] = phase_train_one(torch, 1_235_814_400)
+    paths["train 2 ranks"] = phase_train_two(torch)
+    names = ("quantize_pack", "unpack_dequant", "unpack_dequant_sum", "flash_attention",
+             "ssm_scan_chunk")
+    # every path of this slice for every kernel, zeros included; earlier
+    # paths where the kernel ran
+    by_path = {name: {path: n.get(name, 0) for path, n in paths.items()
+                      if n.get(name) or path.startswith("train")} for name in names}
     print("launches by path:", json.dumps(by_path))
     kernels = []
     # the quantize kernels: the numbers at block 256 on top, and each block
@@ -943,12 +1353,21 @@ def main() -> int:
                               ("ms", "plain_ms", "bound_ms", "routes")}} for b in BLOCKS}
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
-                        "launches": launches[name] + paths["wan"][name],
+                        "launches": (launches[name] + paths["wan"][name]
+                                     + paths["train 2 ranks"][name]),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "launches_by_path": by_path[name], "launches_by_route": by_route[name],
                         "blocks": blocks})
+    # the n-way dequantize-sum: its numbers at n = 2 (the two-rank path's
+    # gradient) on top, n = 4 beside; launches of the two-rank path
+    kernels.append({"name": "unpack_dequant_sum", "route": "cuda", "source": SOURCE,
+                    "replaces": SUM_REPLACES, "launches": paths["train 2 ranks"][
+                        "unpack_dequant_sum"], "max_abs_err": dsum["max_abs_err"],
+                    **{k: dsum[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                    "library_ms": None, "launches_by_path": by_path["unpack_dequant_sum"],
+                    "n4": {k: dsum[4][k] for k in ("ms", "plain_ms", "bound_ms", "bytes")}})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: the count of this slice's path, the hymba serve run
     for name, source, replaces, r in (

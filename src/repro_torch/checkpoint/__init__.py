@@ -1,0 +1,1 @@
+"""Atomic, asynchronous checkpoints in the reference's on-disk layout."""

@@ -1,6 +1,8 @@
 """Communication chunnels: the int8 block wire format, the fused compressed
-wire path (``repro_torch.comm.wire``), and the host-plane chunnels of
-``repro_torch.comm.chunnels`` (the WAN link and cost calibration)."""
+wire path (``repro_torch.comm.wire``), the gradient collectives on
+``torch.distributed`` (``repro_torch.comm.collectives``), and the chunnels
+of ``repro_torch.comm.chunnels`` (the gradient transports, the WAN link and
+cost calibration)."""
 from repro_torch.comm.chunnels import (
     REJIT_BLIP_S,
     UNIT,

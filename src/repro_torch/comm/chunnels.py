@@ -1,4 +1,23 @@
-"""Host-plane chunnels of the comm layer: the WAN link and cost calibration.
+"""Comm-layer chunnels: the gradient transports, the WAN link, cost calibration.
+
+Step chunnels (the reference's ``StepChunnel`` and its seven ``Grad*``
+transports) are Bertha chunnels whose datapath is the training step: every
+rank applies the negotiated stack to its gradient tree between backward and
+the optimizer. Every collective chunnel is multilateral: ranks must run the
+identical sequence of collectives or the job deadlocks at the first
+mismatch — exactly the incompatibility Bertha's negotiation exists to
+prevent. The exact-match capability labels below are what the host agents
+negotiate. The gradient-transport Select:
+
+    Select(GradXla(), GradHierarchical(), GradRing(), GradCompressed())
+
+GradXla leaves the sync to the step, which averages the gradients over every
+batch axis with one framework all-reduce (the reference leaves it to XLA's
+partitioner); the others take control of their axes (``manual_axes``) and
+place the collectives of ``repro_torch.comm.collectives`` themselves. The
+int8 transports take ``device=`` as every entry point of the port does: on
+the GPU their wire runs the Hopper kernels ``quantize_pack`` and
+``unpack_dequant_sum``, on the CPU their plain versions.
 
 ``WanLinkChunnel`` is the "compressed + reliable" option a region's Select
 moves to when its link turns lossy: float batches ride the int8 block wire
@@ -10,9 +29,6 @@ keepalives. The peer is ``repro_torch.serving.gateway.WanGateway``.
 The cost calibration derives the transport cost models' terms from the live
 mesh width and a measured link bandwidth, and installs trace-measured
 per-chunnel costs into the core scorer (``repro_torch.obs.calibrate``).
-
-The gradient-transport step chunnels of the reference module are not part of
-this module yet.
 """
 from __future__ import annotations
 
@@ -25,8 +41,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.backend import resolve_device
-from repro_torch.comm.compress import int8_wire_ratio
+from repro_torch.comm import collectives
+from repro_torch.comm.compress import int8_wire_ratio, quantize_error
 from repro_torch.comm.wire import Reassembler, chunk_payload, decode_blob, encode_batch
 from repro_torch.core.capability import CapabilitySet
 from repro_torch.core.chunnel import Chunnel, Datapath, WireType
@@ -42,6 +60,7 @@ from repro_torch.core.cost import CostModel, install_measured_costs, reset_measu
 from repro_torch.core.fabric import ReliableChannel
 from repro_torch.obs.trace import NOOP_SPAN, TRACER
 
+GRADS_F32 = WireType.of("grads", dtype="f32")
 UNIT = WireType.of("unit")
 
 
@@ -134,6 +153,370 @@ def calibrated_objective(base):
         return base
     return dataclasses.replace(base, dcn_s_per_byte=1.0 / bw,
                                name=f"{base.name}@measured")
+
+
+class StepChunnel(Chunnel):
+    """A chunnel applied to gradient trees inside the training step.
+
+    ``apply(tree, state, ctx)`` runs on every rank between backward and the
+    optimizer; ``ctx["mesh"]`` is the rank's mesh.
+    """
+
+    multilateral = True  # SPMD: all hosts must agree
+    upper_type = GRADS_F32
+    lower_type = UNIT
+
+    #: mesh axes this chunnel takes control of
+    manual_axes: tuple = ()
+
+    #: nominal fast-axis width assumed by cost models that divide DCN bytes by
+    #: |fast| when NO live calibration is installed — the fallback for code
+    #: that scores transports without a mesh in hand (coarse on purpose; the
+    #: scorer only needs ordering). ``calibrate_cost_models(mesh=...)``
+    #: replaces it with the live axis width.
+    NOMINAL_FAST = 4
+
+    def fast_width(self) -> int:
+        """Fast-axis width the cost model divides DCN bytes by: the LIVE
+        calibrated width when ``calibrate_cost_models`` has seen a mesh,
+        else the static ``NOMINAL_FAST`` annotation."""
+        cal = cost_calibration()
+        return cal.n_fast if cal.n_fast else self.NOMINAL_FAST
+
+    #: False for transports that trade gradient freshness for communication
+    #: (localsgd-style): their cost models honestly win the comm-cost contest,
+    #: so scoring policies must not treat them as steady-state candidates —
+    #: only an explicit mitigation rule may select them
+    exact_sync = True
+
+    def init_state(self, grads_shape):
+        return ()
+
+    def apply(self, tree, state, ctx: dict):
+        raise NotImplementedError
+
+    def connect_wrap(self, inner: Optional[Datapath]) -> Datapath:
+        return _StepDatapath(self, inner)
+
+
+class _StepDatapath(Datapath):
+    def __init__(self, ch: StepChunnel, inner: Optional[Datapath]):
+        self.ch = ch
+        self.inner = inner
+
+    def send(self, msgs):
+        raise RuntimeError("step chunnels run inside the step via apply(), not send()")
+
+    recv = send
+
+
+def apply_grad_stack(chunnels, tree, states, ctx):
+    """Fold grads through the stack top-down; returns (tree, new_states)."""
+    new_states = []
+    for ch, st in zip(chunnels, states):
+        tree, st = ch.apply(tree, st, ctx)
+        new_states.append(st)
+    return tree, tuple(new_states)
+
+
+def stack_manual_axes(chunnels) -> set:
+    out = set()
+    for ch in chunnels:
+        out |= set(getattr(ch, "manual_axes", ()))
+    return out
+
+
+def init_grad_states(chunnels, grads_shape):
+    """Each chunnel's initial state for gradients shaped like
+    ``grads_shape`` (a tree of tensors; only shapes and devices are read)."""
+    return tuple(ch.init_state(grads_shape) for ch in chunnels)
+
+
+def _div(tree, n):
+    return T.map(lambda g: g / n, tree)
+
+
+# ---------------------------------------------------------------------------
+# Transports
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class GradXla(StepChunnel):
+    """Leave gradient sync to the step's one all-reduce (the 'kernel stack')."""
+
+    axis: str = "pod"
+    manual_axes = ()
+
+    @property
+    def name(self):
+        return "GradXla"
+
+    def capabilities(self):
+        return CapabilitySet.exact("wire:f32").union_(
+            CapabilitySet.compose("transport:xla"))
+
+    def cost_model(self):
+        # baseline: one fused f32 AR per step
+        return CostModel(op_latency_s=3e-3,
+                         dcn_bytes_per_byte=collectives.dcn_bytes_factor("xla"),
+                         switch_blip_s=REJIT_BLIP_S)
+
+    def apply(self, tree, state, ctx):
+        return tree, state  # the step's all-reduce syncs the gradients
+
+
+@dataclass
+class GradPsum(StepChunnel):
+    """Explicit all-reduce mean over the slow axis."""
+
+    axis: str = "pod"
+
+    def __post_init__(self):
+        self.manual_axes = (self.axis,)
+
+    @property
+    def name(self):
+        return "GradPsum"
+
+    def capabilities(self):
+        return CapabilitySet.exact("wire:f32", f"transport:psum@{self.axis}")
+
+    def cost_model(self):
+        return CostModel(op_latency_s=3e-3,
+                         dcn_bytes_per_byte=collectives.dcn_bytes_factor("psum"),
+                         switch_blip_s=REJIT_BLIP_S)
+
+    def apply(self, tree, state, ctx):
+        return collectives.pmean_tree(tree, ctx["mesh"], self.axis), state
+
+
+@dataclass
+class GradRing(StepChunnel):
+    """Ring reduce-scatter + all-gather by point-to-point sends (explicit
+    schedule)."""
+
+    axis: str = "pod"
+
+    def __post_init__(self):
+        self.manual_axes = (self.axis,)
+
+    @property
+    def name(self):
+        return "GradRing"
+
+    def capabilities(self):
+        return CapabilitySet.exact("wire:f32", f"transport:ring@{self.axis}")
+
+    def cost_model(self):
+        # same DCN bytes as psum, but 2(n-1) dependent steps instead of one
+        # fused AR: higher per-step latency on real links
+        return CostModel(op_latency_s=4e-3,
+                         dcn_bytes_per_byte=collectives.dcn_bytes_factor("ring"),
+                         switch_blip_s=REJIT_BLIP_S)
+
+    def apply(self, tree, state, ctx):
+        mesh = ctx["mesh"]
+        return _div(collectives.ring_tree(tree, mesh, self.axis), mesh.shape[self.axis]), state
+
+
+@dataclass
+class GradHierarchical(StepChunnel):
+    """RS(fast) -> AR(slow) -> AG(fast): per-rank slow-tier bytes / |fast|.
+
+    INCOMPATIBLE with FSDP over the fast axis (the reference's finding: taking
+    'data' manual replicates FSDP-sharded params); negotiation enforces this
+    through the layout:noshard exact capability below.
+    """
+
+    fast_axis: str = "data"
+    slow_axis: str = "pod"
+
+    def __post_init__(self):
+        self.manual_axes = (self.fast_axis, self.slow_axis)
+
+    @property
+    def name(self):
+        return "GradHierarchical"
+
+    def capabilities(self):
+        # exact 'layout:noshard@fast' conflicts with FSDP stacks (which carry
+        # 'layout:fsdp@data'): Bertha's negotiation rejects the combination.
+        return CapabilitySet.exact(
+            "wire:f32", f"transport:hier@{self.fast_axis}+{self.slow_axis}",
+            f"layout:noshard@{self.fast_axis}")
+
+    def cost_model(self):
+        return CostModel(
+            op_latency_s=2e-3,
+            dcn_bytes_per_byte=collectives.dcn_bytes_factor(
+                "hierarchical", n_fast=self.fast_width()),
+            switch_blip_s=REJIT_BLIP_S)
+
+    def apply(self, tree, state, ctx):
+        mesh = ctx["mesh"]
+        n = mesh.shape[self.slow_axis] * mesh.shape[self.fast_axis]
+        out = collectives.hierarchical_tree(tree, mesh, self.fast_axis, self.slow_axis)
+        return _div(out, n), state
+
+
+@dataclass
+class GradCompressed(StepChunnel):
+    """int8 block-quantized DCN wire format + error feedback (multilateral:
+    both ends must speak wire:int8-blockq — the serialization-chunnel analogue).
+
+    ``device`` is where the wire's kernels run: ``"cuda"`` (the default)
+    raises at construction without a GPU; ``"cpu"`` runs their plain
+    versions."""
+
+    axis: str = "pod"
+    block: int = 256
+    error_feedback: bool = True
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        self.manual_axes = (self.axis,)
+        self.device = resolve_device(self.device)
+
+    @property
+    def name(self):
+        return "GradCompressed"
+
+    def capabilities(self):
+        return CapabilitySet.exact(f"wire:int8-blockq{self.block}",
+                                   f"transport:cag@{self.axis}")
+
+    def cost_model(self):
+        # 4x fewer DCN bytes, but quantize/dequantize compute on the fast path
+        return CostModel(
+            op_latency_s=2.5e-3,
+            dcn_bytes_per_byte=collectives.dcn_bytes_factor(
+                "compressed", wire_ratio=int8_wire_ratio(self.block)),
+            switch_blip_s=REJIT_BLIP_S)
+
+    def init_state(self, grads_shape):
+        if not self.error_feedback:
+            return ()
+        return T.map(lambda s: torch.zeros(s.shape, dtype=torch.float32, device=self.device),
+                     grads_shape)
+
+    def apply(self, tree, state, ctx):
+        mesh = ctx["mesh"]
+        n = mesh.shape[self.axis]
+        if self.error_feedback and state != ():
+            tree = T.map(lambda g, r: g.to(torch.float32) + r, tree, state)
+        out = collectives.compressed_tree(tree, mesh, self.axis, block=self.block)
+        new_state = state
+        if self.error_feedback and state != ():
+            # residual of OUR contribution (what we failed to transmit), one
+            # quantize and one dequantize per leaf
+            new_state = T.map(lambda g: quantize_error(g, block=self.block), tree)
+        return _div(out, n), new_state
+
+
+@dataclass
+class GradHierCompressed(StepChunnel):
+    """Beyond-paper: hierarchical + compressed DCN tier combined."""
+
+    fast_axis: str = "data"
+    slow_axis: str = "pod"
+    block: int = 256
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        self.manual_axes = (self.fast_axis, self.slow_axis)
+        self.device = resolve_device(self.device)
+
+    @property
+    def name(self):
+        return "GradHierCompressed"
+
+    def capabilities(self):
+        return CapabilitySet.exact(
+            f"wire:int8-blockq{self.block}",
+            f"transport:hiercag@{self.fast_axis}+{self.slow_axis}",
+            f"layout:noshard@{self.fast_axis}",
+        )
+
+    def cost_model(self):
+        return CostModel(
+            op_latency_s=2.2e-3,
+            dcn_bytes_per_byte=collectives.dcn_bytes_factor(
+                "hier_compressed", n_fast=self.fast_width(),
+                wire_ratio=int8_wire_ratio(self.block)),
+            switch_blip_s=REJIT_BLIP_S)
+
+    def apply(self, tree, state, ctx):
+        mesh = ctx["mesh"]
+        n = mesh.shape[self.slow_axis] * mesh.shape[self.fast_axis]
+        out = collectives.hierarchical_compressed_tree(
+            tree, mesh, self.fast_axis, self.slow_axis, block=self.block)
+        return _div(out, n), state
+
+
+@dataclass
+class GradLocalSGD(StepChunnel):
+    """Straggler/elasticity mitigation: sync every H steps, accumulate locally
+    otherwise (async-ish DCN relief; a reconfiguration target when the runtime
+    detects slow pods).
+
+    The step counter is a Python int in the state, the same on every rank
+    (every rank applies the stack once per step), so every rank decides to
+    sync at the same step."""
+
+    axis: str = "pod"
+    sync_every: int = 4
+    exact_sync = False  # H-1 of H steps run on stale pod-local gradients
+
+    def __post_init__(self):
+        self.manual_axes = (self.axis,)
+
+    @property
+    def name(self):
+        return "GradLocalSGD"
+
+    def capabilities(self):
+        return CapabilitySet.exact("wire:f32", f"transport:localsgd{self.sync_every}@{self.axis}")
+
+    def cost_model(self):
+        # Honest about COMMUNICATION cost only: skipping the AR on H-1 of H
+        # steps genuinely is the cheapest transport on both scored dimensions.
+        # The price — gradient staleness / statistical efficiency — is outside
+        # the model, so scoring policies must treat localsgd as a straggler
+        # MITIGATION, not a steady-state candidate (trainer_default excludes
+        # the mitigation target from its scored byte-budget argmax).
+        return CostModel(
+            op_latency_s=1e-3,
+            dcn_bytes_per_byte=collectives.dcn_bytes_factor(
+                "localsgd", sync_every=self.sync_every),
+            switch_blip_s=REJIT_BLIP_S)
+
+    def init_state(self, grads_shape):
+        return {"step": 0}
+
+    def apply(self, tree, state, ctx):
+        step = int(state["step"])
+        if step % self.sync_every == self.sync_every - 1:
+            tree = collectives.pmean_tree(tree, ctx["mesh"], self.axis)
+        return tree, {"step": step + 1}
+
+
+TRANSPORTS = {
+    "xla": GradXla,
+    "psum": GradPsum,
+    "ring": GradRing,
+    "hierarchical": GradHierarchical,
+    "compressed_int8": GradCompressed,
+    "hier_compressed": GradHierCompressed,
+    "localsgd": GradLocalSGD,
+}
+
+#: the transports whose wire runs kernels, and so take ``device=``
+DEVICE_TRANSPORTS = ("compressed_int8", "hier_compressed")
+
+
+def make_transport(name: str, **kw) -> StepChunnel:
+    return TRANSPORTS[name](**kw)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,272 @@
+"""Collective implementations over a mesh axis (the gradient transports).
+
+The counterpart of ``src/repro/comm/collectives.py``, on ``torch.distributed``.
+These are the alternative implementations behind the gradient-transport
+Select: all compute the same all-reduce, with different schedules and wire
+formats, hence different collective-roofline terms:
+
+  psum_tree          the framework's all-reduce (one fused AR)
+  ring_tree          explicit ring reduce-scatter + all-gather from
+                     point-to-point sends: 2(n-1) steps to the next rank
+  hierarchical_tree  reduce-scatter over the fast axis, all-reduce over the
+                     slow axis on 1/|fast| shards, then all-gather — per-rank
+                     slow-tier bytes divided by |fast|
+  compressed_tree    int8 block-quantized all-gather over the slow axis
+                     (4x fewer bytes than f32) with error feedback upstream
+
+Where the reference runs inside a ``shard_map`` over named axes, these take
+the rank's :class:`repro_torch.launch.mesh.Mesh` and an axis name; a tree's
+leaves are the rank's local values. A tree is flattened in the reference's
+leaf order (``repro_torch.tree``), so the flat vector, and with it every
+block the int8 wire quantizes, has the reference's boundaries.
+
+Backends. Under ``nccl`` the tensors stay on the GPU and the framework's
+all-reduce, all-gather and reduce-scatter run. Under ``gloo`` every tensor
+of a collective is copied to the host first and back after (gloo's
+collectives and sends work on host memory), and the reduce-scatter is a
+ring of point-to-point sends, which gloo may lack: each rank moves the
+bytes the reference's schedule moves, and no all-reduce ever stands in for
+the ring or the reduce-scatter.
+
+``SENT`` counts the bytes this rank hands to the transport, by schedule: a
+point-to-point send its size; an all-reduce of B bytes over n ranks
+2(n-1)/n·B, and an all-gather of B bytes (n-1)·B, as their ring schedules
+send them (the library's own algorithm may differ).
+"""
+from __future__ import annotations
+
+import threading
+from collections import Counter
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree as T
+from repro_torch.comm import compress
+
+#: bytes this process sent through the collectives, by operation
+SENT: Counter = Counter()
+_SENT_LOCK = threading.Lock()
+
+
+def _count(op: str, nbytes: float) -> None:
+    with _SENT_LOCK:
+        SENT[op] += int(nbytes)
+
+
+def dcn_bytes_factor(schedule: str, *, n_fast: int = 1, sync_every: int = 1,
+                     wire_ratio: float = 1.0) -> float:
+    """Per-payload-byte DCN traffic of each schedule, relative to one fused
+    f32 all-reduce — the ``dcn_bytes_per_byte`` cost-model term behind the
+    gradient-transport Select:
+
+      psum/ring/xla   1.0   (full f32 gradients cross the slow tier)
+      hierarchical    1/n_fast  (each chip moves only its RS shard over DCN)
+      compressed      wire_ratio (see ``compress.int8_wire_ratio``)
+      hier_compressed wire_ratio/n_fast
+      localsgd        1/sync_every (full sync every H steps, amortized)
+    """
+    if schedule in ("hierarchical",):
+        return 1.0 / max(n_fast, 1)
+    if schedule in ("compressed", "compressed_int8", "cag"):
+        return wire_ratio
+    if schedule in ("hier_compressed", "hiercag"):
+        return wire_ratio / max(n_fast, 1)
+    if schedule == "localsgd":
+        return 1.0 / max(sync_every, 1)
+    return 1.0  # xla / psum / ring
+
+
+# ---------------------------------------------------------------------------
+# Primitives over one axis of the mesh
+# ---------------------------------------------------------------------------
+
+
+def _staged(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the backend can read it: on the host under gloo."""
+    return t.cpu() if mesh.backend == "gloo" and t.device.type != "cpu" else t
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (a new tensor)."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x.clone()
+    buf = _staged(mesh, x)
+    buf = buf.clone() if buf is x else buf
+    dist.all_reduce(buf, group=mesh.group(axis))
+    _count("all_reduce", 2 * (n - 1) / n * buf.numel() * buf.element_size())
+    return buf.to(x.device)
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """(n, *x.shape): every rank's ``x`` along ``axis``, by axis index."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x.unsqueeze(0).clone()
+    src = _staged(mesh, x.contiguous())
+    _count("all_gather", (n - 1) * src.numel() * src.element_size())
+    if mesh.backend == "gloo":
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=mesh.group(axis))
+        return torch.stack(parts).to(x.device)
+    out = torch.empty((n,) + tuple(src.shape), dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src, group=mesh.group(axis))
+    return out
+
+
+def _exchange(mesh, axis: str, send: torch.Tensor, recv: torch.Tensor) -> None:
+    """One ring step: ``send`` to the next rank along ``axis``, ``recv``
+    from the previous one."""
+    members, i = mesh.members(axis), mesh.coords[axis]
+    n = len(members)
+    group = mesh.group(axis)
+    ops = [dist.P2POp(dist.isend, send, members[(i + 1) % n], group),
+           dist.P2POp(dist.irecv, recv, members[(i - 1) % n], group)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    _count("send", send.numel() * send.element_size())
+
+
+def reduce_scatter(x2d: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Row ``i`` of the sum over ``axis`` of ``x2d`` (n, m), for the rank at
+    index ``i``: the reference's ``psum_scatter(..., tiled=False)``. A ring
+    of n-1 point-to-point steps under gloo."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x2d[0].clone()
+    if mesh.backend != "gloo":
+        out = torch.empty(x2d.shape[1:], dtype=x2d.dtype, device=x2d.device)
+        dist.reduce_scatter_tensor(out, x2d.contiguous(), group=mesh.group(axis))
+        _count("reduce_scatter", (n - 1) * out.numel() * out.element_size())
+        return out
+    acc = _staged(mesh, x2d).clone()
+    r = mesh.coords[axis]
+    buf = torch.empty_like(acc[0])
+    for s in range(n - 1):
+        _exchange(mesh, axis, acc[(r - s - 1) % n], buf)
+        acc[(r - s - 2) % n] += buf
+    return acc[r].to(x2d.device)
+
+
+# ---------------------------------------------------------------------------
+# Trees
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree) -> Tuple[torch.Tensor, list]:
+    leaves = T.leaves(tree)
+    if not leaves:
+        return torch.zeros((0,)), leaves
+    return torch.cat([l.reshape(-1).to(torch.float32) for l in leaves]), leaves
+
+
+def _unflatten(flat: torch.Tensor, tree, leaves) -> object:
+    out, off = [], 0
+    for l in leaves:
+        n = l.numel()
+        out.append(flat[off:off + n].view(l.shape).to(l.dtype))
+        off += n
+    return T.unflatten(tree, out)
+
+
+def psum_tree(tree, mesh, axis: str):
+    """The sum over ``axis`` of every leaf, as one all-reduce of the
+    flattened tree (the same bytes as one per leaf)."""
+    flat, leaves = _flatten(tree)
+    return _unflatten(all_reduce_sum(flat, mesh, axis), tree, leaves)
+
+
+def pmean_tree(tree, mesh, axis: str):
+    n = mesh.shape[axis]
+    flat, leaves = _flatten(tree)
+    return _unflatten(all_reduce_sum(flat, mesh, axis) / n, tree, leaves)
+
+
+def ring_allreduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Ring all-reduce of a flat vector via 2(n-1) point-to-point steps,
+    chunk for chunk the reference's schedule."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    rank = mesh.coords[axis]
+    size = x.shape[0]
+    pad = (-size) % n
+    chunks = _staged(mesh, torch.nn.functional.pad(x, (0, pad))).reshape(n, -1).clone()
+    recv = torch.empty_like(chunks[0])
+    for i in range(1, n):  # reduce-scatter
+        _exchange(mesh, axis, chunks[(rank - i + 1) % n], recv)
+        chunks[(rank - i) % n] += recv
+    my = (rank + 1) % n
+    cur = chunks[my].clone()
+    out = torch.zeros_like(chunks)
+    out[my] = cur
+    for i in range(1, n):  # all-gather
+        nxt = torch.empty_like(cur)
+        _exchange(mesh, axis, cur, nxt)
+        out[(rank - i + 1) % n] = nxt
+        cur = nxt
+    return out.reshape(-1)[:size].to(x.device)
+
+
+def ring_tree(tree, mesh, axis: str):
+    flat, leaves = _flatten(tree)
+    return _unflatten(ring_allreduce(flat, mesh, axis), tree, leaves)
+
+
+def _hierarchical(flat: torch.Tensor, mesh, fast_axis: str, slow):
+    """RS(fast) -> ``slow(shard)`` -> AG(fast), with the reference's padding
+    of the flat vector to a multiple of |fast|."""
+    n_fast = mesh.shape[fast_axis]
+    pad = (-flat.shape[0]) % n_fast
+    xp = torch.nn.functional.pad(flat, (0, pad))
+    shard = reduce_scatter(xp.reshape(n_fast, -1), mesh, fast_axis)
+    shard = slow(shard)
+    full = all_gather(shard, mesh, fast_axis)
+    return full.reshape(-1)[:flat.shape[0]]
+
+
+def hierarchical_tree(tree, mesh, fast_axis: str, slow_axis: str):
+    """RS(fast) -> AR(slow) on 1/|fast| shards -> AG(fast).
+
+    Balances slow-tier traffic: every rank moves only its 1/|fast| gradient
+    shard across the slow tier instead of the full tree.
+    """
+    flat, leaves = _flatten(tree)
+    out = _hierarchical(flat, mesh, fast_axis,
+                        lambda s: all_reduce_sum(s, mesh, slow_axis))
+    return _unflatten(out, tree, leaves)
+
+
+def compressed_allgather_sum(x: torch.Tensor, mesh, axis: str, *,
+                             block: int = 256) -> torch.Tensor:
+    """All-reduce with an int8 block-quantized wire format over ``axis``.
+
+    Each rank quantizes its vector (``quantize_pack``), all-gathers the
+    (int8 codes, f32 scales) pair (1/4 the f32 bytes + 4/block of scales)
+    and sums the n dequantized vectors in rank order in one launch of
+    ``unpack_dequant_sum``.
+    """
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    q, scales = compress.quantize_int8(x, block=block)
+    q_all = all_gather(q, mesh, axis)  # (n, n_blocks, block)
+    s_all = all_gather(scales, mesh, axis)  # (n, n_blocks)
+    return compress.dequantize_sum_int8(q_all, s_all, x.shape)
+
+
+def compressed_tree(tree, mesh, slow_axis: str, *, block: int = 256):
+    flat, leaves = _flatten(tree)
+    out = compressed_allgather_sum(flat, mesh, slow_axis, block=block)
+    return _unflatten(out, tree, leaves)
+
+
+def hierarchical_compressed_tree(tree, mesh, fast_axis: str, slow_axis: str, *,
+                                 block: int = 256):
+    """Beyond-paper combination: RS(fast) -> compressed AR(slow) -> AG(fast)."""
+    flat, leaves = _flatten(tree)
+    out = _hierarchical(flat, mesh, fast_axis,
+                        lambda s: compressed_allgather_sum(s, mesh, slow_axis, block=block))
+    return _unflatten(out, tree, leaves)

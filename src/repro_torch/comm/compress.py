@@ -2,8 +2,9 @@
 
 The 'serialization chunnel' analogue (exact-match capability: every peer must
 speak the same wire format). Both directions run through the packed kernels
-of ``repro_torch.kernels.quantize`` — on a CUDA tensor the Hopper kernel, on
-a CPU tensor its plain PyTorch version — so the arithmetic is defined once.
+of ``repro_torch.kernels.quantize`` (``quantize_pack`` out,
+``unpack_dequant_sum`` back) — on a CUDA tensor the Hopper kernel, on a CPU
+tensor its plain PyTorch version — so the arithmetic is defined once.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.quantize.quantize import quantize_pack, unpack_dequant
+from repro_torch.kernels.quantize.quantize import quantize_pack, unpack_dequant_sum
 
 
 def int8_wire_ratio(block: int = 256) -> float:
@@ -32,14 +33,20 @@ def quantize_int8(x: torch.Tensor, *, block: int = 256) -> Tuple[torch.Tensor, t
             packed[n:].clone().view(torch.float32))
 
 
-def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, shape, *,
-                    block: int = 256) -> torch.Tensor:
-    n_blocks = q.shape[0]
-    packed = torch.cat([q.reshape(-1).view(torch.uint8), scales.view(torch.uint8)])
+def dequantize_sum_int8(q: torch.Tensor, scales: torch.Tensor, shape) -> torch.Tensor:
+    """n ranks' codes (n, n_blocks, block) and scales (n, n_blocks), each
+    rank's dequantized and the n summed in rank order, in one launch, as
+    ``shape``: the body of the compressed all-gather-sum."""
     n = 1
     for s in shape:
         n *= s
-    return unpack_dequant(packed, n_blocks, block)[:n].view(shape)
+    return unpack_dequant_sum(q, scales)[:n].view(shape)
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, shape, *,
+                    block: int = 256) -> torch.Tensor:
+    """The codes and scales read where they lie: the sum over one rank."""
+    return dequantize_sum_int8(q.reshape(1, -1, block), scales.reshape(1, -1), shape)
 
 
 def quantize_error(x: torch.Tensor, *, block: int = 256) -> torch.Tensor:

@@ -59,6 +59,21 @@
 // go by bytes. At block 64 it reaches 42-48% of the bound, at block 256
 // 79-84%, on the same card.
 //
+// unpack_dequant_sum is not a TPU kernel. It computes in one launch what the
+// body of src/repro/comm/collectives.py `compressed_allgather_sum` computes
+// after its all-gathers: a vmap of `dequantize_int8` over the n ranks' codes
+// and scales (the Pallas `_dequant_kernel` with use_kernel=True), then
+// jnp.sum over the ranks. It takes the gathered codes (n, n_blocks, block)
+// int8 and scales (n, n_blocks) float32 as two tensors and writes their
+// float32 sum, with no (n, N) float32 intermediate (9.9 GB per rank for n = 2
+// at llama3.2-1b's gradient). The sum runs in rank order,
+//   acc = q0*s0;  acc = acc + q1*s1;  ...
+// with __fmul_rn and __fadd_rn, so no FMA contraction: bit-equal to n plain
+// dequantizes summed in rank order. Bytes bound it: it reads n*(1 + 4/block)
+// and writes 4 bytes per element. Its vector route is unpack_dequant's (the
+// same lanes and tiles, one 32-bit code word and one scale load per rank
+// and step, float4 stores); its scalar route is one warp per row.
+//
 // NaN and Inf inputs are out of scope, as in the reference's tests: fmaxf
 // drops a NaN where jnp.max propagates it.
 
@@ -127,6 +142,26 @@ __global__ void unpack_dequant_kernel(const uint8_t* __restrict__ packed,
     const long long base = row * block;
     for (int j = lane; j < block; j += 32)
       out[base + j] = __fmul_rn((float)codes[base + j], s);
+  }
+}
+
+__global__ void unpack_dequant_sum_kernel(const int8_t* __restrict__ codes,
+                                          const float* __restrict__ scales,
+                                          float* __restrict__ out, long long n_blocks,
+                                          int block, int n) {
+  const int lane = threadIdx.x & 31;
+  const long long n_warps = (long long)gridDim.x * kWarpsPerBlock;
+  const long long plane = n_blocks * (long long)block;
+  for (long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+       row < n_blocks; row += n_warps) {
+    const long long base = row * block;
+    for (int j = lane; j < block; j += 32) {
+      float acc = __fmul_rn((float)codes[base + j], scales[row]);
+      for (int k = 1; k < n; ++k)
+        acc = __fadd_rn(acc, __fmul_rn((float)codes[k * plane + base + j],
+                                       scales[k * n_blocks + row]));
+      out[base + j] = acc;
+    }
   }
 }
 
@@ -267,6 +302,63 @@ unpack_dequant_vec_kernel(const uint8_t* __restrict__ packed, float4* __restrict
   }
 }
 
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// unpack_dequant_vec_kernel's tiles, each rank's codes and scale loaded and
+// added in rank order into float4 sums held in registers.
+template <int BLOCK>
+__global__ void __launch_bounds__(kThreads)
+unpack_dequant_sum_vec_kernel(const unsigned* __restrict__ codes,
+                              const float* __restrict__ scales, float4* __restrict__ out,
+                              long long n_blocks, int n) {
+  using T = Tile<BLOCK>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / T::G, i = lane % T::G;
+  const long long n_tiles = (n_blocks + T::ROWS - 1) / T::ROWS;
+  const long long n_warps = (long long)gridDim.x * kWarpsPerBlock;
+  const long long plane = n_blocks * (BLOCK / 4);  // 32-bit code words of one rank
+  for (long long tile = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+       tile < n_tiles; tile += n_warps) {
+    const long long row0 = tile * T::ROWS;
+    float4 acc[T::U][T::V];
+    for (int k = 0; k < n; ++k) {
+      unsigned w[T::U][T::V];
+      float s[T::U];
+#pragma unroll
+      for (int u = 0; u < T::U; ++u) {
+        const long long row = row0 + u * T::R + g;
+        if (row < n_blocks) {
+          s[u] = scales[k * n_blocks + row];
+#pragma unroll
+          for (int v = 0; v < T::V; ++v)
+            w[u][v] = codes[k * plane + row * (BLOCK / 4) + i + v * T::G];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < T::U; ++u) {
+        if (row0 + u * T::R + g < n_blocks) {
+#pragma unroll
+          for (int v = 0; v < T::V; ++v) {
+            const float4 d = unpack4(w[u][v], s[u]);
+            acc[u][v] = k == 0 ? d : add4(acc[u][v], d);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < T::U; ++u) {
+      const long long row = row0 + u * T::R + g;
+      if (row < n_blocks) {
+#pragma unroll
+        for (int v = 0; v < T::V; ++v) out[row * (BLOCK / 4) + i + v * T::G] = acc[u][v];
+      }
+    }
+  }
+}
+
 // Calls f(std::integral_constant<int, block>{}) for a block the vector
 // route takes; false for any other block.
 template <class F>
@@ -324,6 +416,28 @@ extern "C" int repro_unpack_dequant_vec(const void* packed, void* out, long long
     const long long n_tiles = (n_blocks + Tile<B>::ROWS - 1) / Tile<B>::ROWS;
     unpack_dequant_vec_kernel<B><<<grid_for(n_tiles), kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)packed, (float4*)out, n_blocks);
+  });
+  return known ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+// unpack_dequant_sum: codes (n, n_blocks, block) int8 and scales (n, n_blocks)
+// float32 -> out (n_blocks * block) float32, the sum over the n ranks.
+extern "C" int repro_unpack_dequant_sum(const void* codes, const void* scales, void* out,
+                                        long long n_blocks, int block, int n,
+                                        void* stream) {
+  unpack_dequant_sum_kernel<<<grid_for(n_blocks), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)codes, (const float*)scales, (float*)out, n_blocks, block, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_unpack_dequant_sum_vec(const void* codes, const void* scales, void* out,
+                                            long long n_blocks, int block, int n,
+                                            void* stream) {
+  const bool known = by_block(block, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    const long long n_tiles = (n_blocks + Tile<B>::ROWS - 1) / Tile<B>::ROWS;
+    unpack_dequant_sum_vec_kernel<B><<<grid_for(n_tiles), kThreads, 0, (cudaStream_t)stream>>>(
+        (const unsigned*)codes, (const float*)scales, (float4*)out, n_blocks, n);
   });
   return known ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }

@@ -11,6 +11,12 @@ Packed layout: ``n_blocks * block`` int8 codes, then ``n_blocks``
 little-endian float32 scales, in one uint8 buffer — byte for byte the
 reference's wire.
 
+``unpack_dequant_sum`` is not a TPU kernel: it replaces the body of
+``src/repro/comm/collectives.py::compressed_allgather_sum`` after the
+all-gathers (a vmap of ``dequantize_int8``, which reaches ``_dequant_kernel``,
+then ``jnp.sum``), summing the n ranks' dequantized codes in rank order in
+one launch, and is also the error feedback's dequantize (n = 1).
+
 Each wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (``*_ref``, the same arithmetic) on a CPU tensor, and raises on anything
 else. Each kernel has two routes, each its own C entry point: ``vector`` for
@@ -43,16 +49,21 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 ENTRY = {("quantize_pack", "scalar"): "repro_quantize_pack",
          ("quantize_pack", "vector"): "repro_quantize_pack_vec",
          ("unpack_dequant", "scalar"): "repro_unpack_dequant",
-         ("unpack_dequant", "vector"): "repro_unpack_dequant_vec"}
+         ("unpack_dequant", "vector"): "repro_unpack_dequant_vec",
+         ("unpack_dequant_sum", "scalar"): "repro_unpack_dequant_sum",
+         ("unpack_dequant_sum", "vector"): "repro_unpack_dequant_sum_vec"}
+#: codes, scales, out, n_blocks, block, n, stream
+_SUM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 #: the blocks the vector route takes: powers of two from 4 to 1024
 VECTOR_BLOCKS = frozenset(4 << k for k in range(9))
 
 
 def _lib() -> ctypes.CDLL:
     lib = backend.load_kernel_library("quantize")
-    for name in ENTRY.values():
+    for (kernel, _), name in ENTRY.items():
         fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _SUM_ARGTYPES if kernel == "unpack_dequant_sum" else _ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -159,3 +170,56 @@ def unpack_dequant(packed: torch.Tensor, n_blocks: int, block: int) -> torch.Ten
 
 unpack_dequant.launches = 0
 unpack_dequant.route_launches = Counter()
+
+
+def unpack_dequant_sum_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Codes (n, n_blocks, block) int8 and scales (n, n_blocks) f32 -> flat
+    f32 of ``n_blocks * block``: the n dequantizes summed in rank order, in
+    plain PyTorch."""
+    acc = codes[0].to(torch.float32) * scales[0][:, None]
+    for k in range(1, codes.shape[0]):
+        acc = acc + codes[k].to(torch.float32) * scales[k][:, None]
+    return acc.reshape(-1)
+
+
+def launch_sum(which: str, codes: torch.Tensor, scales: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of ``unpack_dequant_sum`` by route ``which``, on the
+    current stream; counts nothing."""
+    n, n_blocks, block = codes.shape
+    with torch.cuda.device(codes.device):
+        err = getattr(_lib(), ENTRY[("unpack_dequant_sum", which)])(
+            codes.data_ptr(), scales.data_ptr(), out.data_ptr(), n_blocks, block, n,
+            torch.cuda.current_stream().cuda_stream)
+    backend.check_launch(f"unpack_dequant_sum ({which} route)", err)
+
+
+def unpack_dequant_sum(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Codes (n, n_blocks, block) int8 and scales (n, n_blocks) float32, both
+    contiguous on one device -> flat float32 of ``n_blocks * block``, the sum
+    over the n ranks of each one's dequantized codes, in rank order."""
+    _check(codes.dtype == torch.int8, f"unpack_dequant_sum takes int8 codes, not {codes.dtype}")
+    _check(scales.dtype == torch.float32,
+           f"unpack_dequant_sum takes float32 scales, not {scales.dtype}")
+    _check(codes.dim() == 3 and codes.numel() > 0,
+           f"unpack_dequant_sum takes nonempty codes (n, n_blocks, block), not "
+           f"{tuple(codes.shape)}")
+    _check(tuple(scales.shape) == tuple(codes.shape[:2]),
+           f"scales {tuple(scales.shape)} for codes {tuple(codes.shape)}")
+    _check(codes.is_contiguous() and scales.is_contiguous(),
+           "unpack_dequant_sum takes contiguous tensors")
+    _check(codes.device == scales.device,
+           f"codes on {codes.device}, scales on {scales.device}")
+    if codes.device.type == "cpu":
+        return unpack_dequant_sum_ref(codes, scales)
+    _check(codes.device.type == "cuda",
+           f"unpack_dequant_sum takes CPU or CUDA tensors, not {codes.device}")
+    n, n_blocks, block = codes.shape
+    out = torch.empty(n_blocks * block, dtype=torch.float32, device=codes.device)
+    which = route(block, codes, scales, out)
+    launch_sum(which, codes, scales, out)
+    count_launch(unpack_dequant_sum, which, block)
+    return out
+
+
+unpack_dequant_sum.launches = 0
+unpack_dequant_sum.route_launches = Counter()

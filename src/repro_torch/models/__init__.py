@@ -1,1 +1,1 @@
-"""The port's model zoo: the dense family so far (``registry.build``)."""
+"""The port's model zoo: the dense and hybrid families (``registry.build``)."""

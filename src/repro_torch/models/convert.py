@@ -29,8 +29,16 @@ def flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
 
 
 def params_from_reference(params: Mapping, cfg: ModelConfig, *, device="cuda"):
-    """The port's model of ``cfg`` on ``device`` holding ``params``."""
+    """The port's model of ``cfg`` on ``device`` holding ``params``, with its
+    serving copies made (``release()`` it to train)."""
     model = model_class(cfg)(cfg, device=backend.resolve_device(device))
+    return fill_from_reference(model, params).prepare()
+
+
+def fill_from_reference(model, params: Mapping):
+    """``model``'s parameters set from the reference's tree ``params``, in
+    place; returns the model."""
+    cfg = model.cfg
     named = dict(model.named_parameters())
     filled, unused = set(), []
     for path, leaf in flatten(params):
@@ -58,4 +66,4 @@ def params_from_reference(params: Mapping, cfg: ModelConfig, *, device="cuda"):
     missing = sorted(set(named) - filled)
     if missing:
         raise ValueError(f"parameters of the port the reference did not fill: {missing}")
-    return model.prepare()
+    return model

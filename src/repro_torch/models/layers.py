@@ -7,10 +7,16 @@ end; the embedding casts the table before the gather; RoPE works in float32
 on split halves and casts back.
 
 Weights keep the reference's ``(d_in, d_out)`` layout, so parameters carry
-across from the reference unchanged. The bfloat16 copies the forward pass
-multiplies with are made once by :meth:`prepare` (numerically the reference's
-cast at every call, without re-casting every weight per decoded token); call
-it again after changing a weight.
+across from the reference unchanged. For serving, the bfloat16 copies the
+forward pass multiplies with are made once by :meth:`prepare` (numerically
+the reference's cast at every call, without re-casting every weight per
+decoded token); call it again after changing a weight. For training,
+:meth:`release` drops them: the forward pass then casts the float32 weight at
+every call, inside the autograd graph, as the reference does, so that the
+gradient reaches the float32 weight.
+
+The losses (``softmax_cross_entropy``, ``chunked_lm_loss``) are the
+reference's, the chunked one recomputing each chunk's logits in backward.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 COMPUTE = torch.bfloat16
 
@@ -54,7 +61,13 @@ class Linear(nn.Module):
         self.w16 = self.w.detach().to(COMPUTE)
         self.b16 = None if self.b is None else self.b.detach().to(COMPUTE)
 
+    def release(self) -> None:
+        self.w16 = self.b16 = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.w16 is None:  # training: cast inside the graph
+            y = x.to(COMPUTE) @ self.w.to(COMPUTE)
+            return y if self.b is None else y + self.b.to(COMPUTE)
         y = x.to(COMPUTE) @ self.w16
         return y if self.b16 is None else y + self.b16
 
@@ -107,7 +120,12 @@ class Embedding(nn.Module):
     def prepare(self) -> None:
         self.table16 = self.table.detach().to(COMPUTE)
 
+    def release(self) -> None:
+        self.table16 = None
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.table16 is None:  # training: cast inside the graph
+            return self.table.to(COMPUTE)[tokens]
         return self.table16[tokens]
 
 
@@ -173,3 +191,48 @@ def mask_padded_vocab(logits: torch.Tensor, real_vocab: int) -> torch.Tensor:
     return torch.where(idx < real_vocab, logits,
                        torch.tensor(-1e30, dtype=logits.dtype, device=logits.device))
 
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          real_vocab: Optional[int] = None) -> torch.Tensor:
+    """logits: (..., V); labels: (...) integers. Returns the mean loss (fp32)."""
+    logits = logits.float()
+    if real_vocab is not None:
+        logits = mask_padded_vocab(logits, real_vocab)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def _chunk_loss_sum(hc: torch.Tensor, head16: torch.Tensor, lc: torch.Tensor,
+                    real_vocab: Optional[int]) -> torch.Tensor:
+    logits = (hc.to(COMPUTE) @ head16).float()
+    if real_vocab is not None:
+        logits = mask_padded_vocab(logits, real_vocab)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_lm_loss(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor, *,
+                    chunk: Optional[int] = None,
+                    real_vocab: Optional[int] = None) -> torch.Tensor:
+    """Cross-entropy over a (possibly huge) vocab without holding all logits.
+
+    h: (B, S, D) final hidden states; head_w: (D, V) float32; labels: (B, S).
+    When ``chunk`` divides S, loops over sequence chunks, each under
+    ``torch.utils.checkpoint``, so the live logits are (B, chunk, V) in both
+    passes: backward recomputes a chunk's logits instead of keeping them
+    (the reference's ``jax.checkpoint`` on its scan body). ``chunk=None``
+    computes unchunked.
+    """
+    B, S, _ = h.shape
+    head16 = head_w.to(COMPUTE)
+    if chunk is None or chunk >= S:
+        return softmax_cross_entropy(h.to(COMPUTE) @ head16, labels, real_vocab)
+    if S % chunk:
+        raise ValueError(f"loss chunk {chunk} does not divide the sequence {S}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S, chunk):
+        total = total + checkpoint(_chunk_loss_sum, h[:, c:c + chunk], head16,
+                                   labels[:, c:c + chunk], real_vocab, use_reentrant=False)
+    return total / (B * S)

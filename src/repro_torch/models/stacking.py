@@ -1,0 +1,86 @@
+"""Layer stacking: the parts of ``src/repro/models/stacking.py`` the dense
+family's training forward uses.
+
+``apply_stack`` runs ``x`` through the layers one by one (the reference's
+``scan`` has no counterpart: the port unrolls), each under
+``torch.utils.checkpoint`` with ``remat="full"``, so backward recomputes a
+layer's activations instead of keeping them.
+
+``stack_layers``/``unstack_layers`` move between the port's per-layer
+parameters, named ``layers.{i}.<leaf>``, and the reference's tree, where each
+layer leaf is stacked on a leading layer axis and dicts nest by name: the
+tree the gradient transports flatten, in the reference's leaf order.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Sequence
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` recomputed in backward (``"full"``) or kept (``"none"``)."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    raise NotImplementedError(f"remat policy {policy!r}: the port has 'none' and 'full'")
+
+
+def apply_stack(layers: Sequence[torch.nn.Module], x: torch.Tensor, body: Callable, *,
+                remat_policy: str = "full") -> torch.Tensor:
+    """``x`` through ``body(layer, x)`` for each layer in turn."""
+    fn = remat(body, remat_policy)
+    for layer in layers:
+        x = fn(layer, x)
+    return x
+
+
+def _nest(flat: Mapping[str, object]) -> dict:
+    """Dotted names -> nested dicts."""
+    out: dict = {}
+    for name, leaf in flat.items():
+        node = out
+        *head, last = name.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+def stack_layers(named: Mapping[str, torch.Tensor], num_layers: int,
+                 stack: Callable = torch.stack) -> dict:
+    """The reference's tree of ``named`` (``layers.{i}.<leaf>`` for each
+    layer, other names as they are): layer leaves stacked by ``stack`` on a
+    leading axis of ``num_layers``."""
+    flat: Dict[str, object] = {}
+    per_leaf: Dict[str, list] = {}
+    for name, t in named.items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            per_leaf.setdefault(rest, [None] * num_layers)[int(i)] = t
+        else:
+            flat[name] = t
+    for rest, ts in per_leaf.items():
+        if any(t is None for t in ts):
+            raise ValueError(f"layers.*.{rest}: not every layer has it")
+        flat[f"layers.{rest}"] = stack(ts)
+    return _nest(flat)
+
+
+def unstack_layers(tree: Mapping, num_layers: int, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``stack_layers``'s inverse: dotted names -> tensors, each layer's a
+    view of its stacked leaf."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(unstack_layers(v, num_layers, name + "."))
+        elif name.startswith("layers."):
+            rest = name[len("layers."):]
+            for i in range(num_layers):
+                out[f"layers.{i}.{rest}"] = v[i]
+        else:
+            out[name] = v
+    return out

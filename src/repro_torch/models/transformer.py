@@ -1,7 +1,11 @@
-"""Dense GQA transformer LM (llama / qwen / mistral / granite), for serving.
+"""Dense GQA transformer LM (llama / qwen / mistral / granite).
 
-The counterpart of the serving half of ``src/repro/models/transformer.py``:
-``DenseLM.prefill(tokens) -> (cache, logits_last)`` and
+The counterpart of ``src/repro/models/transformer.py``. Training:
+``DenseLM.hidden_states(tokens)`` and ``DenseLM.loss(batch)`` (the
+reference's ``loss_fn``), on a model whose serving copies are released
+(:meth:`DenseLM.release`) so that every weight is cast inside the autograd
+graph; each layer is recomputed in backward under ``cfg.remat = "full"``.
+Serving: ``DenseLM.prefill(tokens) -> (cache, logits_last)`` and
 ``DenseLM.decode_step(cache, tokens) -> (cache, logits)``, with the
 reference's KV cache ``{"k", "v"}: (L, B, S, KH, hd)`` bfloat16 plus ``"len"``
 (here a Python int). The loop over ``layers`` threads each layer's cache as
@@ -31,10 +35,12 @@ from repro_torch.models.layers import (
     Embedding,
     Linear,
     Norm,
+    chunked_lm_loss,
     mask_padded_vocab,
     rope_cos_sin,
     rotate,
 )
+from repro_torch.models.stacking import apply_stack
 
 
 class Attention(nn.Module):
@@ -103,20 +109,69 @@ class DenseLM(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else Linear(cfg.d_model, cfg.vocab_padded, device=device))
         if generator is not None:
-            self.embed.init(generator)
-            for layer in self.layers:
-                layer.init(generator)
-            self.final_norm.init()
-            if self.lm_head is not None:
-                self.lm_head.init(generator)
+            self.init_weights(generator)
             self.prepare()
 
+    def init_weights(self, generator: torch.Generator) -> "DenseLM":
+        """Draw every parameter from the reference's distributions."""
+        self.embed.init(generator)
+        for layer in self.layers:
+            layer.init(generator)
+        self.final_norm.init()
+        if self.lm_head is not None:
+            self.lm_head.init(generator)
+        return self
+
     def prepare(self) -> "DenseLM":
-        """Make the bfloat16 copies the forward pass multiplies with."""
+        """Make the bfloat16 copies the serving forward multiplies with."""
         for m in self.modules():
             if isinstance(m, (Linear, Embedding)):
                 m.prepare()
         return self
+
+    def release(self) -> "DenseLM":
+        """Drop the serving copies, for training: every forward then casts
+        the float32 weights inside the graph."""
+        for m in self.modules():
+            if isinstance(m, (Linear, Embedding)):
+                m.release()
+        return self
+
+    # -- training ----------------------------------------------------------
+
+    def _train_layer(self, layer: DecoderLayer, x: torch.Tensor, rope: tuple) -> torch.Tensor:
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q, k, v = layer.attn.qkv(layer.ln1(x), rope)
+        o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
+                           window=cfg.sliding_window, chunk=cfg.attn_chunk)
+        h = x + layer.attn.wo(o.reshape(B, S, -1))
+        return h + layer.mlp(layer.ln2(h))
+
+    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> final hidden states (B, S, D), bfloat16."""
+        cfg = self.cfg
+        x = self.embed(tokens)
+        rope = rope_cos_sin(torch.arange(tokens.shape[1], device=x.device), cfg.head_dim_,
+                            cfg.rope_theta)
+        x = apply_stack(self.layers, x, lambda layer, h: self._train_layer(layer, h, rope),
+                        remat_policy=cfg.remat)
+        return self.final_norm(x)
+
+    def head_weight(self) -> torch.Tensor:
+        """(D, vocab_padded) float32: the tied table's transpose or the head."""
+        return self.embed.table.T if self.lm_head is None else self.lm_head.w
+
+    def loss(self, batch: dict, *, loss_chunk: Optional[int] = None) -> torch.Tensor:
+        """The mean next-token cross-entropy of ``batch`` (``tokens``,
+        ``labels``: (B, S) integers)."""
+        cfg = self.cfg
+        if self.embed.table16 is not None:
+            raise RuntimeError("the model holds its serving copies; release() it to train")
+        h = self.hidden_states(batch["tokens"])
+        chunk = loss_chunk if loss_chunk is not None else cfg.loss_chunk
+        return chunked_lm_loss(h, self.head_weight(), batch["labels"], chunk=chunk,
+                               real_vocab=cfg.vocab_size)
 
     @property
     def device(self) -> torch.device:

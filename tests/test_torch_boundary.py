@@ -42,7 +42,12 @@ def test_imports_with_jax_and_reference_blocked():
             "import repro_torch.serving.gateway, repro_torch.serving.pubsub\n"
             "import repro_torch.serving.router, repro_torch.fleet\n"
             "import repro_torch.obs.calibrate, repro_torch.obs.federate\n"
-            "import repro_torch.obs.scenario, repro_torch.obs.__main__\n")
+            "import repro_torch.obs.scenario, repro_torch.obs.__main__\n"
+            "import repro_torch.tree, repro_torch.launch.mesh, repro_torch.launch.train\n"
+            "import repro_torch.comm.collectives, repro_torch.models.stacking\n"
+            "import repro_torch.data.synthetic, repro_torch.optim.adamw\n"
+            "import repro_torch.checkpoint.ckpt, repro_torch.train.step\n"
+            "import repro_torch.train.trainer\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -65,3 +70,31 @@ def test_chip_smoke_fails_without_gpu_or_package(tmp_path, where):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("entry", ["launch.train", "mesh", "trainer", "GradCompressed",
+                                   "GradHierCompressed"])
+def test_training_entry_points_default_to_cuda_and_raise_without_gpu(entry):
+    """The trainer's entry points default to ``device="cuda"`` and raise
+    without a GPU, rather than run on the CPU unasked."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from repro_torch.comm import chunnels
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh, train
+    from repro_torch.train.trainer import ReconfigurableTrainer
+
+    calls = {
+        "launch.train": lambda: train.main(["--smoke", "--steps", "1"]),
+        "mesh": lambda: mesh.make_test_mesh(),
+        "trainer": lambda: ReconfigurableTrainer(
+            get_smoke_config("llama3.2-1b"), ShapeConfig("t", 16, 2, "train"),
+            mesh.make_mesh((1,), ("data",))),
+        "GradCompressed": chunnels.GradCompressed,
+        "GradHierCompressed": chunnels.GradHierCompressed,
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()

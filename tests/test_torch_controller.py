@@ -12,7 +12,7 @@ Two halves:
   snapshot, score and pick of the port must equal the reference's.
 
 The trainer's classes (``TestTrainerControllerPlane``,
-``TestTrainerDefaultPolicy``) wait for the port's trainer.
+``TestTrainerDefaultPolicy``) run in ``tests/test_torch_train.py``.
 """
 import random
 import time

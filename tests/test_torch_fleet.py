@@ -3,9 +3,8 @@ transactions, publishers, the aggregator and its signals, the mesh-aware
 cost calibration, and the fleet-wide switch.
 
 - The reference's classes of ``tests/test_fleet.py`` run on ``repro_torch``
-  (``port_mirror``). ``TestMeshAwareCosts``'s case on ``GradHierarchical``
-  waits for the port's gradient transports; its calibration is held here on
-  both packages instead.
+  (``port_mirror``), ``TestMeshAwareCosts``'s case on ``GradHierarchical``
+  included; the calibration is also held here on both packages.
 - On a fake clock every run is deterministic, so the aggregate snapshots,
   the fleet controller's decisions, the store's epochs and every member's
   stack must be equal on both packages.
@@ -16,12 +15,9 @@ import pytest
 
 from port_mirror import mirror
 
-_FLEET = mirror("test_fleet.py", [
+globals().update(mirror("test_fleet.py", [
     "TestOptimisticTransactions", "TestFleetPublisher", "TestFleetAggregator", "TestSignals",
-    "TestMeshAwareCosts", "TestFleetWideSwitch"])
-# the port has no gradient transports yet (GradHierarchical)
-del _FLEET["TestMeshAwareCosts"].test_live_mesh_width_replaces_nominal_fast
-globals().update(_FLEET)
+    "TestMeshAwareCosts", "TestFleetWideSwitch"]))
 
 
 def _ns(pkg):

@@ -23,6 +23,8 @@ from repro_torch.kernels.quantize.quantize import (
     route,
     unpack_dequant,
     unpack_dequant_ref,
+    unpack_dequant_sum,
+    unpack_dequant_sum_ref,
 )
 
 
@@ -357,3 +359,51 @@ class TestLaunchCountLock:
             q.quantize_pack.launches = saved[0]
             q.quantize_pack.route_launches.clear()
             q.quantize_pack.route_launches.update(saved[1])
+
+
+def gathered(n, n_blocks, block, device, seed=0):
+    """Codes (n, n_blocks, block) and scales (n, n_blocks) of n quantized
+    ranks, as an all-gather leaves them."""
+    packed = [quantize_pack(torch.from_numpy(make_rows(n_blocks, block, 3.0, seed + k)).to(device))
+              for k in range(n)]
+    nq = n_blocks * block
+    return (torch.stack([p[:nq].view(torch.int8).view(n_blocks, block) for p in packed]),
+            torch.stack([p[nq:].clone().view(torch.float32) for p in packed]))
+
+
+@pytest.mark.cuda
+class TestUnpackDequantSumOnCard:
+    """``unpack_dequant_sum`` against its plain version on the card: bit-equal
+    (the same products and sums in the same order, no FMA)."""
+
+    @pytest.mark.parametrize("block", [4, 64, 101, 256, 1024])
+    @pytest.mark.parametrize("n", [1, 2, 4])
+    @pytest.mark.parametrize("n_blocks", [1, 7, 4099])
+    def test_equals_plain(self, cuda, n, block, n_blocks):
+        codes, scales = gathered(n, n_blocks, block, cuda, seed=n_blocks)
+        n0 = unpack_dequant_sum.route_launches.copy()
+        got = unpack_dequant_sum(codes, scales)
+        want = unpack_dequant_sum_ref(codes, scales)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda" and got.shape == (n_blocks * block,)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        which = "vector" if block in VECTOR_BLOCKS else "scalar"
+        assert unpack_dequant_sum.route_launches - n0 == {(which, block): 1}
+
+    def test_offset_views_take_scalar_and_agree(self, cuda):
+        codes, scales = gathered(2, 300, 256, cuda)
+        codes_off = offset(codes, 1)
+        assert codes_off.data_ptr() % 16 == 1
+        n0 = unpack_dequant_sum.route_launches.copy()
+        got = unpack_dequant_sum(codes_off, scales)
+        assert unpack_dequant_sum.route_launches - n0 == {("scalar", 256): 1}
+        assert torch.equal(got.view(torch.int32),
+                           unpack_dequant_sum_ref(codes, scales).view(torch.int32))
+
+    def test_one_rank_equals_unpack_dequant(self, cuda):
+        x = torch.from_numpy(make_rows(300, 256, 3.0, seed=4)).to(cuda)
+        packed = quantize_pack(x)
+        codes = packed[:300 * 256].view(torch.int8).view(1, 300, 256)
+        scales = packed[300 * 256:].clone().view(torch.float32).view(1, 300)
+        assert torch.equal(unpack_dequant_sum(codes, scales).view(torch.int32),
+                           unpack_dequant(packed, 300, 256).view(torch.int32))
