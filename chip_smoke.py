@@ -102,7 +102,31 @@ Phases, each of which exits non-zero on any failed check:
     parameters are bit-equal on both ranks after every step (an exchanged
     checksum), the first compressed step's all-gather-sum is bit-equal to
     its plain version on the same gathered codes, every loss is finite,
-    and both processes exit 0 with no exception in any thread.
+    and both processes exit 0 with no exception in any thread;
+12. sharded training on four ranks that share the card (``gloo``), the same
+    2-layer model and batch, the state laid out by the reference's sharding
+    rules (``train.step.shardings_for``). (a) A mesh of (data 2, model 2),
+    FSDP on, ``xla``, 3 steps, then a checkpoint: each rank holds its
+    quarter of the parameter bytes (more by the leaves that do not split
+    four ways), and the losses are within 1e-2 (relative) of a one-rank run of
+    the same model on the same batches in this process. (b) A mesh of
+    (pod 2, model 2): (a)'s checkpoint restored onto it (the gathered
+    leaves equal the saved ones, bit for bit), the hosts offering [psum,
+    compressed_int8]: 2 psum steps, a 2PC switch, 2 compressed steps. The
+    parameters are bit-equal across ``pod`` after every step (checksums of
+    the blocks of the two ranks that differ only in ``pod``), and each
+    compressed step launches 12 ``quantize_pack`` and 12
+    ``unpack_dequant_sum`` on each rank, all vector b256 (the gradient each
+    rank quantizes is the full logical one, gathered over ``model``). It
+    prints ms/step, the bytes each rank sent per step by axis, and each
+    rank's peak memory;
+13. training the hybrid family on one rank: ``python -m
+    repro_torch.launch.train --arch hymba-1.5b --steps 4 --batch 8 --seq 128
+    --transport xla`` through its ``main``, at the full published config
+    (1,663,080,000 parameters), every kernel counter set to 0 just before
+    and read just after (none launches: training scans with the plain
+    version and attends with ``xla_chunked``), every loss finite; ms/step
+    and peak memory printed.
 
 The line before the last is one JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -199,6 +223,12 @@ SUM_N_BLOCKS = TRAIN2_PARAMS // 256
 #: bit and the data is deterministic, so only a run-to-run difference of a
 #: library's reduction order could move a loss; none is expected
 RESTART_RTOL = 1e-6
+#: the sharded phase: four ranks, (a) on (data 2, model 2), (b) on (pod 2,
+#: model 2); its losses against one rank's, relative (the order of the sums
+#: differs: bf16 products summed over other blocks)
+SHARDED_WORLD, SHARDED_A_STEPS, SHARDED_B_STEPS, SHARDED_RTOL = 4, 3, 2, 1e-2
+#: the hybrid phase: hymba-1.5b at its published config on one rank
+HYMBA_TRAIN_STEPS, HYMBA_PARAMS = 4, 1_663_080_000
 #: exceptions raised in any thread (the WAN receiver, the gateway's loop)
 THREAD_ERRORS: list = []
 
@@ -1308,6 +1338,239 @@ def phase_train_two(torch) -> dict:
     return total
 
 
+def _block_checksums(torch, params) -> dict:
+    """Each parameter block's float32 bit patterns summed as int64, by name."""
+    return {n: p.detach().contiguous().view(torch.int32).sum(dtype=torch.int64).item()
+            for n, p in sorted(params.items())}
+
+
+def train_sharded_rank(ckpt_dir: str) -> dict:
+    """One rank of the sharded phase (run by ``spawn``; every rank runs the
+    same calls). Returns its records of (a) and (b)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.comm import collectives
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, ShardingConfig, TrainConfig
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.kernels.quantize.quantize import (quantize_pack, unpack_dequant,
+                                                       unpack_dequant_sum)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainer import HostSpec, ReconfigurableTrainer
+
+    errors: list = []
+    threading.excepthook = lambda a: errors.append(f"{a.thread.name}: {a.exc_value!r}")
+    torch.cuda.set_device(0)
+    cfg = get_config("llama3.2-1b").replace(num_layers=TRAIN2_LAYERS)
+    shape = ShapeConfig("sharded", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(warmup_steps=10, total_steps=TRAIN_STEPS)
+    gen = batches_for(cfg, shape)
+    wrappers = {"quantize_pack": quantize_pack, "unpack_dequant": unpack_dequant,
+                "unpack_dequant_sum": unpack_dequant_sum}
+
+    def one_step(tr, state, label, records):
+        for w in wrappers.values():
+            w.launches = 0
+            w.route_launches.clear()
+        sent0 = dict(collectives.SENT)
+        state, hist = tr.run(state, gen, 1)
+        sent = {k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
+                if v - sent0.get(k, 0)}
+        records.append({
+            "label": label, "transport": tr.transport_name, "step": state.step,
+            "loss": hist[0]["loss"], "ms": tr.step_times[-1] * 1e3,
+            "sent_by_axis": collectives.sent_by_axis(sent), "sent": sent,
+            "launches": {n: w.launches for n, w in wrappers.items()},
+            "routes": {n: {f"{r} b{b}": c for (r, b), c in w.route_launches.items()}
+                       for n, w in wrappers.items()},
+            "checksums": _block_checksums(torch, state.params)})
+        return state
+
+    # (a) FSDP over data, tensor parallelism over model, xla
+    mesh_a = make_mesh((2, 2), ("data", "model"), device="cuda:0")
+    tr = ReconfigurableTrainer(cfg, shape, mesh_a, tcfg=tcfg, sharding=ShardingConfig(fsdp=True),
+                               transport="xla", ckpt_dir=ckpt_dir)
+    state = tr.init_state(SEED)
+    held = sum(p.numel() * p.element_size() for p in state.params.values())
+    whole = sum(4 * math.prod(s) for s in tr.state_sh.shapes.values())
+    # a leaf that does not split four ways is held in full or by half
+    undivided = sum(4 * math.prod(s) for n, s in tr.state_sh.shapes.items()
+                    if len(tr.state_sh.params[n].splits(len(s))) < 2)
+    records_a: list = []
+    for _ in range(SHARDED_A_STEPS):
+        state = one_step(tr, state, "a xla", records_a)
+    saved = _block_checksums(torch, tr.gathered_state(state).params)
+    tr.save(state)
+    out = {"rank": dist.get_rank(), "coords_a": dict(mesh_a.coords), "held": held,
+           "whole": whole, "undivided": undivided, "records_a": records_a}
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) (a)'s checkpoint restored onto (pod 2, model 2); psum, 2PC, compressed
+    mesh_b = make_mesh((2, 2), ("pod", "model"), device="cuda:0")
+    offers = ["psum", "compressed_int8"]
+    tr = ReconfigurableTrainer(cfg, shape, mesh_b, tcfg=tcfg, transport="psum",
+                               ckpt_dir=ckpt_dir,
+                               hosts=[HostSpec(0, list(offers)), HostSpec(1, list(offers))])
+    t0 = time.perf_counter()
+    state, at = tr.restore()
+    restore_s = time.perf_counter() - t0
+    restored = _block_checksums(torch, tr.gathered_state(state).params)
+    records_b: list = []
+    for _ in range(SHARDED_B_STEPS):
+        state = one_step(tr, state, "b psum", records_b)
+    state = tr.reconfigure(state, "compressed_int8")
+    for _ in range(SHARDED_B_STEPS):
+        state = one_step(tr, state, "b compressed_int8", records_b)
+    out.update({"coords_b": dict(mesh_b.coords), "restored_at": at,
+                "restored_equal": restored == saved, "restore_s": restore_s,
+                "records_b": records_b, "reconfig_log": tr.reconfig_log,
+                "n_leaves": len(T.leaves(tr.state_sh.comm)),
+                "thread_errors": errors, "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return out
+
+
+def phase_train_sharded(torch) -> dict:
+    """Four ranks on the one card: a one-rank run of the same model here,
+    then the spawn, then every check on the ranks' records. Returns the
+    launches of each kernel, over all ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.mesh import make_mesh, spawn
+    from repro_torch.train.trainer import ReconfigurableTrainer
+
+    cfg = get_config("llama3.2-1b").replace(num_layers=TRAIN2_LAYERS)
+    shape = ShapeConfig("sharded", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tr = ReconfigurableTrainer(cfg, shape, make_mesh((1,), ("data",), device="cuda"),
+                               tcfg=TrainConfig(warmup_steps=10, total_steps=TRAIN_STEPS))
+    _, hist = tr.run(tr.init_state(SEED), batches_for(cfg, shape), SHARDED_A_STEPS)
+    one_rank = [h["loss"] for h in hist]
+    del tr, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt4_")
+    why = "the ranks share one GPU; NCCL refuses two ranks on one device"
+    print(f"train sharded: four processes on cuda:0, gloo ({why}); llama3.2-1b widths, "
+          f"{TRAIN2_LAYERS} of 16 layers; global batch {TRAIN_BATCH} x {TRAIN_SEQ}; (a) (data 2, "
+          f"model 2) fsdp xla x {SHARDED_A_STEPS}, save; (b) restore onto (pod 2, model 2), "
+          f"psum x {SHARDED_B_STEPS}, 2PC to compressed_int8, compressed_int8 x "
+          f"{SHARDED_B_STEPS}")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn("chip_smoke:train_sharded_rank", SHARDED_WORLD, backend="gloo",
+                      args=(ckpt,), timeout_s=900.0, reason=why)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0}
+    for r in ranks:
+        rank = r["rank"]
+        check(not r["thread_errors"], f"rank {rank}: exceptions in threads {r['thread_errors']}")
+        quarter = r["whole"] / 4
+        check(quarter <= r["held"] <= quarter + r["undivided"] * 3 / 4,
+              f"rank {rank}: holds {r['held']} parameter bytes, a quarter is {quarter}")
+        print(f"train sharded (a), rank {rank} at {r['coords_a']}: holds {r['held']} of "
+              f"{r['whole']} parameter bytes ({r['held'] / r['whole']:.6f}; leaves that do "
+              f"not split four ways: {r['undivided']} bytes); peak memory "
+              f"{r['peak_memory_bytes'] / 2**30:.2f} GiB ({r['peak_memory_bytes']} bytes)")
+        got = [rec["loss"] for rec in r["records_a"]]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(got, one_rank))
+        check(diff <= SHARDED_RTOL, f"rank {rank}: (a) losses {got}, one rank {one_rank}")
+        check(r["restored_at"] == SHARDED_A_STEPS and r["restored_equal"],
+              f"rank {rank}: restored step {r['restored_at']}, leaves equal "
+              f"{r['restored_equal']}")
+        check(r["reconfig_log"] == [{"from": "psum", "to": "compressed_int8", "committed": True,
+                                     "at_step": SHARDED_A_STEPS + SHARDED_B_STEPS}],
+              f"rank {rank}: {r['reconfig_log']}")
+        check(r["n_leaves"] == TRAIN2_LEAVES, f"rank {rank}: {r['n_leaves']} residual leaves")
+        for rec in r["records_a"] + r["records_b"]:
+            compressed = rec["transport"] == "compressed_int8"
+            want = ({"quantize_pack": 1 + TRAIN2_LEAVES, "unpack_dequant": 0,
+                     "unpack_dequant_sum": 1 + TRAIN2_LEAVES} if compressed
+                    else {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0})
+            check(rec["launches"] == want, f"rank {rank} step {rec['step']} ({rec['label']}): "
+                  f"launches {rec['launches']}, want {want}")
+            if compressed:
+                for name in ("quantize_pack", "unpack_dequant_sum"):
+                    check(rec["routes"][name] == {"vector b256": want[name]},
+                          f"rank {rank} step {rec['step']}: {name} routes {rec['routes'][name]}")
+            check(math.isfinite(rec["loss"]), f"rank {rank} step {rec['step']}: loss {rec['loss']}")
+            for name in total:
+                total[name] += rec["launches"][name]
+        print(f"train sharded (b), rank {rank} at {r['coords_b']}: restored step "
+              f"{r['restored_at']} in {r['restore_s']:.3f} s, gathered leaves bit-equal to the "
+              "saved ones")
+    pairs = 0
+    for a in ranks:
+        for b in ranks:
+            ca, cb = a["coords_b"], b["coords_b"]
+            if ca["pod"] < cb["pod"] and ca["model"] == cb["model"]:
+                for ra, rb in zip(a["records_b"], b["records_b"]):
+                    check(ra["checksums"] == rb["checksums"],
+                          f"step {ra['step']}: parameters differ across pod (ranks {a['rank']}, "
+                          f"{b['rank']})")
+                pairs += 1
+    check(pairs == 2, f"{pairs} pod pairs")
+    r0 = ranks[0]
+    for rec in r0["records_a"] + r0["records_b"]:
+        others = [rr["ms"] for r in ranks[1:] for rr in r["records_a"] + r["records_b"]
+                  if rr["step"] == rec["step"]]
+        print(f"train sharded: step {rec['step']} {rec['label']}: loss {rec['loss']:.6f}, "
+              f"{rec['ms']:.3f} ms (rank 0; ranks 1-3 {[round(m, 3) for m in others]}), bytes "
+              f"sent by rank 0 by axis {json.dumps(rec['sent_by_axis'])} "
+              f"({json.dumps(rec['sent'])}), launches {json.dumps(rec['launches'])}")
+    print(f"train sharded (a): losses {[rec['loss'] for rec in r0['records_a']]} against one "
+          f"rank's {one_rank} (tolerance {SHARDED_RTOL} relative)")
+    for label in ("a xla", "b psum", "b compressed_int8"):
+        ms = [rec["ms"] for r in ranks for rec in r["records_a"] + r["records_b"]
+              if rec["label"] == label]
+        print(f"train sharded: {label}: median {statistics.median(ms):.3f} ms/step over all "
+              f"ranks' {len(ms)} steps (gloo through the host on one shared card, not NCCL); "
+              f"peak memory by rank {[r['peak_memory_bytes'] for r in ranks]} bytes")
+    print(f"train sharded: launches over all ranks {json.dumps(total)}; spawn to exit "
+          f"{wall:.3f} s; every process exited 0; parameters bit-equal across pod after every "
+          "step")
+    return total
+
+
+def phase_train_hymba(torch) -> dict:
+    """The hybrid family's training path at its published config on one
+    rank, through the launcher's ``main``, every counter set to 0 just
+    before and read just after."""
+    from repro_torch.launch import train
+
+    argv = ["--arch", "hymba-1.5b", "--steps", str(HYMBA_TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--transport", "xla"]
+    print("train hymba: python -m repro_torch.launch.train", " ".join(argv))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    run = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _all_counts()
+    check(not any(launches.values()), f"train hymba launched kernels: {launches}")
+    check(len(run.losses) == HYMBA_TRAIN_STEPS and all(math.isfinite(l) for l in run.losses),
+          f"train hymba: losses {run.losses}")
+    check(run.n_params == HYMBA_PARAMS, f"train hymba: {run.n_params} parameters")
+    print(f"train hymba: launches {json.dumps(launches)} (want 0 of each: the plain scan and "
+          f"xla_chunked attention); {run.n_params} parameters; losses {run.losses}; first step {run.first_ms:.3f} ms, warm "
+          f"{run.warm_ms:.3f} ms/step (median of steps 2-{HYMBA_TRAIN_STEPS}), "
+          f"{run.tokens_per_s:.1f} tokens/s; peak memory {run.peak_memory_bytes / 2**30:.2f} GiB "
+          f"({run.peak_memory_bytes} bytes); step ms {[round(t * 1e3, 3) for t in run.step_s]}; "
+          f"main {wall:.3f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1336,6 +1599,8 @@ def main() -> int:
     dsum = phase_sum_kernel(torch)
     paths["train 1 rank"] = phase_train_one(torch, 1_235_814_400)
     paths["train 2 ranks"] = phase_train_two(torch)
+    paths["train sharded"] = phase_train_sharded(torch)
+    paths["train hymba"] = phase_train_hymba(torch)
     names = ("quantize_pack", "unpack_dequant", "unpack_dequant_sum", "flash_attention",
              "ssm_scan_chunk")
     # every path of this slice for every kernel, zeros included; earlier
@@ -1354,17 +1619,21 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
                         "launches": (launches[name] + paths["wan"][name]
-                                     + paths["train 2 ranks"][name]),
+                                     + paths["train 2 ranks"][name]
+                                     + paths["train sharded"][name]),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "launches_by_path": by_path[name], "launches_by_route": by_route[name],
                         "blocks": blocks})
     # the n-way dequantize-sum: its numbers at n = 2 (the two-rank path's
-    # gradient) on top, n = 4 beside; launches of the two-rank path
+    # gradient) on top, n = 4 beside; launches of the two training paths
+    # that compress
     kernels.append({"name": "unpack_dequant_sum", "route": "cuda", "source": SOURCE,
-                    "replaces": SUM_REPLACES, "launches": paths["train 2 ranks"][
-                        "unpack_dequant_sum"], "max_abs_err": dsum["max_abs_err"],
+                    "replaces": SUM_REPLACES,
+                    "launches": (paths["train 2 ranks"]["unpack_dequant_sum"]
+                                 + paths["train sharded"]["unpack_dequant_sum"]),
+                    "max_abs_err": dsum["max_abs_err"],
                     **{k: dsum[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                     "library_ms": None, "launches_by_path": by_path["unpack_dequant_sum"],
                     "n4": {k: dsum[4][k] for k in ("ms", "plain_ms", "bound_ms", "bytes")}})

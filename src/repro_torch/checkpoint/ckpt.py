@@ -16,9 +16,12 @@ Fault-tolerance contract:
     writes in a background thread — training continues immediately;
   * ``keep`` bounds the checkpoints on disk, oldest removed first.
 
-A leaf is a tensor, a numpy array or a Python int (step counters). Restore
-onto another sharding waits for the sharding slice: every leaf comes back
-whole, on the device of its ``like`` leaf.
+A leaf is a tensor, a numpy array or a Python int (step counters). A
+checkpoint holds every leaf's full array, as the reference's does, so it does
+not depend on the mesh it was saved from: a sharded state is gathered before
+``save`` (``train.step.gathered``; the trainer's rank 0 writes it).
+``restore(like, shardings=...)`` restores onto any mesh: each rank keeps its
+block of each leaf (``models.sharding.NamedSharding.local``).
 """
 from __future__ import annotations
 
@@ -117,27 +120,37 @@ class Checkpointer:
         s = int(f.read_text().strip())
         return s if (self.dir / f"step_{s}").exists() else None
 
-    def restore(self, like: Any, *, step: Optional[int] = None) -> tuple[Any, int]:
-        """Restore into the structure of ``like``: a tensor leaf comes back a
-        tensor on its ``like`` leaf's device (a meta leaf: on the CPU), an
-        int leaf an int."""
+    def restore(self, like: Any, *, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[Any, int]:
+        """Restore into the structure of ``like`` (full shapes): a tensor leaf
+        comes back a tensor on its ``like`` leaf's device (a meta leaf: on the
+        CPU), an int leaf an int. ``shardings``, a tree of
+        ``models.sharding.NamedSharding`` of ``like``'s structure, restores
+        onto a mesh: each leaf comes back as this rank's block."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())
         names_like, leaves_like = _flatten_with_names(like)
+        placed = (T.leaves(shardings) if shardings is not None
+                  else [None] * len(leaves_like))
+        if len(placed) != len(leaves_like):
+            raise ValueError(f"{len(placed)} shardings for {len(leaves_like)} leaves")
         by_name = {l["name"]: l for l in manifest["leaves"]}
         out = []
-        for name, leaf in zip(names_like, leaves_like):
+        for name, leaf, sh in zip(names_like, leaves_like, placed):
             meta = by_name.get(name)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {name}")
-            arr = np.load(d / f"leaf_{meta['i']}.npy")
+            arr = np.load(d / f"leaf_{meta['i']}.npy", mmap_mode="r")
             is_tensor = isinstance(leaf, torch.Tensor)
             shape = tuple(leaf.shape) if is_tensor else tuple(np.shape(leaf))
             if tuple(arr.shape) != shape:
                 raise ValueError(f"{name}: shape {arr.shape} != expected {shape}")
+            if sh is not None:
+                arr = sh.local(arr)
+            arr = np.array(arr)
             if is_tensor:
                 if meta["dtype"] == "bfloat16":
                     t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)

@@ -28,10 +28,14 @@ ring of point-to-point sends, which gloo may lack: each rank moves the
 bytes the reference's schedule moves, and no all-reduce ever stands in for
 the ring or the reduce-scatter.
 
-``SENT`` counts the bytes this rank hands to the transport, by schedule: a
-point-to-point send its size; an all-reduce of B bytes over n ranks
-2(n-1)/n·B, and an all-gather of B bytes (n-1)·B, as their ring schedules
-send them (the library's own algorithm may differ).
+``SENT`` counts the bytes this rank hands to the transport, keyed
+``"<operation>@<axis>"``: a point-to-point send its size; an all-reduce of B
+bytes over n ranks 2(n-1)/n·B, and an all-gather of B bytes (n-1)·B, as their
+ring schedules send them (the library's own algorithm may differ).
+
+Sharded parameters (``models.sharding.Layout``) are gathered for the forward
+by :func:`gather_param`, counted as ``gather_param@<axis>``; its backward
+over a batch axis is a reduce-scatter, ``grad_reduce_scatter@<axis>``.
 """
 from __future__ import annotations
 
@@ -44,15 +48,25 @@ import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.comm import compress
+from repro_torch.launch.mesh import BATCH_AXES
 
 #: bytes this process sent through the collectives, by operation
 SENT: Counter = Counter()
 _SENT_LOCK = threading.Lock()
 
 
-def _count(op: str, nbytes: float) -> None:
+def _count(op: str, axis: str, nbytes: float) -> None:
     with _SENT_LOCK:
-        SENT[op] += int(nbytes)
+        SENT[f"{op}@{axis}"] += int(nbytes)
+
+
+def sent_by_axis(sent=None) -> dict:
+    """Bytes of ``sent`` (``SENT`` by default) summed by axis."""
+    out: dict = {}
+    for key, n in (SENT if sent is None else sent).items():
+        axis = key.rsplit("@", 1)[-1]
+        out[axis] = out.get(axis, 0) + n
+    return out
 
 
 def dcn_bytes_factor(schedule: str, *, n_fast: int = 1, sync_every: int = 1,
@@ -88,7 +102,7 @@ def _staged(mesh, t: torch.Tensor) -> torch.Tensor:
     return t.cpu() if mesh.backend == "gloo" and t.device.type != "cpu" else t
 
 
-def all_reduce_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor, mesh, axis: str, *, op: str = "all_reduce") -> torch.Tensor:
     """The sum of ``x`` over ``axis`` (a new tensor)."""
     n = mesh.shape[axis]
     if n == 1:
@@ -96,17 +110,17 @@ def all_reduce_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     buf = _staged(mesh, x)
     buf = buf.clone() if buf is x else buf
     dist.all_reduce(buf, group=mesh.group(axis))
-    _count("all_reduce", 2 * (n - 1) / n * buf.numel() * buf.element_size())
+    _count(op, axis, 2 * (n - 1) / n * buf.numel() * buf.element_size())
     return buf.to(x.device)
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh, axis: str, *, op: str = "all_gather") -> torch.Tensor:
     """(n, *x.shape): every rank's ``x`` along ``axis``, by axis index."""
     n = mesh.shape[axis]
     if n == 1:
         return x.unsqueeze(0).clone()
     src = _staged(mesh, x.contiguous())
-    _count("all_gather", (n - 1) * src.numel() * src.element_size())
+    _count(op, axis, (n - 1) * src.numel() * src.element_size())
     if mesh.backend == "gloo":
         parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=mesh.group(axis))
@@ -116,7 +130,8 @@ def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out
 
 
-def _exchange(mesh, axis: str, send: torch.Tensor, recv: torch.Tensor) -> None:
+def _exchange(mesh, axis: str, send: torch.Tensor, recv: torch.Tensor,
+              op: str = "send") -> None:
     """One ring step: ``send`` to the next rank along ``axis``, ``recv``
     from the previous one."""
     members, i = mesh.members(axis), mesh.coords[axis]
@@ -126,10 +141,11 @@ def _exchange(mesh, axis: str, send: torch.Tensor, recv: torch.Tensor) -> None:
            dist.P2POp(dist.irecv, recv, members[(i - 1) % n], group)]
     for w in dist.batch_isend_irecv(ops):
         w.wait()
-    _count("send", send.numel() * send.element_size())
+    _count(op, axis, send.numel() * send.element_size())
 
 
-def reduce_scatter(x2d: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def reduce_scatter(x2d: torch.Tensor, mesh, axis: str, *,
+                   op: str = "reduce_scatter") -> torch.Tensor:
     """Row ``i`` of the sum over ``axis`` of ``x2d`` (n, m), for the rank at
     index ``i``: the reference's ``psum_scatter(..., tiled=False)``. A ring
     of n-1 point-to-point steps under gloo."""
@@ -139,15 +155,68 @@ def reduce_scatter(x2d: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if mesh.backend != "gloo":
         out = torch.empty(x2d.shape[1:], dtype=x2d.dtype, device=x2d.device)
         dist.reduce_scatter_tensor(out, x2d.contiguous(), group=mesh.group(axis))
-        _count("reduce_scatter", (n - 1) * out.numel() * out.element_size())
+        _count(op, axis, (n - 1) * out.numel() * out.element_size())
         return out
     acc = _staged(mesh, x2d).clone()
     r = mesh.coords[axis]
     buf = torch.empty_like(acc[0])
     for s in range(n - 1):
-        _exchange(mesh, axis, acc[(r - s - 1) % n], buf)
+        _exchange(mesh, axis, acc[(r - s - 1) % n], buf, op)
         acc[(r - s - 2) % n] += buf
     return acc[r].to(x2d.device)
+
+
+def gather_dim(shard: torch.Tensor, mesh, axis: str, dim: int, *,
+               op: str = "all_gather") -> torch.Tensor:
+    """Every rank's ``shard`` along ``axis``, joined on ``dim`` by axis
+    index: the full tensor of a leaf split over ``axis`` on ``dim``."""
+    if mesh.shape[axis] == 1:
+        return shard
+    parts = all_gather(shard, mesh, axis, op=op)  # (n, *shard.shape)
+    full = list(shard.shape)
+    full[dim] *= parts.shape[0]
+    return parts.movedim(0, dim).reshape(full)
+
+
+def _own_block(full: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    per = full.shape[dim] // mesh.shape[axis]
+    return full.narrow(dim, mesh.coords[axis] * per, per)
+
+
+class _GatherParam(torch.autograd.Function):
+    """All-gather in the forward. The backward depends on the axis: over an
+    axis the batch is dealt out on (``pod``, ``data``), every rank's
+    gradient is a part of the sum, so it is a reduce-scatter sum; over an
+    axis the batch is replicated on (``model``), every rank computed the same
+    gradient, so it is the rank's own block with no sum (a sum would
+    multiply it by the axis size)."""
+
+    @staticmethod
+    def forward(ctx, shard, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return gather_dim(shard.detach(), mesh, axis, dim, op="gather_param")
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        if axis not in BATCH_AXES:
+            return _own_block(g, mesh, axis, dim).contiguous(), None, None, None
+        n = mesh.shape[axis]
+        blocks = g.movedim(dim, 0)
+        per = blocks.shape[0] // n
+        rows = blocks.reshape((n, per) + tuple(blocks.shape[1:]))
+        own = reduce_scatter(rows.reshape(n, -1), mesh, axis, op="grad_reduce_scatter")
+        return (own.reshape((per,) + tuple(blocks.shape[1:])).movedim(0, dim).contiguous(),
+                None, None, None)
+
+
+def gather_param(shard: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The parameter block ``shard``, split over ``axis`` on ``dim``, joined
+    with every other rank's along ``axis``; differentiable (see
+    :class:`_GatherParam` for the backward)."""
+    if mesh.shape[axis] == 1:
+        return shard
+    return _GatherParam.apply(shard, mesh, axis, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +247,10 @@ def psum_tree(tree, mesh, axis: str):
     return _unflatten(all_reduce_sum(flat, mesh, axis), tree, leaves)
 
 
-def pmean_tree(tree, mesh, axis: str):
+def pmean_tree(tree, mesh, axis: str, *, op: str = "all_reduce"):
     n = mesh.shape[axis]
     flat, leaves = _flatten(tree)
-    return _unflatten(all_reduce_sum(flat, mesh, axis) / n, tree, leaves)
+    return _unflatten(all_reduce_sum(flat, mesh, axis, op=op) / n, tree, leaves)
 
 
 def ring_allreduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

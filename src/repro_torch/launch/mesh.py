@@ -19,8 +19,10 @@ for ranks that share one GPU (NCCL refuses two ranks on one device).
 backend it starts. :func:`spawn` runs a function on every rank of a new
 world, each in a process of its own.
 
-Axes other than ``pod`` and ``data`` (the reference's ``model``) may be
-named only with one rank: tensor parallelism waits for the sharding slice.
+Any axis may hold more than one rank. The batch is dealt out over ``pod``
+and ``data`` only (``batch_index``): the ranks along ``model`` see the same
+rows, and a model's parameters are split over ``data`` and ``model`` by
+``models.sharding`` (``train.step.shardings_for``).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ import torch.distributed as dist
 
 from repro_torch.backend import resolve_device
 
-#: the axes a mesh may give more than one rank
+#: the axes the batch's rows are dealt out over
 BATCH_AXES = ("pod", "data")
 
 
@@ -52,11 +54,6 @@ class Mesh:
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.size = math.prod(self.shape.values())
-        for a, n in self.shape.items():
-            if n > 1 and a not in BATCH_AXES:
-                raise NotImplementedError(
-                    f"axis {a!r} of {n} ranks: only {BATCH_AXES} may hold more than one "
-                    "rank (the model axis waits for the sharding slice)")
         self.device = resolve_device(device)
         if self.size == 1:
             self.rank, self.backend = 0, backend
@@ -134,7 +131,16 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda",
 
 
 def make_test_mesh(shape=(1, 1), axes=("data", "model"), *, device="cuda") -> Mesh:
-    """The reference's ``make_test_mesh`` over this world's ranks."""
+    """The reference's ``make_test_mesh`` over this world's ranks; its own
+    training mesh is ``make_test_mesh((2, 4))``, 8 ranks with 4 on ``model``."""
+    return make_mesh(shape, axes, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The reference's production mesh, (data 16, model 16), or (pod 2,
+    data 16, model 16) with ``multi_pod``, over a world of 256 or 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device=device)
 
 
@@ -245,4 +251,4 @@ def spawn(target: str, world: int, *, backend: str, args: tuple = (),
 
 
 __all__ = ["BATCH_AXES", "Mesh", "choose_backend", "init_distributed", "make_mesh",
-           "make_test_mesh", "rank_device", "spawn"]
+           "make_production_mesh", "make_test_mesh", "rank_device", "spawn"]

@@ -1,7 +1,10 @@
 """Hymba: hybrid-head LM, attention and SSM branches side by side in every
-layer (arXiv:2411.13676), for serving.
+layer (arXiv:2411.13676).
 
-The counterpart of the serving half of ``src/repro/models/hymba.py``:
+The counterpart of ``src/repro/models/hymba.py``. Training:
+``HymbaLM.loss(batch)`` (the reference's ``loss_fn``), through
+``hidden_states`` with hymba's own layer (``hymba_layer``: both branches,
+the sliding window by the reference's ``segments``). Serving:
 ``HymbaLM.prefill(tokens) -> (cache, logits_last)`` and
 ``HymbaLM.decode_step(cache, tokens) -> (cache, logits)``. Layers are unrolled
 because their caches differ: sliding-window layers keep a ring buffer of
@@ -63,8 +66,8 @@ class HymbaLayer(nn.Module):
 
 class HymbaLM(DenseLM):
     """The hybrid family's model: ``DenseLM``'s embedding, final norm, head,
-    parameter drawing and ``prepare``, with hymba's layers, caches, prefill
-    and decode."""
+    parameter drawing, ``prepare``, sharding and loss, with hymba's layers,
+    training layer body, caches, prefill and decode."""
 
     FAMILY, LAYER = "hybrid", HymbaLayer
     #: the SSM scan's Select, switchable on a built model like ``attn_impl``
@@ -72,6 +75,29 @@ class HymbaLM(DenseLM):
 
     def _is_global(self, idx: int) -> bool:
         return idx in self.cfg.global_layers
+
+    # -- training ----------------------------------------------------------
+
+    def _layer_static(self, idx: int) -> dict:
+        """The reference's ``segments``: full causal attention in the global
+        layers, the sliding window elsewhere."""
+        return {"window": None if self._is_global(idx) else self.cfg.sliding_window}
+
+    def _train_layer(self, layer: HymbaLayer, x: torch.Tensor, rope: tuple, *,
+                     window) -> torch.Tensor:
+        """The reference's ``hymba_layer``: both branches on the normed input,
+        fused. The SSM branch trains through the plain scan (``jnp``), as the
+        reference does: the scan kernel has no backward, so ``ssm_impl``
+        (serving's Select) never reaches this path."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        xn = layer.ln1(x)
+        q, k, v = layer.attn.qkv(xn, rope)
+        o = attn.attention(q, k, v, impl=self.attn_impl, causal=True, window=window,
+                           chunk=cfg.attn_chunk)
+        a = layer.attn.wo(o.reshape(B, S, -1))
+        s, _ = ssm.ssm_apply(layer.ssm, xn, cfg.ssm, impl="jnp")
+        return layer.fuse(x, a, s)
 
     def _kv_capacity(self, idx: int, capacity: int) -> int:
         return capacity if self._is_global(idx) else min(self.cfg.sliding_window, capacity)

@@ -1,10 +1,12 @@
 """Model classes by family, imported lazily: a family's module loads only
-when a config of that family is built. The port serves the dense and hybrid
-families and trains the dense one so far; the others raise and say they are
-not ported yet.
+when a config of that family is built. The port serves and trains the dense
+and hybrid families; the others raise and say they are not ported yet.
 
-``loss(model, batch)`` and ``batch_specs(cfg, shape)`` are the dense
-family's rows of the reference's ``_Family`` table."""
+``loss(model, batch)`` and ``batch_specs(cfg, shape)`` are the dense and
+hybrid families' rows of the reference's ``_Family`` table (both take
+tokens and labels). ``param_specs(model, sh, mesh)`` is the reference's
+``Model.param_specs``: the spec of every leaf of the model's parameter tree
+in the reference's layout (``stacking.stack_layers``)."""
 from __future__ import annotations
 
 import importlib
@@ -28,7 +30,7 @@ def model_class(cfg: ModelConfig):
 
 
 #: the families the port trains
-TRAINED = ("dense",)
+TRAINED = ("dense", "hybrid")
 
 
 def _trained(cfg: ModelConfig) -> None:
@@ -51,6 +53,27 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     if shape.kind == "decode":
         return {"tokens": ((B, 1), torch.int32)}
     return {"tokens": ((B, S), torch.int32), "labels": ((B, S), torch.int32)}
+
+
+def param_shapes(model) -> dict:
+    """The model's parameter tree in the reference's layout
+    (``stacking.stack_layers``: layer leaves stacked), as meta tensors."""
+    from repro_torch.models.stacking import stack_layers
+
+    shapes = model.layout.shapes if getattr(model, "layout", None) is not None else None
+    named = {n: torch.empty(shapes[n] if shapes else tuple(p.shape), device="meta")
+             for n, p in model.named_parameters()}
+    return stack_layers(named, model.cfg.num_layers,
+                        stack=lambda ts: torch.empty((len(ts),) + tuple(ts[0].shape),
+                                                     device="meta"))
+
+
+def param_specs(model, sh, mesh=None):
+    """The reference's ``Model.param_specs(sh)`` on ``mesh``: a tree of
+    ``sharding.P`` over :func:`param_shapes`."""
+    from repro_torch.models import sharding
+
+    return sharding.param_specs(param_shapes(model), sh, mesh)
 
 
 def build(cfg: ModelConfig, *, device="cuda", seed: int = 0):

@@ -4,7 +4,9 @@ family's training forward uses.
 ``apply_stack`` runs ``x`` through the layers one by one (the reference's
 ``scan`` has no counterpart: the port unrolls), each under
 ``torch.utils.checkpoint`` with ``remat="full"``, so backward recomputes a
-layer's activations instead of keeping them.
+layer's activations instead of keeping them. It is also the seam of a
+sharded model (``sharding.Layout``): each layer's parameters are gathered
+from their shards just for that layer's body.
 
 ``stack_layers``/``unstack_layers`` move between the port's per-layer
 parameters, named ``layers.{i}.<leaf>``, and the reference's tree, where each
@@ -13,7 +15,7 @@ tree the gradient transports flatten, in the reference's leaf order.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Sequence
+from typing import Callable, ContextManager, Dict, Mapping, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -29,11 +31,24 @@ def remat(fn: Callable, policy: str) -> Callable:
 
 
 def apply_stack(layers: Sequence[torch.nn.Module], x: torch.Tensor, body: Callable, *,
-                remat_policy: str = "full") -> torch.Tensor:
-    """``x`` through ``body(layer, x)`` for each layer in turn."""
-    fn = remat(body, remat_policy)
-    for layer in layers:
-        x = fn(layer, x)
+                remat_policy: str = "full", static: Optional[Callable[[int], dict]] = None,
+                gathered: Optional[Callable[[int], ContextManager]] = None) -> torch.Tensor:
+    """``x`` through ``body(layer, x, **static(i))`` for each layer ``i`` in
+    turn (``static``: the keywords of the reference's segment that holds
+    layer ``i``). A sharded model passes ``gathered(i)``, under which layer
+    ``i``'s parameters read as their full tensors: they are gathered from
+    their shards before the body and freed after, and gathered again when
+    ``remat`` recomputes the layer in backward."""
+    def run(i: int, layer, h):
+        kw = static(i) if static is not None else {}
+        if gathered is None:
+            return body(layer, h, **kw)
+        with gathered(i):
+            return body(layer, h, **kw)
+
+    fn = remat(run, remat_policy)
+    for i, layer in enumerate(layers):
+        x = fn(i, layer, x)
     return x
 
 

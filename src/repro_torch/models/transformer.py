@@ -5,6 +5,9 @@ The counterpart of ``src/repro/models/transformer.py``. Training:
 reference's ``loss_fn``), on a model whose serving copies are released
 (:meth:`DenseLM.release`) so that every weight is cast inside the autograd
 graph; each layer is recomputed in backward under ``cfg.remat = "full"``.
+A model sharded over a mesh (:meth:`DenseLM.shard`) holds only its rank's
+block of each parameter and gathers the full tensors for the training
+forward (``sharding.Layout``); its code paths are the full-shape ones.
 Serving: ``DenseLM.prefill(tokens) -> (cache, logits_last)`` and
 ``DenseLM.decode_step(cache, tokens) -> (cache, logits)``, with the
 reference's KV cache ``{"k", "v"}: (L, B, S, KH, hd)`` bfloat16 plus ``"len"``
@@ -22,6 +25,7 @@ Hopper flash-attention kernel). Decode attends through
 """
 from __future__ import annotations
 
+from contextlib import ExitStack, nullcontext
 from typing import Optional
 
 import torch
@@ -40,6 +44,7 @@ from repro_torch.models.layers import (
     rope_cos_sin,
     rotate,
 )
+from repro_torch.models.sharding import Layout
 from repro_torch.models.stacking import apply_stack
 
 
@@ -108,6 +113,7 @@ class DenseLM(nn.Module):
         self.final_norm = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, device=device)
         self.lm_head = (None if cfg.tie_embeddings
                         else Linear(cfg.d_model, cfg.vocab_padded, device=device))
+        self.layout: Optional[Layout] = None  # set by shard()
         if generator is not None:
             self.init_weights(generator)
             self.prepare()
@@ -139,6 +145,27 @@ class DenseLM(nn.Module):
 
     # -- training ----------------------------------------------------------
 
+    def shard(self, layout: Layout) -> "DenseLM":
+        """Keep only this rank's block of every parameter (``layout.local``);
+        the training forward then gathers them (``loss``). Serving needs the
+        full parameters of an unsharded model."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if tuple(p.shape) != layout.shapes[name]:
+                    raise ValueError(f"{name}: shape {tuple(p.shape)}, the layout's "
+                                     f"{layout.shapes[name]}")
+                p.data = layout.local(name, p.data).clone()
+        self.layout = layout
+        return self
+
+    def _gathered(self, module: nn.Module, prefix: str):
+        return self.layout.gathered(module, prefix) if self.layout is not None else nullcontext()
+
+    def _layer_static(self, idx: int) -> dict:
+        """The body's keywords for layer ``idx`` (a family with segments
+        overrides it)."""
+        return {}
+
     def _train_layer(self, layer: DecoderLayer, x: torch.Tensor, rope: tuple) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
@@ -149,13 +176,18 @@ class DenseLM(nn.Module):
         return h + layer.mlp(layer.ln2(h))
 
     def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> final hidden states (B, S, D), bfloat16."""
+        """tokens (B, S) -> final hidden states (B, S, D), bfloat16. A sharded
+        model gathers each layer's parameters for its body; the caller
+        gathers the embedding and the final norm (``loss`` does)."""
         cfg = self.cfg
         x = self.embed(tokens)
         rope = rope_cos_sin(torch.arange(tokens.shape[1], device=x.device), cfg.head_dim_,
                             cfg.rope_theta)
-        x = apply_stack(self.layers, x, lambda layer, h: self._train_layer(layer, h, rope),
-                        remat_policy=cfg.remat)
+        gathered = (None if self.layout is None
+                    else lambda i: self._gathered(self.layers[i], f"layers.{i}."))
+        x = apply_stack(self.layers, x,
+                        lambda layer, h, **kw: self._train_layer(layer, h, rope, **kw),
+                        remat_policy=cfg.remat, static=self._layer_static, gathered=gathered)
         return self.final_norm(x)
 
     def head_weight(self) -> torch.Tensor:
@@ -168,10 +200,16 @@ class DenseLM(nn.Module):
         cfg = self.cfg
         if self.embed.table16 is not None:
             raise RuntimeError("the model holds its serving copies; release() it to train")
-        h = self.hidden_states(batch["tokens"])
-        chunk = loss_chunk if loss_chunk is not None else cfg.loss_chunk
-        return chunked_lm_loss(h, self.head_weight(), batch["labels"], chunk=chunk,
-                               real_vocab=cfg.vocab_size)
+        # a sharded model gathers the embedding, the final norm and an untied
+        # head once for the whole loss
+        with ExitStack() as stack:
+            for name in ("embed", "final_norm", "lm_head"):
+                if getattr(self, name) is not None:
+                    stack.enter_context(self._gathered(getattr(self, name), f"{name}."))
+            h = self.hidden_states(batch["tokens"])
+            chunk = loss_chunk if loss_chunk is not None else cfg.loss_chunk
+            return chunked_lm_loss(h, self.head_weight(), batch["labels"], chunk=chunk,
+                                   real_vocab=cfg.vocab_size)
 
     @property
     def device(self) -> torch.device:

@@ -11,9 +11,16 @@ losing state:
     the wire format changes — the paper's state-translation step),
   * the switch point is the step boundary.
 
+Layout: the state lies on the mesh by ``step.shardings_for`` (FSDP over
+``data``, tensor parallelism over ``model``, ZeRO-1 moments over ``pod``;
+``sharding=``). Each rank holds its block of every parameter, moment and
+error-feedback residual; a transport switch derives the shardings again and
+lays the state out anew where they changed.
+
 Fault tolerance:
-  * periodic + async checkpoints (atomic; one rank writes, the state being
-    replicated, and the others wait for it at a barrier before reading),
+  * periodic + async checkpoints (atomic; every rank gathers the state's
+    full leaves, rank 0 writes them, and the others wait for it at a barrier
+    before reading; a restore keeps each rank's block, on any mesh),
   * heartbeat monitor: hosts report step times; persistent stragglers trigger
     a negotiated transition to a DCN-lighter transport (compressed / localsgd)
     — reconfiguration as *mitigation*, the paper's core pitch.
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tree as T
 from repro_torch.checkpoint.ckpt import Checkpointer
 from repro_torch.comm.chunnels import (
     DEVICE_TRANSPORTS,
@@ -50,7 +58,7 @@ from repro_torch.comm.chunnels import (
     init_grad_states,
     make_transport,
 )
-from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, ShardingConfig, TrainConfig
 from repro_torch.core import KVStore, rendezvous
 from repro_torch.core.controller import (
     PolicyContext,
@@ -141,8 +149,8 @@ def trainer_default_policy(ctx: PolicyContext) -> List[Rule]:
 class ReconfigurableTrainer:
     """One rank's trainer. ``mesh`` (``repro_torch.launch.mesh.Mesh``) names
     the rank's axes and device; every rank of the mesh builds the same
-    trainer and calls the same methods in the same order. The reference's
-    ``sharding=`` waits for the sharding slice: all state is replicated."""
+    trainer and calls the same methods in the same order. ``sharding``
+    lays the state out on the mesh (``step.shardings_for``)."""
 
     def __init__(
         self,
@@ -151,6 +159,7 @@ class ReconfigurableTrainer:
         mesh,
         *,
         tcfg: TrainConfig = TrainConfig(),
+        sharding: ShardingConfig = ShardingConfig(),
         transport: str = "xla",
         ckpt_dir: Optional[str] = None,
         store: Optional[KVStore] = None,
@@ -162,12 +171,15 @@ class ReconfigurableTrainer:
         self.mesh = mesh
         self.device = mesh.device
         self.tcfg = tcfg
+        self.sharding = sharding
         self.store = store or KVStore()
         self.conn_id = conn_id
         self.hosts = list(hosts or [HostSpec(0, [transport])])
         self.transport_name = self._agree(self._negotiate_transport(), "the negotiated transport")
-        # parameters are drawn by init_state; the serving copies are never made
+        # parameters are drawn by init_state (full, then cut to this rank's
+        # blocks); the serving copies are never made
         self.model = model_class(cfg)(cfg, device=self.device)
+        self.state_sh: Optional[step_mod.StateShardings] = None
         self.ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
         self.step_times: List[float] = []
         self.reconfig_log: List[dict] = []
@@ -260,7 +272,11 @@ class ReconfigurableTrainer:
     # -- step construction -------------------------------------------------------
     def _build_step(self) -> None:
         self.chunnels = self._transport_chunnels(self.transport_name)
-        self.step_fn = step_mod.make_train_step(self.model, self.tcfg, self.chunnels, self.mesh)
+        self.state_sh = step_mod.shardings_for(self.model, self.mesh, self.sharding,
+                                               self.chunnels)
+        self._layout = step_mod.model_layout(self.state_sh)
+        self.step_fn = step_mod.make_train_step(self.model, self.tcfg, self.chunnels, self.mesh,
+                                                self.state_sh)
         # The next step pays the first-call costs (allocations, library
         # set-up): that blip is reconfiguration cost, not a data-plane signal
         # — keep it out of the step-time telemetry or it swamps the straggler
@@ -268,19 +284,58 @@ class ReconfigurableTrainer:
         self._skip_step_telemetry = True
 
     def _fresh_comm(self):
-        return init_grad_states(self.chunnels, step_mod.grad_shapes(self.model))
+        """Zeroed chunnel state, this rank's blocks of it."""
+        full = init_grad_states(self.chunnels, step_mod.grad_shapes(self.model))
+        full = T.map(lambda x: torch.zeros(x.shape, dtype=x.dtype, device=self.device)
+                     if isinstance(x, torch.Tensor) else x, full)
+        return step_mod.place(full, self.state_sh.comm)
+
+    def _set_params(self, full: Dict[str, torch.Tensor]) -> None:
+        """The model's parameters set to this rank's blocks of ``full``, and
+        its layout with them."""
+        self.model.layout = None
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                p.data = self.state_sh.params[name].local(full[name]).to(self.device).clone()
+        self.model.layout = self._layout
+
+    def _full_params(self) -> None:
+        """Full-shape parameters (contents unset) to draw or fill."""
+        if self.model.layout is not None:
+            for name, p in self.model.named_parameters():
+                p.data = torch.empty(self.model.layout.shapes[name], device=self.device)
+            self.model.layout = None
 
     def init_state(self, rng=0, *, params=None) -> step_mod.TrainState:
         """Parameters drawn from a ``torch.Generator`` seeded with ``rng``
         (the same on every rank), or set from the reference's tree
-        ``params`` (nested dicts of numpy arrays)."""
+        ``params`` (nested dicts of numpy arrays); each rank keeps its blocks."""
+        self._full_params()
         if params is not None:
             fill_from_reference(self.model, params)
         else:
             gen = torch.Generator(device=self.device).manual_seed(int(rng))
             self.model.init_weights(gen)
-        st = step_mod.init_state(self.model, self.tcfg)
+        if self._layout is not None:
+            self.model.shard(self._layout)
+        st = step_mod.init_state(self.model, self.tcfg, self.state_sh)
         return st._replace(comm=self._fresh_comm())
+
+    def gathered_state(self, state) -> step_mod.TrainState:
+        """The state's full leaves (every rank calls it; each gets them)."""
+        return step_mod.gathered(state, self.state_sh.state())
+
+    def _relayout(self, state, old: step_mod.StateShardings):
+        """``state``, laid out by ``old``, moved to the current shardings
+        (the parameters and moments; chunnel state is made afresh)."""
+        if [s.spec for s in T.leaves(old.state()[:2])] == [
+                s.spec for s in T.leaves(self.state_sh.state()[:2])]:
+            return state
+        params = step_mod.gathered(state.params, old.params)
+        opt = step_mod.gathered(state.opt, old.opt)
+        self._set_params(params)
+        return state._replace(params=dict(self.model.named_parameters()),
+                              opt=step_mod.place(opt, self.state_sh.opt))
 
     # -- telemetry ------------------------------------------------------------------
     def _dcn_bytes_per_step(self) -> int:
@@ -427,11 +482,13 @@ class ReconfigurableTrainer:
             self.reconfig_log.append({"to": new_transport, "committed": False})
             return state
         old = self.transport_name
+        old_sh = self.state_sh
         self.transport_name = new_transport
         self._build_step()
-        # state migration: params/opt carry over; chunnel state re-initialized
-        # for the new wire format (EF residuals cannot survive a format change)
-        state = state._replace(comm=self._fresh_comm())
+        # state migration: params/opt carry over (laid out again where the
+        # shardings changed); chunnel state re-initialized for the new wire
+        # format (EF residuals cannot survive a format change)
+        state = self._relayout(state, old_sh)._replace(comm=self._fresh_comm())
         self.reconfig_log.append({"from": old, "to": new_transport, "committed": True,
                                   "at_step": int(state.step)})
         return state
@@ -524,10 +581,12 @@ class ReconfigurableTrainer:
 
     # -- checkpoint/restart -----------------------------------------------------------
     def _save(self, step: int, state, *, asynchronous: bool = False) -> None:
-        """Rank 0 writes: the state is replicated, and two writers would race
-        on the rename."""
+        """Every rank gathers the state's full leaves, rank 0 writes them: a
+        checkpoint holds the logical state, whatever the mesh (two writers
+        would race on the rename)."""
+        full = self.gathered_state(state)
         if self.mesh.rank == 0:
-            self.ckpt.save(step, state, asynchronous=asynchronous)
+            self.ckpt.save(step, full, asynchronous=asynchronous)
 
     def save(self, state, step: Optional[int] = None):
         assert self.ckpt is not None
@@ -535,17 +594,22 @@ class ReconfigurableTrainer:
         self._barrier()
 
     def restore(self, like=None, *, step: Optional[int] = None):
-        """The checkpoint at ``step`` (the latest by default) as a state:
-        parameters copied into the model, the rest on the device. Every
-        rank reads it after rank 0's writes have finished."""
+        """The checkpoint at ``step`` (the latest by default), saved on any
+        mesh, as a state laid out on this one: parameters copied into the
+        model, the rest on the device. Every rank reads it after rank 0's
+        writes have finished."""
         assert self.ckpt is not None
         if self.mesh.rank == 0:
             self.ckpt.wait()
         self._barrier()
         like = like if like is not None else step_mod.state_shapes(
             self.model, self.chunnels, self.tcfg)
-        tree, at = self.ckpt.restore(like, step=step)
+        tree, at = self.ckpt.restore(like, step=step, shardings=self.state_sh.state())
+        self.model.layout = None
         with torch.no_grad():
             for name, p in self.model.named_parameters():
-                p.copy_(tree.params[name])
-        return tree._replace(params=dict(self.model.named_parameters())), at
+                p.data = tree.params[name].to(self.device)
+        self.model.layout = self._layout
+        to_dev = lambda x: x.to(self.device) if isinstance(x, torch.Tensor) else x  # noqa: E731
+        return tree._replace(params=dict(self.model.named_parameters()),
+                             opt=T.map(to_dev, tree.opt), comm=T.map(to_dev, tree.comm)), at

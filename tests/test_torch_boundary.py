@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``, and the
-package imports in a process where both are blocked."""
+"""The port stands alone: nothing under ``src/repro_torch``, not
+``chip_smoke.py`` and not ``examples/torch_train_reconfigure.py`` imports
+``jax`` or the reference package ``repro``, and the package and the example
+import in a process where both are blocked."""
 import ast
 import os
 import shutil
@@ -11,7 +12,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-SCANNED = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLE = ROOT / "examples" / "torch_train_reconfigure.py"
+SCANNED = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                 EXAMPLE]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -47,8 +50,9 @@ def test_imports_with_jax_and_reference_blocked():
             "import repro_torch.comm.collectives, repro_torch.models.stacking\n"
             "import repro_torch.data.synthetic, repro_torch.optim.adamw\n"
             "import repro_torch.checkpoint.ckpt, repro_torch.train.step\n"
-            "import repro_torch.train.trainer\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            "import repro_torch.train.trainer, repro_torch.models.sharding\n"
+            "import torch_train_reconfigure\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(EXAMPLE.parent)]))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -72,8 +76,18 @@ def test_chip_smoke_fails_without_gpu_or_package(tmp_path, where):
     assert '"ok"' not in out.stdout
 
 
+def _example():
+    """``examples/torch_train_reconfigure.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_train_reconfigure", EXAMPLE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 @pytest.mark.parametrize("entry", ["launch.train", "mesh", "trainer", "GradCompressed",
-                                   "GradHierCompressed"])
+                                   "GradHierCompressed", "example"])
 def test_training_entry_points_default_to_cuda_and_raise_without_gpu(entry):
     """The trainer's entry points default to ``device="cuda"`` and raise
     without a GPU, rather than run on the CPU unasked."""
@@ -95,6 +109,7 @@ def test_training_entry_points_default_to_cuda_and_raise_without_gpu(entry):
             mesh.make_mesh((1,), ("data",))),
         "GradCompressed": chunnels.GradCompressed,
         "GradHierCompressed": chunnels.GradHierCompressed,
+        "example": lambda: _example().main(["--steps", "2"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

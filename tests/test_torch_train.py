@@ -12,7 +12,8 @@ In this process, each against the jitted reference with the same inputs:
   equal, the learning rate and the gradient norm within 1e-6;
 - the synthetic data: bit-equal;
 - the reference's own ``TestData``, ``TestCheckpoint`` (but
-  ``test_restore_with_resharding``: resharding waits for its slice) and
+  ``test_restore_with_resharding``, which needs a (data 2, model 4) mesh: its
+  counterpart runs on four ranks in ``test_torch_sharded_train.py``) and
   ``TestTrainerDefaultPolicy``, mirrored onto the port
   (``tests/port_mirror.py``);
 - the one-rank launcher with each of the seven transports, and a restart
@@ -24,8 +25,9 @@ On two ranks (one ``spawn`` of two processes, ``gloo`` on the CPU, a mesh of
 - the reference's ``TestTrainer``, ``TestTrainerControllerPlane`` and the
   flow of ``test_system.py`` (negotiate, 10 steps of psum, reconfigure to
   compressed, 10 steps, save, restore, 5 steps, the loss falls), mirrored,
-  with the ``model`` axis of their meshes cut to 1 rank (it waits for the
-  sharding slice); every rank must pass each;
+  with the ``model`` axis of their meshes cut to 1 rank (two processes, not
+  eight; ``test_torch_sharded_train.py`` runs the sharded layouts); every rank
+  must pass each;
 - the first 10 losses of the trainer with psum and with compressed_int8,
   from the reference's parameters, against the reference trainer on a
   ``pod`` = 2 mesh: within 2e-2 relative (the gradients' bfloat16 rounding,
@@ -76,7 +78,8 @@ _SUB = mirror("test_substrate.py", ["TestData", "TestCheckpoint", "TestTrainer"]
     ('m = make_test_mesh((2, 4), ("pod", "model"))',
      'm = make_test_mesh((2, 1), ("pod", "model"), device="cpu")'),
     ("np.asarray(a), np.asarray(b)", "np.asarray(a.float()), np.asarray(b.float())")])
-del _SUB["TestCheckpoint"].test_restore_with_resharding  # waits for the sharding slice
+# needs a (data 2, model 4) mesh; test_torch_sharded_train.py runs its counterpart
+del _SUB["TestCheckpoint"].test_restore_with_resharding
 TestData = _SUB["TestData"]
 TestCheckpoint = _SUB["TestCheckpoint"]
 _CTL = mirror("test_controller.py", ["TestTrainerControllerPlane"], edits=[
@@ -391,20 +394,22 @@ def test_transport_state_has_the_reference_layout(transport):
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_batch_specs_match_reference(kind):
-    """The dense family's batch shapes and dtypes, as the reference's
-    ``Model.batch_specs``; a family the port does not train raises."""
+    """The dense and hybrid families' batch shapes and dtypes, as the
+    reference's ``Model.batch_specs``; a family the port does not train
+    raises."""
     pytest.importorskip("jax")
     from repro.configs import get_smoke_config as ref_config
     from repro.models.registry import build as ref_build
     from repro_torch.models import registry
 
     shape = ShapeConfig("s", 32, 4, kind)
-    want = ref_build(ref_config(ARCH)).batch_specs(shape)
-    got = registry.batch_specs(get_smoke_config(ARCH), shape)
-    assert {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()} == {
-        k: (shp, str(dt).removeprefix("torch.")) for k, (shp, dt) in got.items()}
+    for arch in (ARCH, "hymba-1.5b"):
+        want = ref_build(ref_config(arch)).batch_specs(shape)
+        got = registry.batch_specs(get_smoke_config(arch), shape)
+        assert {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()} == {
+            k: (shp, str(dt).removeprefix("torch.")) for k, (shp, dt) in got.items()}
     with pytest.raises(KeyError, match="not ported"):
-        registry.batch_specs(get_smoke_config("hymba-1.5b"), shape)
+        registry.batch_specs(get_smoke_config(ARCH).replace(family="moe"), shape)
 
 
 @pytest.mark.parametrize("host", [(0, 1), (0, 2), (1, 2), (3, 4)])
