@@ -25,10 +25,15 @@ Phases, each of which exits non-zero on any failed check:
    library (``cuobjdump -sass``: HGMMA and UTMALDG, both nonzero); then the
    kernel against its plain version at the serving path's prefill shape (q
    4 x 2048 x 32 x 64, k/v 4 x 2048 x 8 x 64, bf16, causal), a ragged
-   length, a 1024 window, non-causal, float32, head dim 128 and hymba's two
-   GQA-5 shapes, each within its stated tolerance; then timed, with TFLOP/s
-   and the share of the card's bound, at llama's prefill shape (beside the
-   plain version), hymba's two and a head dim of 128, each beside
+   length, a 1024 window, non-causal, float32, head dim 128, hymba's two
+   GQA-5 shapes, and the shapes of this slice's served families:
+   phi-3-vision's head dim 96 (q 4 x 2048 x 32 x 96, causal, bf16 and
+   float32), qwen3-moe's GQA 64/4 at head dim 128, seamless's encoder
+   (4 x 512 x 16 x 64, non-causal), decoder self-attention (4 x 2048) and
+   cross attention (q 4 x 2048, k/v 4 x 512, non-causal), each within its
+   stated tolerance; then timed, with TFLOP/s and the share of the card's
+   bound, at llama's prefill shape (beside the plain version), hymba's two,
+   a head dim of 128 and this slice's five bf16 shapes, each beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 4. connection path: two host agents negotiate a Select of two int8 wires
    (block 256, block 64), stream the layer's gradients as two batches, swap
@@ -72,6 +77,23 @@ Phases, each of which exits non-zero on any failed check:
    per layer of the prefill and one per layer of each decode step (256 +
    32 x 32). Then the checks of phase 6, the plain side also scanning with
    the scan's plain version, warm timings and a profile;
+8b. the other four families' serving paths, each as phase 6 through the
+   launcher's ``main`` with 4 prompts of 2048 tokens and 32 greedy decode
+   steps, the kernels' counters set to 0 just before and read just after:
+   phi-3-vision-4.2b (vlm; 32 layers, 3,822,259,200 parameters, patches
+   (4, 576, 3072) bf16 over the first 576 positions; 32 flash launches at
+   head dim 96), qwen3-moe-235b-a22b (moe; its first 3 of 94 layers at the
+   published widths, 8,708,976,640 parameters, the expert dispatch
+   ``grouped``; 3 flash launches), seamless-m4t-medium (audio; 12 + 12
+   layers, 978,972,672 parameters, frames (4, 512, 1024) bf16; 36 flash
+   launches: encoder, decoder self and cross attention) and xlstm-125m
+   (ssm; 12 layers, 123,558,192 parameters; no kernel), none in decode,
+   the flash launches counted by shape by the wrapper. Then phase 6's checks (the prefill
+   against ``xla_dense`` within a stated tolerance; decode step 1 against a
+   longer prefill, but for qwen3-moe, whose decode drops tokens at a
+   capacity of 1 an expert, as the reference does), qwen3-moe's share of
+   (token, slot) expert ids on which the kernel and plain prefills agree,
+   warm timings, a profile and the peak memory;
 9. the n-way dequantize-sum kernel ``unpack_dequant_sum`` (not a TPU kernel:
    it computes the body of the reference's ``compressed_allgather_sum``)
    against its plain version on the card, bit-equal: at the gradient of
@@ -146,6 +168,7 @@ import tempfile
 import threading
 import time
 import traceback
+from contextlib import nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -191,9 +214,26 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 #: = 1e-2, as torch.testing.assert_close takes them; the route rounds p to
 #: bf16 for P.V, which moves outputs by up to one bf16 step at their
 #: magnitude (0.0156 at |o| of 2 to 4). float32 (the SIMT route): max abs
-#: error 2e-5, summation order. Both tighter than the reference's own 2e-2 /
+#: error 1e-5, summation order. Both tighter than the reference's own 2e-2 /
 #: 2e-3 (tests/test_kernels.py)
-FLASH_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
+FLASH_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+#: this slice's prefill attention shapes, each checked and timed at batch 4:
+#: (label, (Sq, Skv or None for Sq, hd, (H, KH), keywords), dtypes checked).
+#: phi-3-vision-4.2b: 32 heads of 96, MHA, causal; qwen3-moe-235b-a22b: 64
+#: heads over 4 KV heads of 128, causal; seamless-m4t-medium: 16 heads of 64,
+#: its encoder over S / 4 frames and its cross attention non-causal
+NEW_FLASH_CASES = [
+    ("phi-3-vision hd96", (SERVE_PROMPT, None, 96, (32, 32), dict(causal=True)),
+     ("bfloat16", "float32")),
+    ("qwen3-moe GQA 64/4 hd128", (SERVE_PROMPT, None, 128, (64, 4), dict(causal=True)),
+     ("bfloat16",)),
+    ("seamless encoder", (SERVE_PROMPT // 4, None, 64, (16, 16), dict(causal=False)),
+     ("bfloat16",)),
+    ("seamless decoder self", (SERVE_PROMPT, None, 64, (16, 16), dict(causal=True)),
+     ("bfloat16",)),
+    ("seamless cross", (SERVE_PROMPT, SERVE_PROMPT // 4, 64, (16, 16), dict(causal=False)),
+     ("bfloat16",)),
+]
 #: the mangled name's stem of the tensor-core kernel, in ptxas's log
 FLASH_TC_KERNEL = "flash_attention_tc_kernel"
 #: serving checks, max abs error on logits of magnitude up to about 5: the
@@ -206,6 +246,18 @@ LOGITS_TOL = 0.1
 #: now carried by 32 layers of bf16 residual (twice llama's 16), through
 #: each layer's two normalised branches
 HYMBA_LOGITS_TOL = 0.15
+#: this slice's serve phases: (arch, parameters at the depth served, max abs
+#: error on prefill logits of the kernel path against xla_dense and of decode
+#: step 1 against a longer prefill, layers or None for the published depth).
+#: phi-3-vision: 32 layers of bf16 residual, as hymba's 0.15; qwen3-moe: 3
+#: layers (one card's memory: 8,708,976,640 parameters, about 52 GB as
+#: float32 masters and bf16 copies), llama's 0.1; seamless: 12 encoder and
+#: 12 decoder layers, three attentions each, 0.15; xlstm: 12 layers, no
+#: attention and no kernel, llama's 0.1
+NEW_SERVE = [("phi-3-vision-4.2b", 3_822_259_200, 0.15, None),
+             ("qwen3-moe-235b-a22b", 8_708_976_640, 0.1, 3),
+             ("seamless-m4t-medium", 978_972_672, 0.15, None),
+             ("xlstm-125m", 123_558_192, 0.1, None)]
 #: the WAN phase: the chunnel's own MTU, its window, block 256, and the loss
 #: of the lossy rerun's link
 WAN_BLOCK, WAN_MTU, WAN_WINDOW, WAN_LOSS = 256, 4096, 8, 0.02
@@ -399,33 +451,37 @@ def phase_kernels(torch) -> dict:
 
 def phase_flash(torch) -> dict:
     """The flash-attention kernel against its plain version, then timed at
-    the serving path's prefill shape."""
+    the serving paths' prefill shapes."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
-    def qkv(B, S, hd, dtype, heads=(N_HEADS, N_KV)):
+    def qkv(B, S, hd, dtype, heads=(N_HEADS, N_KV), skv=None):
         H, KH = heads
+        skv = skv or S
         return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                for shape in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd))]
+                for shape in ((B, S, H, hd), (B, skv, KH, hd), (B, skv, KH, hd))]
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("prefill", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16), dict(causal=True)),
-             ("ragged S=2000", (SERVE_BATCH, 2000, HEAD_DIM, bf16), dict(causal=True)),
-             ("window 1024", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16),
+    B, S, llama, hymba = SERVE_BATCH, SERVE_PROMPT, (N_HEADS, N_KV), (HYMBA_HEADS, HYMBA_KV)
+    # (label, (B, S, hd, dtype), (H, KH), Skv or None for S, keywords)
+    cases = [("prefill", (B, S, HEAD_DIM, bf16), llama, None, dict(causal=True)),
+             ("ragged S=2000", (B, 2000, HEAD_DIM, bf16), llama, None, dict(causal=True)),
+             ("window 1024", (B, S, HEAD_DIM, bf16), llama, None,
               dict(causal=True, window=1024)),
-             ("non-causal", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16), dict(causal=False)),
-             ("float32", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, f32), dict(causal=True)),
-             ("hd128", (1, 1024, 128, bf16), dict(causal=True)),
-             ("hymba GQA 5, window 1024", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16),
+             ("non-causal", (B, S, HEAD_DIM, bf16), llama, None, dict(causal=False)),
+             ("float32", (B, S, HEAD_DIM, f32), llama, None, dict(causal=True)),
+             ("hd128", (1, 1024, 128, bf16), llama, None, dict(causal=True)),
+             ("hymba GQA 5, window 1024", (B, S, HEAD_DIM, bf16), hymba, None,
               dict(causal=True, window=HYMBA_WINDOW)),
-             ("hymba GQA 5, global", (SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16),
-              dict(causal=True))]
+             ("hymba GQA 5, global", (B, S, HEAD_DIM, bf16), hymba, None, dict(causal=True))]
+    cases += [(label if dt == "bfloat16" else f"{label} {dt}", (B, sq, hd, getattr(torch, dt)),
+               heads, skv, kw)
+              for label, (sq, skv, hd, heads, kw), dtypes in NEW_FLASH_CASES for dt in dtypes]
     errs = {}
-    for label, (B, S, hd, dtype), kw in cases:
-        q, k, v = qkv(B, S, hd, dtype, (HYMBA_HEADS, HYMBA_KV) if "hymba" in label
-                      else (N_HEADS, N_KV))
+    for label, (B_, S_, hd, dtype), heads, skv, kw in cases:
+        q, k, v = qkv(B_, S_, hd, dtype, heads, skv)
         out = flash_attention(q, k, v, **kw)
         want = flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -441,12 +497,13 @@ def phase_flash(torch) -> dict:
                 ok = False
         else:
             form, ok = f"max abs err <= {tol}", err <= tol
-        print(f"kernel check flash_attention {label}: q {tuple(q.shape)} {dtype} {kw} "
-              f"max abs err {err} ({form})")
+        print(f"kernel check flash_attention {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"{dtype} {kw} max abs err {err} ({form})")
         check(ok, f"flash_attention {label}: max abs err {err}, outside {form}")
         errs[label] = err
+        del q, k, v, out, want
 
-    q, k, v = qkv(SERVE_BATCH, SERVE_PROMPT, HEAD_DIM, bf16)
+    q, k, v = qkv(B, S, HEAD_DIM, bf16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_err = (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2).float()
@@ -455,46 +512,66 @@ def phase_flash(torch) -> dict:
     plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), reps=5, group=2)
     library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
     res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "max_abs_err": errs["prefill"], **flash_bound(q, k, None)}
+           "max_abs_err": errs["prefill"], **flash_bound(q, k, None), "cases": {}}
     print(f"time flash_attention prefill: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
           f"sdpa {library_ms:.4f} ms, sdpa vs plain max abs err {lib_err}, "
           f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}: {res['flops']} flops at "
           f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, {res['bytes']} bytes; "
           f"{res['flops'] / ms / 1e9:.1f} TFLOP/s, {res['bound_ms'] / ms:.1%} of the bound)")
 
-    # hymba's two prefill shapes (29 layers with the window, 3 without), then
-    # head dim 128 (mistral-nemo's width) at llama's batch, length and heads
-    timed = [("hymba window 1024", (HYMBA_HEADS, HYMBA_KV), HEAD_DIM, HYMBA_WINDOW),
-             ("hymba global", (HYMBA_HEADS, HYMBA_KV), HEAD_DIM, None),
-             ("hd128", (N_HEADS, N_KV), 128, None)]
-    pos = torch.arange(SERVE_PROMPT, device="cuda")
-    for label, heads, hd, window in timed:
-        q, k, v = qkv(SERVE_BATCH, SERVE_PROMPT, hd, bf16, heads)
+    # hymba's two prefill shapes (29 layers with the window, 3 without), head
+    # dim 128 (mistral-nemo's width) at llama's batch, length and heads, then
+    # this slice's: phi-3-vision's hd 96, qwen3-moe's GQA 64/4 at hd 128, and
+    # seamless's encoder, decoder self and cross attention
+    timed = [("hymba window 1024", (HYMBA_HEADS, HYMBA_KV), HEAD_DIM, S, None, HYMBA_WINDOW,
+              True),
+             ("hymba global", (HYMBA_HEADS, HYMBA_KV), HEAD_DIM, S, None, None, True),
+             ("hd128", (N_HEADS, N_KV), 128, S, None, None, True)]
+    timed += [(label, heads, hd, sq, skv, None, kw["causal"])
+              for label, (sq, skv, hd, heads, kw), _ in NEW_FLASH_CASES]
+    for label, heads, hd, sq, skv, window, causal in timed:
+        q, k, v = qkv(B, sq, hd, bf16, heads, skv)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window))
-        plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True,
+        ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=causal, window=window))
+        plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=causal,
                                                               window=window), reps=5, group=2)
         # sdpa's boolean mask keeps True: causal and inside the window
+        pos = torch.arange(sq, device="cuda")
         mask = None if window is None else (
             (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window))
-        lib = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, is_causal=window is None,
-                                          enable_gqa=True))
-        b = flash_bound(q, k, window)
-        res[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, **b}
-        print(f"time flash_attention {label}: q {tuple(q.shape)} bf16: {ms:.4f} ms "
-              f"(plain {plain_ms:.4f} ms, sdpa {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}: "
+        lib = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                          is_causal=causal and window is None, enable_gqa=True))
+        b = flash_bound(q, k, window, causal)
+        entry = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, **b,
+                 "max_abs_err": errs.get(label), "q": list(q.shape), "kv": list(k.shape),
+                 "causal": causal}
+        if label in {c[0] for c in NEW_FLASH_CASES}:
+            res["cases"][label] = entry
+        else:
+            res[label] = entry
+        print(f"time flash_attention {label}: q {tuple(q.shape)} k {tuple(k.shape)} bf16 "
+              f"{'causal' if causal else 'non-causal'}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"sdpa {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}: "
               f"{b['flops']} flops, {b['bytes']} bytes; {b['flops'] / ms / 1e9:.1f} TFLOP/s, "
               f"{b['bound_ms'] / ms:.1%} of the bound)")
+        del q, k, v, qt, kt, vt
     return res
 
 
-def flash_bound(q, k, window) -> dict:
-    """The least time of causal attention over q and k's shapes: 4 flops per
-    kept (q, k) pair and head dim (QK^T and PV) at the bf16 tensor-core
-    peak, against q, k, v read and o written once at the memory rate."""
-    B, S, H, hd = q.shape
-    pairs = sum(min(i + 1, window or i + 1) for i in range(S))
-    flops = 4 * B * H * hd * pairs
+def flash_bound(q, k, window, causal: bool = True) -> dict:
+    """The least time of attention over q and k's shapes (causal top-left
+    aligned, or not): 4 flops per kept (q, k) pair and head dim (QK^T and
+    PV) at the bf16 tensor-core peak, against q, k, v read and o written
+    once at the memory rate."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+
+    def kept(i):  # keys row i keeps
+        hi = min(i, Skv - 1) if causal else Skv - 1
+        lo = max(0, i - window + 1) if window else 0
+        return max(0, hi - lo + 1)
+
+    flops = 4 * B * H * hd * sum(kept(i) for i in range(Sq))
     io = 2 * (2 * q.numel() + 2 * k.numel())
     ops_ms, bytes_ms = flops / BF16_OPS_PER_S * 1e3, io / MEMORY_RATE * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
@@ -513,7 +590,10 @@ def flash_build_report(backend) -> None:
             func = line.split("'")[1]
         elif func and FLASH_TC_KERNEL in func and ("spill" in line or "Used" in line):
             props.setdefault(func, []).append(line.strip())
-    check(len(props) == 4, f"ptxas reported {len(props)} instantiations of {FLASH_TC_KERNEL}")
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+
+    check(len(props) == len(HEAD_DIMS),
+          f"ptxas reported {len(props)} instantiations of {FLASH_TC_KERNEL}, want {HEAD_DIMS}")
     for func, lines in props.items():
         print(f"ptxas {FLASH_TC_KERNEL} {func.split('ILi')[1].split('E')[0]}:", " | ".join(lines))
         spills = [int(n) for ln in lines for n in re.findall(r"(\d+) bytes spill", ln)]
@@ -588,11 +668,11 @@ def phase_main_path(torch) -> dict:
     return launches, by_route, batches
 
 
-def device_events(torch, prof) -> list:
-    """(device us, name, count) of a profile, largest first. Device-side events
-    only: a host op (aten::copy_) also carries the device time of the copy it
-    launched, and would count it twice."""
-    return sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+def device_events(torch, averages) -> list:
+    """(device us, name, count) of a profile's ``key_averages()``, largest
+    first. Device-side events only: a host op (aten::copy_) also carries the
+    device time of the copy it launched, and would count it twice."""
+    return sorted(((e.self_device_time_total, e.key, e.count) for e in averages
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
 
 
@@ -607,7 +687,7 @@ def phase_profile(torch, batches) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = run_swap_session(batches + batches, blocks=BLOCKS, swap_after=2,
                                device="cuda")
-    dev = device_events(torch, prof)
+    dev = device_events(torch, prof.key_averages())
     busy_s = sum(us for us, _, _ in dev) / 1e6
     print(f"profile: wall {res.seconds:.4f} s, device busy {busy_s:.4f} s, "
           f"idle share {1 - busy_s / res.seconds:.4f}")
@@ -865,11 +945,58 @@ def _since(before: dict) -> dict:
     return {name: n - before[name] for name, n in _counts().items()}
 
 
-def phase_serve(torch, arch: str, n_params: int, tol: float) -> dict:
-    """The serving path of ``arch`` through the launcher's ``main``, with the
-    kernels' counters set to 0 just before and read just after; then the
-    checks and timings on a model built again from the same seed. Returns
-    the counts of the ``main`` run."""
+def _prefill_inputs(torch, cfg, n_tokens: int):
+    """Seeded prompt tokens ``(B, n_tokens)`` and the family's other prefill
+    inputs (patches for vlm, frames of the first SERVE_PROMPT tokens for
+    audio), for the checks on a rebuilt model."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, n_tokens), generator=gen,
+                           device="cuda")
+    extra = {}
+    if cfg.family == "vlm":
+        f = cfg.frontend
+        extra["patches"] = torch.randn((SERVE_BATCH, f.num_positions, f.embed_dim),
+                                       generator=gen, device="cuda").to(torch.bfloat16)
+    if cfg.family == "audio":
+        extra["frames"] = torch.randn(
+            (SERVE_BATCH, SERVE_PROMPT // cfg.encdec.src_ratio, cfg.frontend.embed_dim),
+            generator=gen, device="cuda").to(torch.bfloat16)
+    return tokens, extra
+
+
+def _shape_key(q, k, causal) -> str:
+    """The label of a flash wrapper's ``shape_launches`` key."""
+    return f"q {tuple(q)} k {tuple(k)} {'causal' if causal else 'non-causal'}"
+
+
+class _Routes:
+    """Records the expert ids ``(B*S, k)`` of every ``models.moe.route``
+    call, standing in for the module's name of it."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.module, self.route, self.ids = moe, moe.route, []
+
+    def __call__(self, *args, **kwargs):
+        gates, ids, aux = self.route(*args, **kwargs)
+        self.ids.append(ids)
+        return gates, ids, aux
+
+    def __enter__(self):
+        self.module.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.route
+
+
+def phase_serve(torch, arch: str, n_params: int, tol: float, layers=None) -> dict:
+    """The serving path of ``arch`` (its first ``layers`` layers, where
+    given) through the launcher's ``main``, with the kernels' counters set
+    to 0 just before and read just after; then the checks and timings on a
+    model built again from the same seed. Returns the counts of the ``main``
+    run, with the flash launches by shape under ``"flash by shape"``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -877,52 +1004,72 @@ def phase_serve(torch, arch: str, n_params: int, tol: float) -> dict:
     from repro_torch.models.registry import build
 
     cfg = get_config(arch)
-    hybrid = cfg.family == "hybrid"
+    if layers is not None:
+        cfg = serve.cut_depth(cfg, layers)
+    fam = cfg.family
+    hybrid = fam == "hybrid"
     L = cfg.num_layers
-    # one scan launch per chunk of 256 per layer in prefill, one per layer
-    # and decode step; one flash launch per layer of the prefill
+    # one flash launch per attention of the prefill: one a layer, none in
+    # xlstm, three a decoder layer of the encoder-decoder (encoder, self,
+    # cross, 12 each); one scan launch per chunk of 256 per layer in
+    # prefill, one per layer and decode step
+    flash = {"ssm": 0, "audio": 3 * L}.get(fam, L)
     scans = -(-SERVE_PROMPT // SSM_CHUNK) * L if hybrid else 0
-    want_main = {"flash_attention": L, "ssm_scan_chunk": scans + SERVE_GEN * L * hybrid}
+    want_main = {"flash_attention": flash, "ssm_scan_chunk": scans + SERVE_GEN * L * hybrid}
     argv = ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
             str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
+    if layers is not None:
+        argv += ["--layers", str(layers)]
     print(f"serve {arch}: python -m repro_torch.launch.serve", " ".join(argv))
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in _wrappers().values():
         w.launches = 0
+    flash_fn = _wrappers()["flash_attention"]
+    flash_fn.shape_launches.clear()
     res = serve.main(argv)
     launches = _counts()
-    print(f"serve {arch}: launches {json.dumps(launches)} (want {json.dumps(want_main)}: one "
-          f"flash launch per layer of the prefill and none in decode"
+    by_shape = {_shape_key(*key): n for key, n in flash_fn.shape_launches.items()}
+    print(f"serve {arch}: launches {json.dumps(launches)} (want {json.dumps(want_main)}: "
+          f"{flash} flash launches in the prefill and none in decode"
           + (f"; one scan per {SSM_CHUNK}-token chunk and layer of the prefill, one per "
              f"layer and decode step" if hybrid else "")
-          + f"); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          + f"); flash launches by shape {json.dumps(by_shape)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"({torch.cuda.max_memory_allocated()} bytes)")
     check(launches == want_main, f"serve {arch}: launches {launches}, want {want_main}")
+    check(sum(by_shape.values()) == flash, f"serve {arch}: flash launches by shape {by_shape}")
     check(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_GEN + 1), "generated tokens' shape")
     check(bool(torch.isfinite(res.logits).all()), "non-finite logits")
     print(f"serve {arch} (first call): prefill {res.prefill_s * 1e3:.3f} ms, decode "
           f"{res.decode_ms_per_token:.4f} ms/token, {res.tokens_per_s:.1f} tokens/s")
+    first_tokens = res.tokens
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
 
     model = build(cfg.replace(attn_impl="pallas"), device="cuda", seed=serve.SEED)
     got_params = sum(p.numel() for p in model.parameters())
     check(got_params == n_params, f"{got_params} parameters, want {n_params}")
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1), generator=gen,
-                           device="cuda")
+    tokens, extra = _prefill_inputs(torch, cfg, SERVE_PROMPT + 1)
     prompt = tokens[:, :SERVE_PROMPT]
 
+    moe = fam == "moe"
     n0 = _counts()
-    cache, logits = model.prefill(prompt)
+    with (_Routes() if moe else nullcontext()) as routes:
+        cache, logits = model.prefill(prompt, **extra)
     got = _since(n0)
-    check(got == {"flash_attention": L, "ssm_scan_chunk": scans}, f"one prefill launched {got}")
+    check(got == {"flash_attention": flash, "ssm_scan_chunk": scans},
+          f"one prefill launched {got}")
     # the plain side: dense attention, and the scan's plain version
     model.attn_impl = "xla_dense"
     if hybrid:
         model.ssm_impl = "jnp"
     n0 = _counts()
-    _, logits_plain = model.prefill(prompt)
+    with (_Routes() if moe else nullcontext()) as routes_plain:
+        _, logits_plain = model.prefill(prompt, **extra)
     check(_since(n0) == {"flash_attention": 0, "ssm_scan_chunk": 0},
           "the plain prefill launched a kernel")
     model.attn_impl = "pallas"
@@ -931,32 +1078,64 @@ def phase_serve(torch, arch: str, n_params: int, tol: float) -> dict:
     err = (logits.float() - logits_plain.float()).abs().max().item()
     agree = (logits.argmax(-1) == logits_plain.argmax(-1)).float().mean().item()
     plain = "xla_dense" + (" and the plain scan" if hybrid else "")
+    if fam == "ssm":
+        plain += " (no attention and no kernel on this path: the same computation)"
     print(f"serve {arch} check: prefill logits, kernels vs {plain}: max abs err {err} "
           f"(tolerance {tol}), |logits| max over the real vocab "
           f"{logits[:, :cfg.vocab_size].float().abs().max().item()}, "
           f"argmax agree {agree}")
+    if moe:
+        # the (token, slot) expert ids of the two prefills, per layer: a
+        # near-tie in the top-k can flip under the attention's bf16 rounding
+        check(len(routes.ids) == len(routes_plain.ids) == L,
+              f"{len(routes.ids)} and {len(routes_plain.ids)} routings, want {L} each")
+        pairs = list(zip(routes.ids, routes_plain.ids))
+        shares = [(a == b).float().mean().item() for a, b in pairs]
+        moved = [int((a != b).any(dim=1).sum()) for a, b in pairs]
+        sets = [int((a.sort(dim=1).values != b.sort(dim=1).values).any(dim=1).sum())
+                for a, b in pairs]
+        print(f"serve {arch} routing: share of (token, slot) expert ids the kernel and plain "
+              f"prefills agree on, per layer {shares}; tokens with some slot moved {moved}, "
+              f"tokens whose set of {cfg.moe.top_k} experts changed {sets}, of "
+              f"{routes.ids[0].shape[0]}")
+        del routes, routes_plain, pairs
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     check(err <= tol, f"{arch}: kernel vs plain prefill logits differ by {err}")
 
+    if moe:
+        # decode's capacity at batch 4 is 1 a expert: the reference drops
+        # tokens there, so a decode step is not the last row of a prefill
+        grown = model.grow_cache(cache, 1)
+    elif fam == "audio":
+        # the launcher's growth pads the cross keys too (the reference's
+        # quirk, held to it on the CPU); the check of decode against a
+        # prefill grows the self-attention cache alone
+        grown = dict(model.grow_cache(cache, 1), xk=cache["xk"], xv=cache["xv"])
+    else:
+        grown = model.grow_cache(cache, 1)
     n0 = _counts()
-    _, logits_step = model.decode_step(model.grow_cache(cache, 1), tokens[:, SERVE_PROMPT:])
+    _, logits_step = model.decode_step(grown, tokens[:, SERVE_PROMPT:])
     got = _since(n0)
     check(got == {"flash_attention": 0, "ssm_scan_chunk": L * hybrid},
           f"one decode step launched {got}")
-    _, logits_long = model.prefill(tokens)
-    err = (logits_step.float() - logits_long.float()).abs().max().item()
-    agree = (logits_step.argmax(-1) == logits_long.argmax(-1)).float().mean().item()
-    print(f"serve {arch} check: decode step 1 vs prefill over {SERVE_PROMPT + 1} tokens: max "
-          f"abs err {err} (tolerance {tol}), argmax agree {agree}")
-    check(err <= tol, f"{arch}: decode vs prefill logits differ by {err}")
+    check(bool(torch.isfinite(logits_step).all()), "non-finite decode logits")
+    del grown
+    if not moe:
+        _, logits_long = model.prefill(tokens, **extra)
+        err = (logits_step.float() - logits_long.float()).abs().max().item()
+        agree = (logits_step.argmax(-1) == logits_long.argmax(-1)).float().mean().item()
+        print(f"serve {arch} check: decode step 1 vs prefill over {SERVE_PROMPT + 1} tokens: "
+              f"max abs err {err} (tolerance {tol}), argmax agree {agree}")
+        check(err <= tol, f"{arch}: decode vs prefill logits differ by {err}")
+        del logits_long
 
     # warm timings of the same model, each phase ending in a synchronise
     warm = serve.serve(model, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN)
     print(f"serve {arch} (warm): prefill {warm.prefill_s * 1e3:.3f} ms, decode "
           f"{warm.decode_ms_per_token:.4f} ms/token, {warm.tokens_per_s:.1f} tokens/s")
-    check(torch.equal(warm.tokens, res.tokens), "the same seed served other tokens")
+    check(torch.equal(warm.tokens, first_tokens), "the same seed served other tokens")
 
-    for label, fn in (("prefill", lambda: model.prefill(prompt)),
+    for label, fn in (("prefill", lambda: model.prefill(prompt, **extra)),
                       ("decode x8", lambda: _decode_steps(model, model.grow_cache(cache, 8),
                                                          tokens[:, -1:], 8))):
         torch.cuda.synchronize()
@@ -965,7 +1144,8 @@ def phase_serve(torch, arch: str, n_params: int, tol: float) -> dict:
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        dev = device_events(torch, prof)
+        averages = prof.key_averages()
+        dev = device_events(torch, averages)
         busy = sum(us for us, _, _ in dev) / 1e6
         tag = f"profile serve {arch} {label}"
         print(f"{tag}: wall {wall:.4f} s, device busy {busy:.4f} s, "
@@ -973,11 +1153,18 @@ def phase_serve(torch, arch: str, n_params: int, tol: float) -> dict:
         print(f"{tag}: {sum(c for _, _, c in dev)} device kernels and copies")
         for us, key, count in dev[:8]:
             print(f"{tag}: device {us / 1e3:.3f} ms in {count} x {key[:90]}")
-        host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in prof.key_averages()
+        host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in averages
                        if e.device_type == torch.autograd.DeviceType.CPU), reverse=True)
         for us, key, count in host[:6]:
             print(f"{tag}: host {us / 1e3:.3f} ms in {count} x {key[:90]}")
-    return launches
+        del prof, averages
+    print(f"serve {arch}: peak memory over the phase "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.max_memory_allocated()} bytes)")
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches, **{"flash by shape": by_shape})
 
 
 def _decode_steps(model, cache, tok, n):
@@ -1151,7 +1338,7 @@ def phase_train_one(torch, n_params: int) -> dict:
             tr.run(state, gen, 1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        dev = device_events(torch, prof)
+        dev = device_events(torch, prof.key_averages())
         busy = sum(us for us, _, _ in dev) / 1e6
         tag = "profile train 1 rank, one warm step"
         print(f"{tag}: wall {wall:.4f} s, device busy {busy:.4f} s, idle share "
@@ -1596,6 +1783,8 @@ def main() -> int:
     scan = phase_ssm_scan(torch)
     paths["serve hymba-1.5b"] = phase_serve(torch, "hymba-1.5b", 1_663_080_000,
                                             HYMBA_LOGITS_TOL)
+    for arch, n_params, tol, layers in NEW_SERVE:
+        paths[f"serve {arch}"] = phase_serve(torch, arch, n_params, tol, layers)
     dsum = phase_sum_kernel(torch)
     paths["train 1 rank"] = phase_train_one(torch, 1_235_814_400)
     paths["train 2 ranks"] = phase_train_two(torch)
@@ -1603,10 +1792,11 @@ def main() -> int:
     paths["train hymba"] = phase_train_hymba(torch)
     names = ("quantize_pack", "unpack_dequant", "unpack_dequant_sum", "flash_attention",
              "ssm_scan_chunk")
-    # every path of this slice for every kernel, zeros included; earlier
-    # paths where the kernel ran
+    # every serve and train path for every kernel, zeros included; the
+    # connection and WAN paths where the kernel ran
     by_path = {name: {path: n.get(name, 0) for path, n in paths.items()
-                      if n.get(name) or path.startswith("train")} for name in names}
+                      if n.get(name) or path.startswith(("train", "serve"))}
+               for name in names}
     print("launches by path:", json.dumps(by_path))
     kernels = []
     # the quantize kernels: the numbers at block 256 on top, and each block
@@ -1638,13 +1828,23 @@ def main() -> int:
                     "library_ms": None, "launches_by_path": by_path["unpack_dequant_sum"],
                     "n4": {k: dsum[4][k] for k in ("ms", "plain_ms", "bound_ms", "bytes")}})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches: the count of this slice's path, the hymba serve run
-    for name, source, replaces, r in (
-            ("flash_attention", FLASH_SOURCE, FLASH_REPLACES, flash),
-            ("ssm_scan_chunk", SSM_SOURCE, SSM_REPLACES, scan)):
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": paths["serve hymba-1.5b"][name],
-                        **{k: r[k] for k in keys}, "launches_by_path": by_path[name]})
+    # B3's launches: every serve path's; its numbers at llama's prefill on
+    # top, this slice's shapes under "cases", each with the launches of its
+    # shape over the serve paths. B4's: the hymba serve run's
+    serve_paths = [n for path, n in paths.items() if path.startswith("serve")]
+    for label, c in flash["cases"].items():
+        key = _shape_key(c["q"], c["kv"], c["causal"])
+        c["launches"] = sum(n["flash by shape"].get(key, 0) for n in serve_paths)
+        check(c["launches"] > 0, f"flash case {label}: no serve path launched {key}")
+    kernels.append({"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+                    "replaces": FLASH_REPLACES,
+                    "launches": sum(n["flash_attention"] for n in serve_paths),
+                    **{k: flash[k] for k in keys}, "launches_by_path": by_path["flash_attention"],
+                    "cases": flash["cases"]})
+    kernels.append({"name": "ssm_scan_chunk", "route": "cuda", "source": SSM_SOURCE,
+                    "replaces": SSM_REPLACES,
+                    "launches": paths["serve hymba-1.5b"]["ssm_scan_chunk"],
+                    **{k: scan[k] for k in keys}, "launches_by_path": by_path["ssm_scan_chunk"]})
     check(not THREAD_ERRORS, f"exceptions in threads: {THREAD_ERRORS}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,7 @@
 """Architecture config registry of the port: ``--arch <id>`` resolves here.
 
-The port serves the dense and hybrid families so far; ``base.py`` and the
-five arch modules are copies of the reference's. An arch of another family
-raises ``KeyError`` and says it is not ported yet.
+``base.py`` and the ten arch modules are copies of the reference's; the port
+serves every one of them. An unknown arch raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -22,19 +21,21 @@ _ARCH_MODULES = {
     "granite-34b": "repro_torch.configs.granite_34b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi3_vision_4b",
     "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
 }
 
-#: archs of the reference that the port does not serve yet
-NOT_PORTED = ("qwen3-moe-235b-a22b", "dbrx-132b", "xlstm-125m", "seamless-m4t-medium",
-              "phi-3-vision-4.2b")
+#: archs of the reference that the port does not serve yet: none
+NOT_PORTED: tuple = ()
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def _module(arch: str):
-    if arch in NOT_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported yet; the port serves {sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[arch])

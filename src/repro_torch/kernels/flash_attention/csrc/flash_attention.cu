@@ -29,9 +29,10 @@
 // two buffers, then its K and V tiles through a three-stage ring of
 // mbarriers (full: the bytes landed; empty: both consumers are done), on
 // into the next work tile while the consumers store this one's output.
-// TMA zero-fills past Skv and past a head dim under 64, so every tile is 64
-// columns wide and the kpos < Skv mask still applies. Warpgroups 1 and 2
-// each own 64 q rows and, per key tile (128 keys; 64 at hd 128):
+// TMA zero-fills past Skv and past the head dim, so every box is 64 columns
+// wide (hd 96 takes two, the second half zeros) and the kpos < Skv mask
+// still applies. Warpgroups 1 and 2 each own 64 q rows and, per key tile
+// (128 keys; 64 at hd 96 and 128, whose two-box K/V ring fills shared memory):
 //   - the mask, only on tiles where it can drop a pair (the ragged end of
 //     Skv, the causal diagonal, the window's edge); interior tiles run
 //     unmasked;
@@ -40,10 +41,12 @@
 //   - P rounded to bf16 in place: the accumulator layout of one wgmma is the
 //     register-A layout of the next, so O += P.V runs as wgmma m64n64k16
 //     with A from registers and V MN-major from shared memory, transposed by
-//     the instruction, with no transpose in memory;
+//     the instruction, with no transpose in memory, once per 64-column box
+//     (at hd 96 the second box's last 32 columns are zeros: a quarter of
+//     P.V's products spent on padding, and never stored);
 //   - issued with it, the next tile's S = Q.K^T (wgmma m64n128k16, m64n64k16
-//     at hd 128; Q and K both K-major, only the hd/16 steps that are not
-//     padding), and one wait for both.
+//     at hd 96 and 128; Q and K both K-major, only the hd/16 steps that are
+//     not padding: 6 at hd 96), and one wait for both.
 // Then o = O / max(l, 1e-20), stored in 4-byte pairs, rows past Sq and
 // columns past hd not written. Every wgmma sits on a path all consumers
 // take (one under a branch makes ptxas serialise them all), and an
@@ -55,10 +58,14 @@
 //
 // float32: the SIMT kernel on the float32 CUDA cores (no tensor-core mode
 // meets its 2e-5 tolerance: TF32 keeps 10 mantissa bits). One CTA per
-// (64-row q tile, q head, batch); each query row is owned by TPR = hd/32
-// consecutive lanes (1 for hd <= 32), each holding DPT = min(hd, 32) dims of
-// q and of the accumulator in registers; K and V tiles of 32 keys are staged
-// through shared memory as float32.
+// (64-row q tile, q head, batch); each query row is owned by TPR
+// consecutive lanes, the least power of two (1, 2 or 4) that leaves each
+// lane at most 32 dims, so that the xor shuffles of a dot product stay
+// inside the row's lane group: hd 16 and 32 take 1 lane, 64 two of 32 dims,
+// 128 four of 32, and 96 four of DPT = 24 (three lanes of 32 would not tile
+// a warp). Each lane holds its DPT dims of q and of the accumulator in
+// registers; K and V tiles of 32 keys are staged through shared memory as
+// float32.
 //
 // What bounds it on an H100: operations. Causal prefill at llama3.2-1b's
 // shape (4 x 2048 tokens, 32 heads over 8 KV heads of 64) does 68,753,031,168
@@ -98,15 +105,24 @@ struct Strides {
   long long b, s, h;
 };
 
+// The SIMT route's split of a query row over lanes (the head note).
+template <int HD>
+struct Simt {
+  static constexpr int TPR = HD <= 32 ? 1 : HD <= 64 ? 2 : 4;  // threads per query row
+  static constexpr int DPT = HD / TPR;                           // dims per thread
+  static constexpr int NT = kBlockQ * TPR;
+  static_assert(DPT * TPR == HD && DPT % 4 == 0 && DPT <= 32, "unsupported head dim");
+};
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kBlockQ * (HD > 32 ? HD / 32 : 1))
+__global__ void __launch_bounds__(Simt<HD>::NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
                        int H, int group, Strides qs, Strides ks, Strides vs,
                        int causal, int has_window, long long window, float scale) {
-  constexpr int DPT = HD > 32 ? 32 : HD;  // dims per thread
-  constexpr int TPR = HD / DPT;           // threads per query row
-  constexpr int NT = kBlockQ * TPR;
+  constexpr int DPT = Simt<HD>::DPT;
+  constexpr int TPR = Simt<HD>::TPR;
+  constexpr int NT = Simt<HD>::NT;
   constexpr int SLAB = kBlockK * DPT + 4;  // floats per lane-part slab
   __shared__ __align__(16) float sk[TPR * SLAB];
   __shared__ __align__(16) float sv[TPR * SLAB];
@@ -210,7 +226,7 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
            int H, int KH, Strides qs, Strides ks, Strides vs, int causal, int has_window,
            long long window, float scale, cudaStream_t stream) {
-  constexpr int NT = kBlockQ * (HD > 32 ? HD / 32 : 1);
+  constexpr int NT = Simt<HD>::NT;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   flash_attention_kernel<T, HD><<<grid, NT, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Skv, H, H / KH, qs, ks, vs, causal,
@@ -226,6 +242,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, in
     case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
+    case 96: return launch<T, 96>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -246,8 +263,8 @@ constexpr uint32_t kMaxPolls = 1u << 26;
 
 template <int HD>
 struct Tile {
-  static constexpr int NH = HD > 64 ? HD / 64 : 1;  // 64-column halves of the head dim
-  static constexpr int BK = HD > 64 ? 64 : 128;     // keys per tile
+  static constexpr int NH = (HD + 63) / 64;     // 64-column boxes of the head dim
+  static constexpr int BK = HD > 64 ? 64 : 128;  // keys per tile
   static constexpr int QK_STEPS = HD / 16;          // k16 steps of Q.K^T (padding skipped)
   static constexpr int PV_STEPS = BK / 16;          // k16 steps of P.V
   static constexpr int Q_BYTES = NH * kTcBlockQ * kRowBytes;
@@ -255,6 +272,7 @@ struct Tile {
   // 1024 bytes of slack to align the base for the swizzle, then two Q
   // buffers, the K and V rings, and 4 + 2 * kStages mbarriers
   static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * kStages * KV_BYTES + 8 * (4 + 2 * kStages);
+  static_assert(SMEM <= 232448, "over the 227 KB of shared memory a block can use");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -758,6 +776,7 @@ int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, in
     case 16: return launch_tc<16>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
     case 32: return launch_tc<32>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
     case 64: return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
+    case 96: return launch_tc<96>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
     case 128: return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, KH, qs, ks, vs, causal, has_window, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -770,7 +789,7 @@ int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, in
 // are in elements; o is contiguous (B, Sq, H, hd). Launches on `stream` and
 // returns cudaGetLastError(): a refused launch never runs, and only this
 // reports it. Without launching it returns cudaErrorInvalidValue for a head
-// dim other than 16, 32, 64 or 128, for bf16 tensors that break TMA's
+// dim other than 16, 32, 64, 96 or 128, for bf16 tensors that break TMA's
 // 16-byte rule or whose tensor map the driver refuses, and
 // cudaErrorSymbolNotFound when the driver has no cuTensorMapEncodeTiled.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,

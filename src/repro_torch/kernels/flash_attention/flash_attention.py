@@ -28,11 +28,13 @@ and key positions both start at 0), and a window keeps ``qpos - kpos < window``.
 The wrapper runs the kernel on CUDA tensors and ``flash_attention_ref`` on
 CPU tensors, and raises on anything else, on a dtype other than bfloat16 or
 float32, on a head dim the kernel was not built for, and on bf16 tensors
-that TMA cannot read. ``launches`` on the wrapper counts kernel launches.
+that TMA cannot read. ``launches`` on the wrapper counts kernel launches,
+and ``shape_launches`` counts them by (q shape, k shape, causal).
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -41,8 +43,9 @@ from repro_torch import backend
 
 NEG_INF = -1e30
 #: head dims the kernel is instantiated for (the reference's test sweep,
-#: llama3.2-1b's 64 and mistral-nemo's 128)
-HEAD_DIMS = (16, 32, 64, 128)
+#: llama3.2-1b's and seamless-m4t's 64, phi-3-vision's 96, mistral-nemo's
+#: and qwen3-moe's 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 DTYPES = (torch.bfloat16, torch.float32)
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
@@ -141,7 +144,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             hd**-0.5, torch.cuda.current_stream().cuda_stream)
     backend.check_launch("flash_attention", err)
     flash_attention.launches += 1
+    flash_attention.shape_launches[(tuple(q.shape), tuple(k.shape), bool(causal))] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.shape_launches = Counter()

@@ -4,23 +4,35 @@
       --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \\
+      --layers 3 --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --batch 2 --prompt-len 32 --gen 4
 
-The counterpart of ``src/repro/launch/serve.py`` for the dense and hybrid
-families. It serves parameters drawn from seed 0 (the reference serves its
-random init from ``PRNGKey(0)``) on ``--device`` (``cuda`` by default, which
-raises without a GPU), with attention in prefill by ``--attn-impl``
-(``pallas``, the Hopper flash-attention kernel, by default); the hybrid
-family's SSM layers scan with the Hopper SSM-scan kernel. The prompt tokens
-come from a ``torch.Generator`` seeded with 0. After prefill the model grows
-its cache by ``gen + 1`` positions, as in the reference (the hybrid family
-grows only its global layers' K/V). The last line printed gives prefill ms,
-decode ms per token and the first row of generated tokens.
+The counterpart of ``src/repro/launch/serve.py``, for every family. It
+serves parameters drawn from seed 0 (the reference serves its random init
+from ``PRNGKey(0)``) on ``--device`` (``cuda`` by default, which raises
+without a GPU), with attention in prefill by ``--attn-impl`` (``pallas``,
+the Hopper flash-attention kernel, by default: every prefill attention of
+the dense, moe, vlm, hybrid and audio families); the hybrid family's SSM
+layers scan with the Hopper SSM-scan kernel. ``--layers N`` serves the
+first N layers of the published config (a cut of depth, for a model whose
+weights exceed one card; each stack of the encoder-decoder).
+
+The batch is the reference launcher's, drawn from a ``torch.Generator``
+seeded with 0: the prompt tokens, then for vlm the patch embeddings
+``patches`` ``(B, P, E)`` and for audio the frame embeddings ``frames``
+``(B, max(1, S // src_ratio), E)``, standard normals in bfloat16. After
+prefill the model grows its cache by ``gen + 1`` positions as the reference
+does: every K/V leaf (the encoder-decoder's cross caches too), only the
+global layers' K/V of the hybrid family, nothing of xlstm's state. The last
+line printed gives prefill ms, decode ms per token and the first row of
+generated tokens.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -28,9 +40,9 @@ from typing import List, Optional
 import torch
 
 from repro_torch import backend
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ShapeConfig, get_config, get_smoke_config
 from repro_torch.models.attention import IMPLS
-from repro_torch.models.registry import build
+from repro_torch.models.registry import build, serve_batch_specs
 
 SEED = 0
 
@@ -61,18 +73,41 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def serve_batch(cfg, batch: int, prompt_len: int, dev: torch.device):
+    """The prompt tokens ``(B, S)`` and the family's other prefill inputs
+    (``patches`` for vlm, ``frames`` for audio: ``serve_batch_specs``),
+    standard normals, from a generator seeded with ``SEED``."""
+    specs = serve_batch_specs(cfg, ShapeConfig("serve", prompt_len, batch, "prefill"))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, specs["tokens"][0], generator=g, device=dev)
+    extra = {name: torch.randn(shape, generator=g, device=dev).to(dtype)
+             for name, (shape, dtype) in specs.items() if name not in ("tokens", "labels")}
+    return tokens, extra
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` with its first ``layers`` layers (both stacks of an
+    encoder-decoder)."""
+    if cfg.family == "hybrid":
+        raise ValueError("--layers would move the hybrid family's global layers; "
+                         "serve it at full depth")
+    if cfg.family == "audio":
+        return cfg.replace(num_layers=layers, encdec=dataclasses.replace(
+            cfg.encdec, enc_layers=layers, dec_layers=layers))
+    return cfg.replace(num_layers=layers)
+
+
 def serve(model, *, batch: int, prompt_len: int, gen: int) -> ServeResult:
-    """Prefill ``batch`` seeded prompts of ``prompt_len`` tokens, then
-    ``gen`` greedy decode steps; times on the host clock, each phase ending in
-    a device synchronise."""
+    """Prefill ``batch`` seeded prompts of ``prompt_len`` tokens (with the
+    family's seeded patches or frames), then ``gen`` greedy decode steps;
+    times on the host clock, each phase ending in a device synchronise."""
     if gen < 1:
         raise ValueError("gen must be at least 1")
     cfg, dev = model.cfg, model.device
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev)
+    tokens, extra = serve_batch(cfg, batch, prompt_len, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    cache, logits = model.prefill(tokens)
+    cache, logits = model.prefill(tokens, **extra)
     _sync(dev)
     t_pre = time.perf_counter() - t0
 
@@ -102,10 +137,14 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--attn-impl", default="pallas", choices=IMPLS)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers (a cut of depth)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(attn_impl=args.attn_impl)
+    if args.layers is not None:
+        cfg = cut_depth(cfg, args.layers)
     dev = backend.resolve_device(args.device)
     model = build(cfg, device=dev, seed=SEED)
     res = serve(model, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen)

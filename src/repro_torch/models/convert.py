@@ -1,10 +1,13 @@
 """Parameters carried across from the reference's models into the port's.
 
 ``params_from_reference`` takes the reference's parameter tree as nested
-dicts of numpy arrays (``np.asarray`` of each leaf of ``model.init(...)``),
-layers stacked on a leading axis as ``stacking.stacked_init`` makes them,
-and fills the port's model of the same config with them. It raises on any
-leaf it did not use and on any parameter of the port it did not fill.
+dicts and lists of numpy arrays (``np.asarray`` of each leaf of
+``model.init(...)``), and fills the port's model of the same config with
+them. The stacks of the model's ``stacks()`` (``layers``; ``encoder`` and
+``decoder`` for the encoder-decoder) hold their layers on a leading axis, as
+``stacking.stacked_init`` makes them; a list of layers (xlstm's) is walked by
+index (``layers.{i}.<leaf>``). It raises on any leaf it did not use and on
+any parameter of the port it did not fill.
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.registry import model_class
 
 
-def flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
-    """(dotted path, leaf) for every leaf of a nested dict."""
-    for key, val in tree.items():
+def flatten(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    """(dotted path, leaf) for every leaf of nested dicts and lists (a list
+    item's key is its index)."""
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for key, val in items:
         path = f"{prefix}{key}"
-        if isinstance(val, Mapping):
+        if isinstance(val, (Mapping, list, tuple)):
             yield from flatten(val, path + ".")
         else:
             yield path, val
@@ -38,17 +43,17 @@ def params_from_reference(params: Mapping, cfg: ModelConfig, *, device="cuda"):
 def fill_from_reference(model, params: Mapping):
     """``model``'s parameters set from the reference's tree ``params``, in
     place; returns the model."""
-    cfg = model.cfg
+    stacks = model.stacks()
     named = dict(model.named_parameters())
     filled, unused = set(), []
     for path, leaf in flatten(params):
         arr = np.asarray(leaf, dtype=np.float32)
-        if path.startswith("layers."):
-            if arr.shape[:1] != (cfg.num_layers,):
-                raise ValueError(f"{path}: leading axis {arr.shape[:1]}, "
-                                 f"want the {cfg.num_layers} layers")
-            rest = path[len("layers."):]
-            targets = [(f"layers.{i}.{rest}", arr[i]) for i in range(cfg.num_layers)]
+        head, _, rest = path.partition(".")
+        if head in stacks:
+            n = stacks[head]
+            if arr.shape[:1] != (n,):
+                raise ValueError(f"{path}: leading axis {arr.shape[:1]}, want the {n} layers")
+            targets = [(f"{head}.{i}.{rest}", arr[i]) for i in range(n)]
         else:
             targets = [(path, arr)]
         if any(name not in named for name, _ in targets):

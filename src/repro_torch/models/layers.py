@@ -64,7 +64,13 @@ class Linear(nn.Module):
     def release(self) -> None:
         self.w16 = self.b16 = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = COMPUTE) -> torch.Tensor:
+        """``dtype=torch.float32`` multiplies the float32 weight in float32
+        (the reference's ``linear(..., dtype=jnp.float32)``, xlstm's gates);
+        TF32 stays off, PyTorch's default."""
+        if dtype == torch.float32:
+            y = x.float() @ self.w
+            return y if self.b is None else y + self.b
         if self.w16 is None:  # training: cast inside the graph
             y = x.to(COMPUTE) @ self.w.to(COMPUTE)
             return y if self.b is None else y + self.b.to(COMPUTE)

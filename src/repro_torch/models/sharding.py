@@ -266,10 +266,11 @@ class NamedSharding:
         return f"NamedSharding({self.mesh.shape}, {self.spec})"
 
 
-def per_layer(spec_tree: Mapping, num_layers: int) -> Dict[str, P]:
+def per_layer(spec_tree: Mapping, stacks: Mapping[str, int]) -> Dict[str, P]:
     """The port's parameter names -> specs, from the spec tree of
-    ``stacking.stack_layers``' layout: a stacked layer leaf's spec without
-    its leading (layer) entry for each ``layers.{i}.<leaf>``."""
+    ``stacking.stack_layers``' layout over ``stacks`` (a model's
+    ``stacks()``): a stacked layer leaf's spec without its leading (layer)
+    entry for each ``<prefix>.{i}.<leaf>``."""
     from repro_torch.models.stacking import unstack_layers
 
     class _Stacked:  # indexed by layer as unstack_layers indexes a stacked leaf
@@ -279,7 +280,7 @@ def per_layer(spec_tree: Mapping, num_layers: int) -> Dict[str, P]:
         def __getitem__(self, i):
             return P(*self.spec[1:])
 
-    out = unstack_layers(T.map(_Stacked, spec_tree), num_layers)
+    out = unstack_layers(T.map(_Stacked, spec_tree), stacks)
     return {n: s.spec if isinstance(s, _Stacked) else s for n, s in out.items()}
 
 

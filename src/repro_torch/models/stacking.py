@@ -1,5 +1,5 @@
-"""Layer stacking: the parts of ``src/repro/models/stacking.py`` the dense
-family's training forward uses.
+"""Layer stacking: the parts of ``src/repro/models/stacking.py`` the port
+uses.
 
 ``apply_stack`` runs ``x`` through the layers one by one (the reference's
 ``scan`` has no counterpart: the port unrolls), each under
@@ -9,9 +9,13 @@ sharded model (``sharding.Layout``): each layer's parameters are gathered
 from their shards just for that layer's body.
 
 ``stack_layers``/``unstack_layers`` move between the port's per-layer
-parameters, named ``layers.{i}.<leaf>``, and the reference's tree, where each
+parameters, named ``<stack>.{i}.<leaf>``, and the reference's tree, where each
 layer leaf is stacked on a leading layer axis and dicts nest by name: the
-tree the gradient transports flatten, in the reference's leaf order.
+tree the gradient transports flatten, in the reference's leaf order. A
+model's ``stacks()`` names its stacks: ``layers`` for most families,
+``encoder`` and ``decoder`` for the encoder-decoder, none for xlstm, whose
+unlike layers the reference keeps as a list (``layers.{i}.<leaf>`` nests as
+``layers[i]``).
 """
 from __future__ import annotations
 
@@ -53,7 +57,9 @@ def apply_stack(layers: Sequence[torch.nn.Module], x: torch.Tensor, body: Callab
 
 
 def _nest(flat: Mapping[str, object]) -> dict:
-    """Dotted names -> nested dicts."""
+    """Dotted names -> nested dicts; a dict whose keys are exactly
+    ``0 .. n-1`` becomes a list (layers the reference keeps unstacked, as
+    xlstm's, are a list there)."""
     out: dict = {}
     for name, leaf in flat.items():
         node = out
@@ -61,41 +67,55 @@ def _nest(flat: Mapping[str, object]) -> dict:
         for k in head:
             node = node.setdefault(k, {})
         node[last] = leaf
-    return out
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(out)
 
 
-def stack_layers(named: Mapping[str, torch.Tensor], num_layers: int,
+def stack_layers(named: Mapping[str, torch.Tensor], stacks: Mapping[str, int],
                  stack: Callable = torch.stack) -> dict:
-    """The reference's tree of ``named`` (``layers.{i}.<leaf>`` for each
-    layer, other names as they are): layer leaves stacked by ``stack`` on a
-    leading axis of ``num_layers``."""
+    """The reference's tree of ``named``: for each ``prefix -> count`` of
+    ``stacks`` (a model's ``stacks()``), the leaves ``prefix.{i}.<leaf>``
+    of its ``count`` layers stacked by ``stack`` on a leading axis as
+    ``prefix.<leaf>``; other names as they are, numbered ones (an unstacked
+    list of layers) nested as lists."""
     flat: Dict[str, object] = {}
-    per_leaf: Dict[str, list] = {}
+    per_leaf: Dict[tuple, list] = {}
     for name, t in named.items():
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            per_leaf.setdefault(rest, [None] * num_layers)[int(i)] = t
+        prefix, _, tail = name.partition(".")
+        if prefix in stacks:
+            i, rest = tail.split(".", 1)
+            per_leaf.setdefault((prefix, rest), [None] * stacks[prefix])[int(i)] = t
         else:
             flat[name] = t
-    for rest, ts in per_leaf.items():
+    for (prefix, rest), ts in per_leaf.items():
         if any(t is None for t in ts):
-            raise ValueError(f"layers.*.{rest}: not every layer has it")
-        flat[f"layers.{rest}"] = stack(ts)
+            raise ValueError(f"{prefix}.*.{rest}: not every layer has it")
+        flat[f"{prefix}.{rest}"] = stack(ts)
     return _nest(flat)
 
 
-def unstack_layers(tree: Mapping, num_layers: int, prefix: str = "") -> Dict[str, torch.Tensor]:
+def unstack_layers(tree, stacks: Mapping[str, int], prefix: str = "") -> Dict[str, torch.Tensor]:
     """``stack_layers``'s inverse: dotted names -> tensors, each layer's a
     view of its stacked leaf."""
     out: Dict[str, torch.Tensor] = {}
-    for k, v in tree.items():
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for k, v in items:
         name = f"{prefix}{k}"
-        if isinstance(v, Mapping):
-            out.update(unstack_layers(v, num_layers, name + "."))
-        elif name.startswith("layers."):
-            rest = name[len("layers."):]
-            for i in range(num_layers):
-                out[f"layers.{i}.{rest}"] = v[i]
+        if isinstance(v, (Mapping, list, tuple)):
+            out.update(unstack_layers(v, stacks, name + "."))
+            continue
+        head, _, rest = name.partition(".")
+        if head in stacks:
+            for i in range(stacks[head]):
+                out[f"{head}.{i}.{rest}"] = v[i]
         else:
             out[name] = v
     return out

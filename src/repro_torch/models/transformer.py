@@ -1,4 +1,5 @@
-"""Dense GQA transformer LM (llama / qwen / mistral / granite).
+"""Dense GQA transformer LM (llama / qwen / mistral / granite), and the vlm
+family (phi-3-vision) that serves through it.
 
 The counterpart of ``src/repro/models/transformer.py``. Training:
 ``DenseLM.hidden_states(tokens)`` and ``DenseLM.loss(batch)`` (the
@@ -8,11 +9,15 @@ graph; each layer is recomputed in backward under ``cfg.remat = "full"``.
 A model sharded over a mesh (:meth:`DenseLM.shard`) holds only its rank's
 block of each parameter and gathers the full tensors for the training
 forward (``sharding.Layout``); its code paths are the full-shape ones.
-Serving: ``DenseLM.prefill(tokens) -> (cache, logits_last)`` and
-``DenseLM.decode_step(cache, tokens) -> (cache, logits)``, with the
+Serving: ``DenseLM.prefill(tokens, patches=None) -> (cache, logits_last)``
+and ``DenseLM.decode_step(cache, tokens) -> (cache, logits)``, with the
 reference's KV cache ``{"k", "v"}: (L, B, S, KH, hd)`` bfloat16 plus ``"len"``
 (here a Python int). The loop over ``layers`` threads each layer's cache as
-``stacking.apply_stack_with_cache`` does on one device.
+``stacking.apply_stack_with_cache`` does on one device. ``VlmLM`` is the
+vlm family's row of the reference's table: the dense model, whose prefill
+takes the frontend's ``patches`` ``(B, P, D)`` over the first P token
+embeddings (the reference's ``_VLM`` shares ``transformer.prefill``, which
+reads ``batch["patches"]``).
 
 Parameter names follow the reference's tree (``embed.table``,
 ``layers.{i}.attn.wq.w``, ``final_norm.scale``, ...) so that
@@ -108,8 +113,7 @@ class DenseLM(nn.Module):
         self.cfg = cfg
         self.attn_impl = cfg.attn_impl
         self.embed = Embedding(cfg.vocab_padded, cfg.d_model, device=device)
-        self.layers = nn.ModuleList(self.LAYER(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(self._layer(i, device) for i in range(cfg.num_layers))
         self.final_norm = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, device=device)
         self.lm_head = (None if cfg.tie_embeddings
                         else Linear(cfg.d_model, cfg.vocab_padded, device=device))
@@ -117,6 +121,15 @@ class DenseLM(nn.Module):
         if generator is not None:
             self.init_weights(generator)
             self.prepare()
+
+    def _layer(self, idx: int, device) -> nn.Module:
+        """Layer ``idx``'s module (a family with unlike layers overrides it)."""
+        return self.LAYER(self.cfg, device=device)
+
+    def stacks(self) -> dict:
+        """Prefix -> count of the per-layer parameters that the reference
+        stacks on a leading axis (``stacking.stack_layers``)."""
+        return {"layers": self.cfg.num_layers}
 
     def init_weights(self, generator: torch.Generator) -> "DenseLM":
         """Draw every parameter from the reference's distributions."""
@@ -129,9 +142,11 @@ class DenseLM(nn.Module):
         return self
 
     def prepare(self) -> "DenseLM":
-        """Make the bfloat16 copies the serving forward multiplies with."""
+        """Make the bfloat16 copies the serving forward multiplies with (of
+        every submodule that keeps some: ``Linear``, ``Embedding``, the MoE
+        expert banks)."""
         for m in self.modules():
-            if isinstance(m, (Linear, Embedding)):
+            if m is not self and hasattr(m, "prepare"):
                 m.prepare()
         return self
 
@@ -139,7 +154,7 @@ class DenseLM(nn.Module):
         """Drop the serving copies, for training: every forward then casts
         the float32 weights inside the graph."""
         for m in self.modules():
-            if isinstance(m, (Linear, Embedding)):
+            if m is not self and hasattr(m, "release"):
                 m.release()
         return self
 
@@ -175,10 +190,21 @@ class DenseLM(nn.Module):
         h = x + layer.attn.wo(o.reshape(B, S, -1))
         return h + layer.mlp(layer.ln2(h))
 
+    def _check_trained(self) -> None:
+        """Raise unless the port trains this model's family: the serving-only
+        families inherit this training forward but not its layer body."""
+        from repro_torch.models.registry import TRAINED
+
+        if self.FAMILY not in TRAINED:
+            raise NotImplementedError(
+                f"training the {self.FAMILY!r} family is not ported (ROADMAP §A item 7b); "
+                f"the port trains {TRAINED}")
+
     def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> final hidden states (B, S, D), bfloat16. A sharded
         model gathers each layer's parameters for its body; the caller
         gathers the embedding and the final norm (``loss`` does)."""
+        self._check_trained()
         cfg = self.cfg
         x = self.embed(tokens)
         rope = rope_cos_sin(torch.arange(tokens.shape[1], device=x.device), cfg.head_dim_,
@@ -197,6 +223,7 @@ class DenseLM(nn.Module):
     def loss(self, batch: dict, *, loss_chunk: Optional[int] = None) -> torch.Tensor:
         """The mean next-token cross-entropy of ``batch`` (``tokens``,
         ``labels``: (B, S) integers)."""
+        self._check_trained()
         cfg = self.cfg
         if self.embed.table16 is not None:
             raise RuntimeError("the model holds its serving copies; release() it to train")
@@ -231,13 +258,21 @@ class DenseLM(nn.Module):
                 "v": torch.zeros(shape, dtype=COMPUTE, device=self.device),
                 "len": 0}
 
+    def _ffn(self, layer: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        """The serving layer's feed-forward branch on the residual ``h``."""
+        return layer.mlp(layer.ln2(h))
+
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor):
-        """Process the whole prompt ``(B, S)``; return the cache of its S
-        positions and the last position's logits ``(B, vocab_padded)``."""
+    def prefill(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None):
+        """Process the whole prompt ``(B, S)`` (its first P embeddings
+        replaced by ``patches`` ``(B, P, D)`` where given); return the cache
+        of its S positions and the last position's logits
+        ``(B, vocab_padded)``."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embed(tokens)
+        if patches is not None:
+            x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
         rope = rope_cos_sin(torch.arange(S, device=x.device), cfg.head_dim_, cfg.rope_theta)
         ks, vs = [], []
         for layer in self.layers:
@@ -245,7 +280,7 @@ class DenseLM(nn.Module):
             o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                                window=cfg.sliding_window, chunk=cfg.attn_chunk)
             x = x + layer.attn.wo(o.reshape(B, S, -1))
-            x = x + layer.mlp(layer.ln2(x))
+            x = x + self._ffn(layer, x)
             ks.append(k.to(COMPUTE))
             vs.append(v.to(COMPUTE))
         x = self.final_norm(x)
@@ -278,7 +313,7 @@ class DenseLM(nn.Module):
             o = attn.decode_attention_local(q, cache["k"][i], cache["v"][i], pos + 1,
                                             window=cfg.sliding_window)
             x = x + layer.attn.wo(o.reshape(B, 1, -1))
-            x = x + layer.mlp(layer.ln2(x))
+            x = x + self._ffn(layer, x)
         x = self.final_norm(x)
         return {"k": cache["k"], "v": cache["v"], "len": pos + 1}, self._logits(x[:, -1])
 
@@ -288,3 +323,11 @@ def grow_cache(cache: dict, extra: int) -> dict:
     pad = (0, 0, 0, 0, 0, extra)
     return {"k": torch.nn.functional.pad(cache["k"], pad),
             "v": torch.nn.functional.pad(cache["v"], pad), "len": cache["len"]}
+
+
+class VlmLM(DenseLM):
+    """The vlm family's model (phi-3-vision): the dense model, served with
+    the frontend's patch embeddings (``prefill(tokens, patches)``); decode is
+    the dense decode."""
+
+    FAMILY = "vlm"

@@ -1,0 +1,249 @@
+"""xLSTM LM (sLSTM + mLSTM blocks, arXiv:2405.04517): the serving path.
+
+The counterpart of ``src/repro/models/xlstm.py`` (family ``ssm``).
+
+mLSTM: a matrix-memory cell, chunkwise parallel (the gated linear attention
+form):
+    C_t = f_t C_{t-1} + i_t v_t k_t^T ;  n_t = f_t n_{t-1} + i_t k_t
+    h_t = (C_t q_t) / max(|n_t . q_t|, 1)
+over chunks of ``min(chunk_size, S)`` positions (so decode runs chunk 1);
+a ragged tail is padded with logf = 0, f = 1, which keeps the carry.
+sLSTM: a scalar-memory cell with a true sequential recurrence, a loop over
+time. The gates are bounded sigmoids, as in the reference (its numerics
+note).
+
+Layers differ (``is_slstm``): every ``slstm_every``-th is an sLSTM block, the
+others mLSTM, so they are a list, named ``layers.{i}.<leaf>`` and never
+stacked (``stacks()`` is empty), as the reference keeps them
+(``init_params``: "heterogeneous: kept as a list"). There is no KV cache:
+the state is ``{"layers": [{"C", "n"} | {"c", "n", "h"}, ...], "len"}``,
+float32, and generation needs no growth. The gate products run in float32
+(``Linear(..., dtype=torch.float32)``, the reference's
+``L.linear(..., dtype=jnp.float32)``); the rest in bfloat16. This family
+runs no kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import MLP, Linear, Norm, truncated_normal_
+from repro_torch.models.transformer import DenseLM
+
+F32 = torch.float32
+
+
+def is_slstm(i: int, cfg: ModelConfig) -> bool:
+    every = cfg.xlstm.slstm_every if cfg.xlstm else 2
+    return (i % every) == every - 1
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+class MLSTM(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim_
+        self.ln = Norm(D, cfg.norm, cfg.norm_eps, device=device)
+        self.wq = Linear(D, H * hd, device=device)
+        self.wk = Linear(D, H * hd, device=device)
+        self.wv = Linear(D, H * hd, device=device)
+        self.wi = Linear(D, H, bias=True, device=device)
+        self.wf = Linear(D, H, bias=True, device=device)
+        self.wo_gate = Linear(D, H * hd, device=device)
+        self.wo = Linear(H * hd, D, device=device)
+
+    def init(self, gen: torch.Generator) -> None:
+        self.ln.init()
+        for lin in (self.wq, self.wk, self.wv, self.wi, self.wf, self.wo_gate, self.wo):
+            lin.init(gen)
+
+
+def mlstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
+    H, hd = cfg.num_heads, cfg.head_dim_
+    return {"C": torch.zeros((batch, H, hd, hd), dtype=F32, device=device),
+            "n": torch.zeros((batch, H, hd), dtype=F32, device=device)}
+
+
+def _mlstm_chunk(q, k, v, i, logf, C0, n0):
+    """One chunk of the chunkwise-parallel mLSTM.
+
+    q, k, v ``(B, C, H, hd)``; i ``(B, C, H)`` the input gate in [0, 1]; logf
+    ``(B, C, H)`` <= 0; C0 ``(B, H, hd, hd)``; n0 ``(B, H, hd)``. Returns
+    (h ``(B, C, H, hd)``, C1, n1), all float32."""
+    Cn, hd = q.shape[1], q.shape[3]
+    q = q.float() * hd**-0.5
+    k, v = k.float(), v.float()
+    Fc = torch.cumsum(logf, dim=1)  # (B, C, H) cumulative log-forget within the chunk
+    # intra-chunk: D[j, u] = exp(F_j - F_u) * i_u for u <= j
+    Dmat = torch.exp(Fc[:, :, None, :] - Fc[:, None, :, :])  # (B, j, u, H)
+    causal = torch.ones(Cn, Cn, dtype=torch.bool, device=q.device).tril()
+    Dmat = torch.where(causal[None, :, :, None], Dmat * i[:, None, :, :],
+                       torch.zeros((), dtype=F32, device=q.device))
+    sv = torch.einsum("bjhd,buhd->bjuh", q, k) * Dmat
+    h_intra = torch.einsum("bjuh,buhd->bjhd", sv, v)
+    # inter-chunk: the carry C0, n0 decayed to each position
+    decay = torch.exp(Fc)  # (B, C, H)
+    h_inter = torch.einsum("bjh,bhde,bjhd->bjhe", decay, C0, q)
+    n_inter = torch.einsum("bjh,bhd,bjhd->bjh", decay, n0, q)
+    # the normaliser: n_j . q_j = sum_u D[j, u] (k_u . q_j)
+    denom = torch.clamp_min(torch.abs(sv.sum(dim=2) + n_inter), 1.0)
+    h = (h_intra + h_inter) / denom[..., None]
+    # carry updates
+    last = torch.exp(Fc[:, -1])  # (B, H)
+    w_u = torch.exp(Fc[:, -1:, :] - Fc) * i  # (B, C, H): decay from u to the chunk's end
+    C1 = last[:, :, None, None] * C0 + torch.einsum("buh,buhd,buhe->bhde", w_u, k, v)
+    n1 = last[:, :, None] * n0 + torch.einsum("buh,buhd->bhd", w_u, k)
+    return h, C1, n1
+
+
+def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, state: Optional[dict] = None, *,
+                chunk: Optional[int] = None):
+    """x ``(B, S, D)`` -> (x + the block's output, new state)."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim_
+    chunk = min(chunk or (cfg.xlstm.chunk_size if cfg.xlstm else 64), S)
+    state = state if state is not None else mlstm_state(B, cfg, x.device)
+
+    xn = p.ln(x)
+    q = p.wq(xn).reshape(B, S, H, hd)
+    k = p.wk(xn).reshape(B, S, H, hd)
+    v = p.wv(xn).reshape(B, S, H, hd)
+    i = torch.sigmoid(p.wi(xn, dtype=F32))
+    logf = F.logsigmoid(p.wf(xn, dtype=F32))
+    pad = (-S) % chunk
+    if pad:  # zeros; logf = 0 (f = 1) keeps the carry through the padding
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        i, logf = (F.pad(t, (0, 0, 0, pad)) for t in (i, logf))
+    C, n = state["C"], state["n"]
+    hs = []
+    for c0 in range(0, S + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        h, C, n = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], i[:, sl], logf[:, sl], C, n)
+        hs.append(h)
+    h = torch.cat(hs, dim=1)[:, :S]
+    o = torch.sigmoid(p.wo_gate(xn, dtype=F32)).reshape(B, S, H, hd)
+    y = (h * o).to(x.dtype).reshape(B, S, H * hd)
+    return x + p.wo(y), {"C": C, "n": n}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+class SLSTM(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D = cfg.d_model
+        self.ln = Norm(D, cfg.norm, cfg.norm_eps, device=device)
+        self.wz = Linear(D, D, bias=True, device=device)
+        self.wi = Linear(D, D, bias=True, device=device)
+        self.wf = Linear(D, D, bias=True, device=device)
+        self.wo_gate = Linear(D, D, bias=True, device=device)
+        #: the diagonal recurrence of the z, i, f and o gates
+        self.r = nn.Parameter(torch.empty((4, D), dtype=F32, device=device))
+        self.ln2 = Norm(D, cfg.norm, cfg.norm_eps, device=device)
+        self.ffn = MLP(D, int(D * 4 / 3), gated=True, act=cfg.act, device=device)
+
+    def init(self, gen: torch.Generator) -> None:
+        self.ln.init()
+        self.ln2.init()
+        for lin in (self.wz, self.wi, self.wf, self.wo_gate):
+            lin.init(gen)
+        truncated_normal_(self.r, 0.02, gen)
+        self.ffn.init(gen)
+
+
+def slstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
+    z = torch.zeros((batch, cfg.d_model), dtype=F32, device=device)
+    return {"c": z, "n": z + 1e-6, "h": z.clone()}
+
+
+def slstm_apply(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: Optional[dict] = None):
+    """The sequential recurrence over time (the paper: sLSTM does not
+    parallelise), then the block's gated MLP."""
+    B, S, _ = x.shape
+    state = state if state is not None else slstm_state(B, cfg, x.device)
+    xn = p.ln(x)
+    # every step's input contributions, float32, gates stacked (B, S, 4, D)
+    pre = torch.stack([lin(xn, dtype=F32) for lin in (p.wz, p.wi, p.wf, p.wo_gate)], dim=2)
+    c, n, h = state["c"], state["n"], state["h"]
+    hs = []
+    for t in range(S):
+        g = pre[:, t] + p.r * h[:, None]  # (B, 4, D)
+        z = torch.tanh(g[:, 0])
+        ifo = torch.sigmoid(g[:, 1:])
+        c = ifo[:, 1] * c + ifo[:, 0] * z
+        n = ifo[:, 1] * n + ifo[:, 0]
+        h = ifo[:, 2] * c / torch.clamp_min(n, 1e-6)
+        hs.append(h)
+    x = x + torch.stack(hs, dim=1).to(x.dtype)
+    x = x + p.ffn(p.ln2(x))
+    return x, {"c": c, "n": n, "h": h}
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+
+class XlstmLM(DenseLM):
+    """The ssm family's model: ``DenseLM``'s embedding, final norm, head,
+    parameter drawing and serving copies, with xlstm's list of unlike
+    blocks and its recurrent state in place of a KV cache."""
+
+    FAMILY = "ssm"
+
+    def _layer(self, idx: int, device) -> nn.Module:
+        return (SLSTM if is_slstm(idx, self.cfg) else MLSTM)(self.cfg, device=device)
+
+    def stacks(self) -> dict:
+        return {}  # the layers stay a list, as the reference keeps them
+
+    def init_state(self, batch: int) -> dict:
+        make = lambda i: (slstm_state if is_slstm(i, self.cfg) else mlstm_state)(  # noqa: E731
+            batch, self.cfg, self.device)
+        return {"layers": [make(i) for i in range(self.cfg.num_layers)], "len": 0}
+
+    def init_cache(self, batch: int, capacity: int) -> dict:
+        """The state (a recurrent model keeps no positions: ``capacity`` is
+        not read)."""
+        return self.init_state(batch)
+
+    def forward(self, tokens: torch.Tensor, state: Optional[dict] = None):
+        """tokens ``(B, S)`` from ``state`` (the zero state where None) ->
+        (the final hidden states ``(B, S, D)``, each layer's new state)."""
+        x = self.embed(tokens)
+        states = []
+        for idx, layer in enumerate(self.layers):
+            st = state["layers"][idx] if state is not None else None
+            apply = slstm_apply if is_slstm(idx, self.cfg) else mlstm_apply
+            x, st = apply(layer, x, self.cfg, st)
+            states.append(st)
+        return self.final_norm(x), states
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor):
+        """The whole prompt ``(B, S)`` from the zero state; returns the state
+        after it and the last position's logits ``(B, vocab_padded)``."""
+        h, states = self(tokens)
+        return {"layers": states, "len": tokens.shape[1]}, self._logits(h[:, -1])
+
+    def grow_cache(self, cache: dict, extra: int) -> dict:
+        """The state as it is: a recurrent model needs no room to generate."""
+        return cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """One token per row, ``tokens`` ``(B, 1)``, from the state (mLSTM at
+        chunk 1); returns the new state (new tensors) and the logits."""
+        h, states = self(tokens, cache)
+        return {"layers": states, "len": cache["len"] + 1}, self._logits(h[:, -1])

@@ -109,7 +109,7 @@ def state_shapes(model, grad_chunnels: Sequence[StepChunnel],
     """A state of ``model``'s structure with every leaf's full shape, as
     meta tensors (what ``Checkpointer.restore`` fills)."""
     shapes = registry.param_shapes(model)
-    params = unstack_layers(shapes, model.cfg.num_layers)
+    params = unstack_layers(shapes, model.stacks())
     dtype = _opt_dtype(tcfg)
     moments = lambda: {n: torch.empty(t.shape, dtype=dtype, device="meta")  # noqa: E731
                        for n, t in params.items()}
@@ -177,11 +177,12 @@ def shardings_for(model, mesh, sh: ShardingConfig, grad_chunnels=()) -> StateSha
     if manual:
         specs = T.map(lambda s: _drop_axes(s, manual), specs)
     ns = lambda spec: NamedSharding(mesh, spec)  # noqa: E731
-    L = model.cfg.num_layers
+    stacks = model.stacks()
     order = [n for n, _ in model.named_parameters()]
-    p_specs = per_layer(specs, L)
-    m_specs = per_layer(T.map(lambda s, t: _zero1_pod(s, tuple(t.shape), mesh), specs, shapes), L)
-    full = {n: tuple(t.shape) for n, t in unstack_layers(shapes, L).items()}
+    p_specs = per_layer(specs, stacks)
+    m_specs = per_layer(T.map(lambda s, t: _zero1_pod(s, tuple(t.shape), mesh), specs, shapes),
+                        stacks)
+    full = {n: tuple(t.shape) for n, t in unstack_layers(shapes, stacks).items()}
     comm = []
     for st in init_grad_states(grad_chunnels, shapes):
         if st == ():
@@ -272,7 +273,7 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
     auto = [a for a in batch_axes if a not in manual]
     shared = [a for a in mesh.axis_names if a not in BATCH_AXES and mesh.shape[a] > 1]
     ctx = {"mesh": mesh}
-    L = model.cfg.num_layers
+    stacks = model.stacks()
     n_mb = max(tcfg.microbatches, 1)
     layout = model_layout(state_sh) if state_sh is not None else model.layout
     shards = adam_shards(state_sh)
@@ -308,8 +309,8 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
             if layout is not None:  # the transports see the logical gradient
                 grads = {n: layout.full(n, g) for n, g in grads.items()}
                 comm = gathered(comm, comm_sh)
-            tree, comm = apply_grad_stack(grad_chunnels, stack_layers(grads, L), comm, ctx)
-            grads = unstack_layers(tree, L)
+            tree, comm = apply_grad_stack(grad_chunnels, stack_layers(grads, stacks), comm, ctx)
+            grads = unstack_layers(tree, stacks)
             if layout is not None:
                 grads = {n: layout.local(n, g) for n, g in grads.items()}
                 comm = place(comm, comm_sh)

@@ -3,8 +3,8 @@
 On CPU tensors the wrapper runs its plain version (``flash_attention_ref``);
 it is held to ``repro.kernels.flash_attention.ops.flash_attention``, which
 runs the Pallas kernel in interpret mode on the CPU, over the reference's
-own sweep (``tests/test_kernels.py::TestFlashAttentionKernel``) plus head dim
-128 and query and key lengths that differ. Inputs come from numpy with a
+own sweep (``tests/test_kernels.py::TestFlashAttentionKernel``) plus head dims
+96 (phi-3-vision's) and 128 and query and key lengths that differ. Inputs come from numpy with a
 seed and are handed to both as the same values.
 
 Tolerances: float32 outputs within 2e-5 (both sum in float32, the kernel
@@ -83,6 +83,7 @@ class TestAgainstReference:
         (1, 384, 6, 1, 64),   # MQA
         (2, 96, 4, 2, 16),    # ragged block boundary (S % block != 0)
         (1, 192, 4, 2, 128),  # mistral-nemo's head width
+        (1, 160, 4, 4, 96),   # phi-3-vision's head width: two 64-column boxes, half padding
     ])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_matches_pallas_sweep(self, ref_ops, B, S, H, KH, hd, dtype):
@@ -117,7 +118,7 @@ class TestAgainstReference:
 
 def emulate_tc(q, k, v, *, causal=True, window=None):
     """The tensor-core route's arithmetic: bfloat16 inputs, float32 scores,
-    an online softmax over key tiles of 128 (64 at head dim 128), p rounded
+    an online softmax over key tiles of 128 (64 at head dims 96 and 128), p rounded
     to bfloat16 for each tile's P.V, l the sum of the float32 p, and the
     output cast to q's dtype."""
     B, Sq, H, hd = q.shape
@@ -163,8 +164,9 @@ class TestTensorCoreContract:
         (2, 64, 2, 2, 16, None, dict(causal=False)),
         (2, 64, 4, 2, 32, 160, dict(causal=True)),
         (2, 96, 4, 2, 32, 40, dict(causal=True)),
+        (1, 200, 4, 4, 96, None, dict(causal=True)),
     ], ids=["mha", "gqa", "mqa", "ragged-hd16", "hd128", "window", "noncausal", "skv-longer",
-            "skv-shorter"])
+            "skv-shorter", "hd96"])
     def test_emulated_rounding_matches_pallas(self, ref_ops, B, Sq, H, KH, hd, skv, kw):
         q, k, v = make_qkv(B, Sq, H, KH, hd, "bfloat16", seed=Sq + hd + 7, Skv=skv)
         got = emulate_tc(q, k, v, **kw)
@@ -234,10 +236,10 @@ class TestPlainVersion:
 
 class TestWrapperContract:
     def test_cpu_runs_plain_and_counts_no_launch(self):
-        before = flash_attention.launches
+        before = flash_attention.launches, dict(flash_attention.shape_launches)
         q, k, v = make_qkv(1, 16, 4, 2, 16, "bfloat16", seed=3)
         assert torch.equal(flash_attention(q, k, v), flash_attention_ref(q, k, v))
-        assert flash_attention.launches == before
+        assert (flash_attention.launches, dict(flash_attention.shape_launches)) == before
 
     @pytest.mark.parametrize("bad", ["float16", "mixed", "shape", "heads", "meta", "3d"])
     def test_rejects(self, bad):
@@ -269,17 +271,22 @@ class TestKernelAgainstPlain:
         dict(shape=(1, 192, 4, 1, 128), dtype="bfloat16", causal=True),
         dict(shape=(2, 64, 4, 2, 32), dtype="float32", causal=True, skv=160),
         dict(shape=(2, 96, 4, 2, 32), dtype="float32", causal=True, skv=40),
+        dict(shape=(2, 200, 4, 4, 96), dtype="float32", causal=True),
+        dict(shape=(2, 200, 4, 4, 96), dtype="bfloat16", causal=True),
     ], ids=["gqa", "ragged", "window", "hd16", "noncausal", "hd128", "skv-longer",
-            "skv-shorter"])
+            "skv-shorter", "hd96-float32", "hd96-bfloat16"])
     def test_kernel_matches_plain_on_card(self, cuda, case):
         B, S, H, KH, hd = case["shape"]
         q, k, v = (t.to(cuda) for t in make_qkv(B, S, H, KH, hd, case["dtype"], seed=S,
                                                 Skv=case.get("skv")))
         kw = dict(causal=case["causal"], window=case.get("window"))
         n0 = flash_attention.launches
+        key = (tuple(q.shape), tuple(k.shape), case["causal"])
+        s0 = flash_attention.shape_launches[key]
         got = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         assert flash_attention.launches == n0 + 1
+        assert flash_attention.shape_launches[key] == s0 + 1
         assert got.device.type == "cuda" and got.dtype == q.dtype
         want = flash_attention_ref(q, k, v, **kw)
         tol = TOL[case["dtype"]]
@@ -317,9 +324,11 @@ class TestTensorCoreRoute:
         dict(shape=(2, 256, 4, 2, 32), causal=True),
         dict(shape=(2, 256, 4, 2, 64), causal=False),
         dict(shape=(2, 320, 4, 2, 128), causal=True, window=100),
+        dict(shape=(2, 300, 8, 8, 96), causal=True),
+        dict(shape=(2, 300, 4, 4, 96), skv=100, causal=False),
     ], ids=["sq200", "sq2000", "skv-longer", "skv-shorter", "noncausal-skv-longer",
             "window128", "window1024", "gqa25-5", "hd16", "hd32", "hd64-noncausal",
-            "hd128-window"])
+            "hd128-window", "hd96", "hd96-noncausal-skv-shorter"])
     def test_matches_plain(self, cuda, case):
         B, S, H, KH, hd = case["shape"]
         q, k, v = (t.to(cuda) for t in make_qkv(B, S, H, KH, hd, "bfloat16", seed=S + hd,

@@ -107,8 +107,7 @@ def test_loss_and_grads_match_jitted_reference(ref_params, impl):
     loss_ref, g_ref = _reference(ref_params, impl, batch)
     model, loss = _port(ref_params, impl, batch)
     assert abs(loss.item() - float(loss_ref)) <= 1e-3 * abs(float(loss_ref))
-    grads = stack_layers({n: p.grad for n, p in model.named_parameters()},
-                         model.cfg.num_layers)
+    grads = stack_layers({n: p.grad for n, p in model.named_parameters()}, model.stacks())
     got, want = T.flatten_with_paths(grads), jax.tree_util.tree_flatten_with_path(g_ref)[0]
     assert len(got) == len(want) == 23
     for (path, g), (ref_path, w) in zip(got, want):

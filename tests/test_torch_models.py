@@ -245,12 +245,19 @@ class TestConvertAndRegistry:
 
     @pytest.mark.parametrize("arch", ["xlstm-125m", "qwen3-moe-235b-a22b", "no-such-arch"])
     def test_other_archs_raise(self, arch):
-        with pytest.raises(KeyError):
-            tconfigs.get_config(arch)
+        """Every arch of the reference resolves (``NOT_PORTED`` is empty);
+        a name outside the reference's registry raises."""
+        ref = pytest.importorskip("repro.configs")
+        assert tconfigs.NOT_PORTED == () and tconfigs.ARCH_IDS == ref.ARCH_IDS
+        if arch in ref.ARCH_IDS:
+            assert tconfigs.get_config(arch).name == arch
+        else:
+            with pytest.raises(KeyError, match="unknown arch"):
+                tconfigs.get_config(arch)
 
     def test_other_family_raises(self):
-        cfg = tconfigs.get_smoke_config("llama3.2-1b").replace(family="ssm")
-        with pytest.raises(KeyError, match="not ported yet"):
+        cfg = tconfigs.get_smoke_config("llama3.2-1b").replace(family="diffusion")
+        with pytest.raises(KeyError, match="unknown family"):
             build(cfg, device="cpu")
 
     def test_build_draws_the_reference_distributions(self):

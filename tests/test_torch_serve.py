@@ -1,7 +1,10 @@
 """The port's serving path against the reference's, on the four dense smoke
 configs, each with attention by ``xla_dense`` and by ``pallas`` (on the CPU
 the port's ``pallas`` slot runs the flash kernel's plain version, the
-reference's runs its Pallas kernel in interpret mode).
+reference's runs its Pallas kernel in interpret mode); and the launcher on
+every family's smoke config, with the batch the reference's launcher builds
+(``patches`` for vlm, ``frames`` for audio). The other families' parity is
+in ``test_torch_{hymba,vlm,moe,xlstm,encdec}.py``.
 
 Both serve the reference's ``build(cfg).init(PRNGKey(0))`` parameters, the
 port's converted by ``params_from_reference``. Prefill logits and the KV
@@ -19,13 +22,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_reference
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models import registry
 from repro_torch.models.registry import build
 from repro_torch.models.transformer import grow_cache
 
 DENSE = ["llama3.2-1b", "qwen2-7b", "mistral-nemo-12b", "granite-34b"]
+#: the families this launcher serves beside dense and hybrid
+OTHERS = ["phi-3-vision-4.2b", "qwen3-moe-235b-a22b", "dbrx-132b", "xlstm-125m",
+          "seamless-m4t-medium"]
 ATOL, RTOL = 6e-2, 2e-2
 B, S, STEPS = 2, 40, 3
 
@@ -89,6 +97,69 @@ def test_launcher_runs_on_cpu(arch, capsys):
     assert line.startswith(f"arch={arch}-smoke attn=pallas device=cpu prefill(2x32)=")
     assert "ms/tok first row: [" in line
     assert res.tokens.shape == (2, 5) and bool(torch.isfinite(res.logits).all())
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_launcher_runs_other_families_on_cpu(arch, capsys):
+    res = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                      "--prompt-len", "32", "--gen", "4"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith(f"arch={get_smoke_config(arch).name} attn=pallas device=cpu "
+                           "prefill(2x32)=")
+    assert "ms/tok first row: [" in line
+    assert res.tokens.shape == (2, 5) and bool(torch.isfinite(res.logits).all())
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "24",
+            "--gen", "3"]
+    assert torch.equal(serve.main(args).tokens, serve.main(args).tokens)
+
+
+@pytest.mark.parametrize("arch", DENSE + ["hymba-1.5b"] + OTHERS)
+def test_launcher_batch_is_the_references(arch, jax):
+    """The launcher's prefill inputs have the names, shapes and dtypes of the
+    reference's batch specs (``Model.batch_specs`` of a prefill shape, whose
+    vlm batch carries ``patches`` and audio batch ``frames``), at the
+    published config; ``serve_batch_specs`` is that table for every shape
+    kind."""
+    from repro.configs import get_config as ref_config
+    from repro.configs.base import ShapeConfig as RefShape
+    from repro.models import build as ref_build
+
+    ref_model, cfg = ref_build(ref_config(arch)), get_config(arch)
+    for kind in ("prefill", "train", "decode"):
+        want = ref_model.batch_specs(RefShape("s", 64, 2, kind))
+        got = registry.serve_batch_specs(cfg, ShapeConfig("s", 64, 2, kind))
+        assert {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()} == {
+            k: (shp, str(dt).removeprefix("torch.")) for k, (shp, dt) in got.items()}
+    tokens, extra = serve.serve_batch(cfg, 2, 64, torch.device("cpu"))
+    want = registry.serve_batch_specs(cfg, ShapeConfig("s", 64, 2, "prefill"))
+    assert tokens.shape == want["tokens"][0]
+    assert {k: (tuple(t.shape), t.dtype) for k, t in extra.items()} == {
+        k: v for k, v in want.items() if k not in ("tokens", "labels")}
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_other_families_build_but_do_not_train(arch):
+    """``registry.build`` builds every family; the loss and the training
+    batch of the four serving-only families raise until their training is
+    ported (ROADMAP §A item 7b), and so do the training forward they inherit
+    from ``DenseLM`` (``loss``, ``hidden_states``) when called directly."""
+    cfg = get_smoke_config(arch)
+    model = build(cfg, device="cpu", seed=0)
+    assert type(model).FAMILY == cfg.family
+    tokens = torch.zeros(2, 8, dtype=torch.long)
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros(2, cfg.frontend.num_positions, cfg.frontend.embed_dim)
+    with pytest.raises(KeyError, match="not ported"):
+        registry.loss(model, batch)
+    model.release()
+    with pytest.raises(NotImplementedError, match="7b"):
+        model.loss(batch)
+    with pytest.raises(NotImplementedError, match="7b"):
+        model.hidden_states(tokens)
+    with pytest.raises(KeyError, match="not ported"):
+        registry.batch_specs(cfg, ShapeConfig("s", 8, 2, "train"))
+    assert cfg.family not in registry.TRAINED
 
 
 def test_launcher_is_deterministic():

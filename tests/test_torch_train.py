@@ -299,7 +299,7 @@ def test_dense_loss_and_grads_match_jitted_reference(ref_params, impl, chunk, to
     loss = model.loss({k: torch.from_numpy(v) for k, v in batch.items()})
     loss.backward()
     assert abs(loss.item() - float(loss_ref)) <= 1e-3 * abs(float(loss_ref))
-    grads = stack_layers({n: p.grad for n, p in model.named_parameters()}, cfg.num_layers)
+    grads = stack_layers({n: p.grad for n, p in model.named_parameters()}, model.stacks())
     got, want = T.flatten_with_paths(grads), jax.tree_util.tree_flatten_with_path(g_ref)[0]
     assert len(got) == len(want) == 11
     for (path, g), (ref_path, w) in zip(got, want):
