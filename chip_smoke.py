@@ -94,6 +94,37 @@ Phases, each of which exits non-zero on any failed check:
    capacity of 1 an expert, as the reference does), qwen3-moe's share of
    (token, slot) expert ids on which the kernel and plain prefills agree,
    warm timings, a profile and the peak memory;
+8c. serving on a mesh through the serve launcher's rank target
+   ``repro_torch.serving.steps.serve_rank`` (``--world``): gloo ranks that
+   share the card (NCCL refuses two ranks on one device), the parameters
+   laid out by the reference's ``param_specs`` (this rank's float32 blocks,
+   bf16 working copies gathered from them), the batch's rows dealt over
+   ``data``, the caches by ``cache_shardings`` at a capacity of 2112, decode
+   through the negotiated KV-partition chunnel: llama3.2-1b (16 layers) on
+   (data 2, model 2) under ``auto`` (heads: 8 KV heads over 2) and then
+   ``sequence``; hymba-1.5b (32 layers) on (data 1, model 2), ``auto``
+   picking sequence (5 KV heads), its rings and SSM state gathered over
+   ``model`` for each step; qwen3-moe-235b-a22b at 1 of 94 layers at the
+   published widths on (data 2, model 2), prefill with the expert dispatch
+   ``alltoall`` and then ``allgather`` (decode resolves both to
+   ``grouped``). Four prompts of 2048 tokens from the launcher's seed, 32
+   greedy steps. Each rank's counters are set to 0 just before each run's
+   prefill and read after it, after a check decode step on seeded tokens
+   (from a copy of the prefill's cache) and after the greedy steps: one B3
+   launch per attention layer in the prefill, none in decode; hymba's B4
+   256 times a prefill and 32 times a step. Checked against the one-rank
+   port on the same batch and seed (a model built here): the check step's
+   logits and, but for the moe family (whose mesh dispatch routes each
+   rank's tokens at its own capacity), the prefill's last logits, within a
+   stated tolerance; equal tokens across each model group; B3 against its
+   plain version at every shape the ranks launched it at (their 2 rows a
+   rank are another batch than phase 7's); for qwen3-moe each rank's
+   dispatch output against ``dispatch_grouped`` on the same tokens at the
+   same capacity (a wrong exchange fails it), and the share of (token,
+   slot) expert ids routed as the one-rank prefill routes them, with the
+   pairs each side drops. It prints each rank's prefill ms, decode
+   ms/token, peak memory, bytes held and sent by ``op@axis`` (gloo through
+   the host, not NCCL);
 9. the n-way dequantize-sum kernel ``unpack_dequant_sum`` (not a TPU kernel:
    it computes the body of the reference's ``compressed_allgather_sum``)
    against its plain version on the card, bit-equal: at the gradient of
@@ -168,6 +199,7 @@ import tempfile
 import threading
 import time
 import traceback
+from collections import Counter
 from contextlib import nullcontext
 from pathlib import Path
 
@@ -281,6 +313,35 @@ RESTART_RTOL = 1e-6
 SHARDED_WORLD, SHARDED_A_STEPS, SHARDED_B_STEPS, SHARDED_RTOL = 4, 3, 2, 1e-2
 #: the hybrid phase: hymba-1.5b at its published config on one rank
 HYMBA_TRAIN_STEPS, HYMBA_PARAMS = 4, 1_663_080_000
+#: serving on a mesh of gloo ranks that share the card: four prompts of 2048
+#: tokens into a cache of 2112 positions (2048 + 32 rounded up to a multiple
+#: of 64, a decode ShapeConfig's), 32 greedy steps. Each case: (arch, layers
+#: or None for the published depth, (data, model), runs as (kv partition,
+#: moe dispatch or None), max abs gap of the first decode step's logits,
+#: and but for the moe family the prefill's, against the one-rank port's).
+#: The gap: the sequence branch's flash-decode takes P·V in bfloat16 before
+#: it normalises, the local decode after, a bfloat16 step apart; prefill on
+#: each rank's 2 rows may round its GEMMs otherwise than on 4; so llama's
+#: 0.1 and hymba's 0.15 of the one-rank checks, and llama's 0.1 for
+#: qwen3-moe's one layer (its decode routes the global batch's 4 tokens, as
+#: the one-rank port's does)
+SHARDED_SERVE = [
+    ("llama3.2-1b", None, (2, 2), [("auto", None), ("sequence", None)], 0.1),
+    ("hymba-1.5b", None, (1, 2), [("auto", None)], 0.15),
+    ("qwen3-moe-235b-a22b", 1, (2, 2), [("auto", "alltoall"), ("auto", "allgather")], 0.1),
+]
+SHARDED_CAPACITY = 2112
+#: the share of (token, slot) expert ids of the sharded prefill that must
+#: equal the one-rank prefill's (a near-tie in the top-k may flip under the
+#: rows' other GEMM rounding)
+SHARDED_ROUTE_SHARE = 0.99
+#: a mesh dispatch's output against ``dispatch_grouped`` on the same tokens
+#: at the same capacity, atol = rtol as torch.testing.assert_close takes
+#: them: the bf16 expert products run in other GEMM shapes ((E/n, n*C, D)
+#: against (E, C, D)), and allgather sums the ranks' partial outputs in
+#: another order, each a bf16 rounding step at the outputs' magnitude; a
+#: token sent to another expert or rank moves its row by the whole output
+MOE_DISPATCH_TOL = 1e-2
 #: exceptions raised in any thread (the WAN receiver, the gateway's loop)
 THREAD_ERRORS: list = []
 
@@ -479,29 +540,14 @@ def phase_flash(torch) -> dict:
     cases += [(label if dt == "bfloat16" else f"{label} {dt}", (B, sq, hd, getattr(torch, dt)),
                heads, skv, kw)
               for label, (sq, skv, hd, heads, kw), dtypes in NEW_FLASH_CASES for dt in dtypes]
-    errs = {}
+    errs, checked = {}, set()
     for label, (B_, S_, hd, dtype), heads, skv, kw in cases:
         q, k, v = qkv(B_, S_, hd, dtype, heads, skv)
-        out = flash_attention(q, k, v, **kw)
-        want = flash_attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        check(out.shape == q.shape and out.dtype == dtype, f"flash {label}: {out.dtype} {out.shape}")
-        err = (out.float() - want.float()).abs().max().item()
-        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        errs[label] = _flash_check(torch, label, q, k, v, kw)
         if dtype == bf16:
-            form = f"atol = rtol = {tol}"
-            try:
-                torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
-                ok = True
-            except AssertionError:
-                ok = False
-        else:
-            form, ok = f"max abs err <= {tol}", err <= tol
-        print(f"kernel check flash_attention {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
-              f"{dtype} {kw} max abs err {err} ({form})")
-        check(ok, f"flash_attention {label}: max abs err {err}, outside {form}")
-        errs[label] = err
-        del q, k, v, out, want
+            checked.add((tuple(q.shape), tuple(k.shape), kw.get("causal", True),
+                         kw.get("window")))
+        del q, k, v
 
     q, k, v = qkv(B, S, HEAD_DIM, bf16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -512,7 +558,8 @@ def phase_flash(torch) -> dict:
     plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), reps=5, group=2)
     library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
     res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "max_abs_err": errs["prefill"], **flash_bound(q, k, None), "cases": {}}
+           "max_abs_err": errs["prefill"], **flash_bound(q, k, None), "cases": {},
+           "checked": checked}
     print(f"time flash_attention prefill: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
           f"sdpa {library_ms:.4f} ms, sdpa vs plain max abs err {lib_err}, "
           f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}: {res['flops']} flops at "
@@ -556,6 +603,34 @@ def phase_flash(torch) -> dict:
               f"{b['bound_ms'] / ms:.1%} of the bound)")
         del q, k, v, qt, kt, vt
     return res
+
+
+def _flash_check(torch, label, q, k, v, kw) -> float:
+    """B3's wrapper against its plain version on q, k, v: within
+    ``FLASH_TOL`` of the dtype, or the run fails. Returns the max abs error."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_ref)
+
+    out = flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(out.shape == q.shape and out.dtype == q.dtype,
+          f"flash {label}: {out.dtype} {out.shape}")
+    err = (out.float() - want.float()).abs().max().item()
+    tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+    if q.dtype == torch.bfloat16:
+        form = f"atol = rtol = {tol}"
+        try:
+            torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+            ok = True
+        except AssertionError:
+            ok = False
+    else:
+        form, ok = f"max abs err <= {tol}", err <= tol
+    print(f"kernel check flash_attention {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
+          f"{q.dtype} {kw} max abs err {err} ({form})")
+    check(ok, f"flash_attention {label}: max abs err {err}, outside {form}")
+    return err
 
 
 def flash_bound(q, k, window, causal: bool = True) -> dict:
@@ -1193,6 +1268,338 @@ def _reset_all_counts() -> None:
         w.launches = 0
 
 
+def _sharded_cfg(arch, layers):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config(arch).replace(attn_impl="pallas")
+    return serve.cut_depth(cfg, layers) if layers is not None else cfg
+
+
+def _check_tokens(torch, cfg):
+    """The seeded next token of each of the SERVE_BATCH rows, for the check
+    step of decode on both sides."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    return torch.randint(0, cfg.vocab_size, (SERVE_BATCH, 1), generator=gen, device="cuda")
+
+
+def _one_rank_check(torch, arch, layers) -> dict:
+    """The one-rank port on the seeded batch of the launcher: the first
+    decode step's logits on the check tokens, from the prefill's cache
+    fitted to the sharded steps' capacity; for the moe family, its
+    prefill's expert ids and the capacity they were kept by."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, registry
+    from repro_torch.serving.steps import fit_cache
+
+    cfg = _sharded_cfg(arch, layers)
+    model = registry.build(cfg, device="cuda", seed=serve.SEED)
+    tokens, extra = serve.serve_batch(cfg, SERVE_BATCH, SERVE_PROMPT, torch.device("cuda"))
+    with (_Routes() if cfg.family == "moe" else nullcontext()) as routes:
+        cache, logits_pre = model.prefill(tokens, **extra)
+    cache = fit_cache(cache, registry.cache_shapes(
+        cfg, ShapeConfig("serve", SHARDED_CAPACITY, SERVE_BATCH, "decode")))
+    _, logits = model.decode_step(cache, _check_tokens(torch, cfg))
+    out = {"logits": logits.float().cpu().numpy(), "vocab": cfg.vocab_size,
+           "prefill": logits_pre.float().cpu().numpy()}
+    if routes is not None:
+        ids = routes.ids[0]
+        C = moe.capacity(ids.shape[0], cfg)
+        _, keep = moe._positions_in_expert(ids, cfg.moe.num_experts, C)
+        out.update(ids=ids.cpu().numpy(), keep=keep.cpu().numpy(), C=C)
+    del model, cache, tokens, extra, logits, logits_pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class _DispatchTap:
+    """Stands in for ``models.moe``'s two mesh dispatches: records each
+    call's MoE layer, input rows, output and expert ids (``route`` tapped
+    during the call), for the check against ``dispatch_grouped`` after the
+    run."""
+
+    NAMES = ("dispatch_alltoall", "dispatch_allgather")
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.module, self.calls = moe, []
+        self.real = {n: getattr(moe, n) for n in self.NAMES}
+
+    def _tapped(self, name):
+        def call(p, x3d, cfg, mesh, *args, **kwargs):
+            with _Routes() as routes:
+                y, aux = self.real[name](p, x3d, cfg, mesh, *args, **kwargs)
+            self.calls.append({"name": name, "p": p, "x": x3d, "y": y, "cfg": cfg,
+                               "mesh": mesh, "ids": routes.ids[0]})
+            return y, aux
+        return call
+
+    def __enter__(self):
+        for n in self.NAMES:
+            setattr(self.module, n, self._tapped(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.real.items():
+            setattr(self.module, n, f)
+
+
+def _dispatch_gap(torch, call) -> dict:
+    """A mesh dispatch's output against ``dispatch_grouped`` on one rank, on
+    the same tokens at the same capacity: ``alltoall`` routes each model
+    rank's S/n slice of the rows alone, ``allgather`` the slices of the
+    row's model ranks together, gathered in (model rank, row, position)
+    order. Every rank along ``model`` holds the same rows, so this rank's
+    rows stand for the others'."""
+    from repro_torch.models import moe
+
+    p, x, y, cfg = call["p"], call["x"], call["y"], call["cfg"]
+    n = call["mesh"].shape["model"]
+    B_l, S, D = x.shape
+    s_l = S // n
+    if call["name"] == "dispatch_alltoall":
+        ref = torch.cat([moe.dispatch_grouped(p, x[:, m * s_l:(m + 1) * s_l].reshape(-1, D),
+                                              cfg)[0].reshape(B_l, s_l, D) for m in range(n)],
+                        dim=1)
+    else:
+        x_row = x.to(torch.bfloat16).reshape(B_l, n, s_l, D).transpose(0, 1).reshape(-1, D)
+        ref = (moe.dispatch_grouped(p, x_row, cfg)[0].reshape(n, B_l, s_l, D)
+               .transpose(0, 1).reshape(B_l, S, D).to(x.dtype))
+    try:
+        torch.testing.assert_close(y.float(), ref.float(), atol=MOE_DISPATCH_TOL,
+                                   rtol=MOE_DISPATCH_TOL)
+        ok = True
+    except AssertionError:
+        ok = False
+    return {"ok": ok, "max_abs_err": (y.float() - ref.float()).abs().max().item(),
+            "bit_equal": bool(torch.equal(y, ref)), "max_abs": ref.float().abs().max().item()}
+
+
+def serve_sharded_rank(spec: dict) -> dict:
+    """One rank of a sharded serve case (run by ``spawn``): the serve
+    launcher's rank target ``serving.steps.serve_rank`` with the kernels'
+    counters set to 0 just before each run's prefill and read after each of
+    its phases (prefill, check step, greedy steps), and the MoE mesh
+    dispatches tapped: after the runs each call's output is held against
+    ``dispatch_grouped`` on the same tokens (``_dispatch_gap``), and the
+    first layer's expert ids go back for the routing share."""
+    import torch
+
+    from repro_torch.serving.steps import serve_rank
+
+    errors: list = []
+    threading.excepthook = lambda a: errors.append(f"{a.thread.name}: {a.exc_value!r}")
+    ws = _wrappers()
+    seen: list = []
+
+    def observe(run, phase):
+        if phase == "start":
+            for w in ws.values():
+                w.launches = 0
+            ws["flash_attention"].shape_launches.clear()
+            seen.append({})
+        else:
+            seen[run][phase] = _counts()
+            seen[run]["shapes"] = dict(ws["flash_attention"].shape_launches)
+
+    with _DispatchTap() as tap:
+        out = serve_rank(spec, observe)
+    per_run = len(tap.calls) // len(out["runs"])
+    for i, (run, c) in enumerate(zip(out["runs"], seen)):
+        run["launches_prefill"] = c["prefill"]
+        run["launches_check"] = {n: c["check"][n] - c["prefill"][n] for n in c["check"]}
+        run["launches_decode"] = {n: c["decode"][n] - c["check"][n] for n in c["decode"]}
+        run["flash_shapes"] = c["shapes"]
+        calls = tap.calls[i * per_run:(i + 1) * per_run]
+        run["dispatch"] = [_dispatch_gap(torch, call) for call in calls]
+        if calls:
+            run["route_ids"] = calls[0]["ids"].cpu().numpy()
+    del tap
+    out["thread_errors"] = errors
+    return out
+
+
+def _check_sharded_flash(torch, arch, cfg, shapes, checked: set) -> None:
+    """B3 against its plain version at every (q, k, causal) shape that the
+    sharded ranks launched it at and that no earlier check covered: each
+    rank's rows are another batch than the one-rank path's."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    windows = [None] + ([cfg.sliding_window] if cfg.sliding_window else [])
+    for q_shape, k_shape, causal in sorted(shapes):
+        for window in windows:
+            if (q_shape, k_shape, causal, window) in checked:
+                continue
+            checked.add((q_shape, k_shape, causal, window))
+            q = torch.randn(q_shape, generator=gen, device="cuda").to(torch.bfloat16)
+            k, v = (torch.randn(k_shape, generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            # a comparison's launch counts for no path
+            before = flash_attention.launches, Counter(flash_attention.shape_launches)
+            _flash_check(torch, f"serve sharded {arch} window {window}", q, k, v,
+                         dict(causal=causal, window=window))
+            flash_attention.launches, flash_attention.shape_launches = before
+            del q, k, v
+
+
+def phase_serve_sharded(torch, checked: set) -> dict:
+    """Serving on a mesh of gloo ranks that share the card (NCCL refuses two
+    ranks on one device), through the serve launcher's rank target
+    (``chip_smoke.serve_sharded_rank`` around ``serving.steps.serve_rank``):
+    for each case, the one-rank port's check logits here, then the spawn,
+    then every check on the ranks' records, and B3 against its plain
+    version at the ranks' attention shapes. Returns each run's launches,
+    summed over its ranks, by path."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import moe
+    from repro_torch.serving.steps import capacity_for
+
+    check(capacity_for(SERVE_PROMPT, SERVE_GEN) == SHARDED_CAPACITY,
+          f"serve_rank's capacity {capacity_for(SERVE_PROMPT, SERVE_GEN)}")
+    why = "the ranks share one GPU; NCCL refuses two ranks on one device"
+    paths = {}
+    for arch, layers, (n_data, n_model), runs, tol in SHARDED_SERVE:
+        cfg = _sharded_cfg(arch, layers)
+        world = n_data * n_model
+        one = _one_rank_check(torch, arch, layers)
+        cut = f", {layers} of {get_config(arch).num_layers} layers" if layers else ""
+        print(f"serve sharded {arch}{cut}: {world} processes on cuda:0, gloo ({why}); mesh "
+              f"(data {n_data}, model {n_model}); batch {SERVE_BATCH} x {SERVE_PROMPT}, cache "
+              f"{SHARDED_CAPACITY}, {SERVE_GEN} greedy steps; runs {runs}")
+        t0 = time.perf_counter()
+        spec = {"arch": arch, "world": world, "data": n_data, "model": n_model, "smoke": False,
+                "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
+                "device": "cuda", "attn_impl": "pallas", "layers": layers, "runs": runs,
+                "check_tokens": _check_tokens(torch, cfg).cpu().numpy()}
+        ranks = spawn("chip_smoke:serve_sharded_rank", world, backend="gloo", args=(spec,),
+                      timeout_s=900.0, reason=why)
+        wall = time.perf_counter() - t0
+        L = cfg.num_layers
+        hybrid = cfg.family == "hybrid"
+        scans = -(-SERVE_PROMPT // SSM_CHUNK) * L if hybrid else 0
+        for r in ranks:
+            check(not r["thread_errors"], f"rank {r['rank']}: {r['thread_errors']}")
+            print(f"serve sharded {arch}: rank {r['rank']} at {r['coords']}: layout (draw, "
+                  f"blocks, working copies) {r['layout_s']:.3f} s, holds {r['block_bytes']} "
+                  f"bytes of float32 blocks and {r['working_bytes']} bytes of working copies "
+                  f"({(r['block_bytes'] + r['working_bytes']) / 2**30:.2f} GiB); layout bytes "
+                  f"sent {json.dumps(r['layout_sent'])}")
+        for i, (kv, dispatch) in enumerate(runs):
+            label = f"serve sharded {arch} {kv}" + (f" {dispatch}" if dispatch else "")
+            recs = [r["runs"][i] for r in ranks]
+            want_pre = {"flash_attention": L, "ssm_scan_chunk": scans}
+            want_chk = {"flash_attention": 0, "ssm_scan_chunk": L * hybrid}
+            want_dec = {"flash_attention": 0, "ssm_scan_chunk": SERVE_GEN * L * hybrid}
+            gaps = []
+            for r, rec in zip(ranks, recs):
+                rank = r["rank"]
+                check(bool(np.isfinite(rec["prefill_logits"]).all()
+                           and np.isfinite(rec["check_logits"]).all()),
+                      f"{label} rank {rank}: non-finite logits")
+                check(rec["launches_prefill"] == want_pre, f"{label} rank {rank}: prefill "
+                      f"launched {rec['launches_prefill']}, want {want_pre}")
+                check(rec["launches_check"] == want_chk and rec["launches_decode"] == want_dec,
+                      f"{label} rank {rank}: decode launched {rec['launches_check']} + "
+                      f"{rec['launches_decode']}, want {want_chk} + {want_dec}")
+                rows = SERVE_BATCH // n_data
+                d = r["coords"]["data"]
+                ref = one["logits"][d * rows:(d + 1) * rows]
+                got = rec["check_logits"]
+                gap = float(np.abs(got - ref).max())
+                agree = float((got[:, :one["vocab"]].argmax(-1)
+                               == ref[:, :one["vocab"]].argmax(-1)).mean())
+                gaps.append(gap)
+                ref_pre = one["prefill"][d * rows:(d + 1) * rows]
+                gap_pre = float(np.abs(rec["prefill_logits"] - ref_pre).max())
+                agree_pre = float((rec["prefill_logits"][:, :one["vocab"]].argmax(-1)
+                                   == ref_pre[:, :one["vocab"]].argmax(-1)).mean())
+                print(f"{label}: rank {rank} ({rec['kv']}): prefill "
+                      f"{rec['prefill_s'] * 1e3:.3f} ms, decode "
+                      f"{rec['decode_s'] / SERVE_GEN * 1e3:.4f} ms/token (its collectives gloo "
+                      f"through the host), peak {rec['peak_memory_bytes'] / 2**30:.2f} GiB "
+                      f"({rec['peak_memory_bytes']} bytes); launches prefill "
+                      f"{json.dumps(rec['launches_prefill'])}, check step "
+                      f"{json.dumps(rec['launches_check'])}, {SERVE_GEN} steps "
+                      f"{json.dumps(rec['launches_decode'])}; first decode step vs the "
+                      f"one-rank port: max abs gap {gap} (tolerance {tol}), argmax agree {agree}; "
+                      f"prefill's last logits: max abs gap {gap_pre} ("
+                      + ("not held: the mesh dispatch drops other tokens at its capacity; "
+                         "the dispatch is held to dispatch_grouped below"
+                         if cfg.family == "moe" else f"tolerance {tol}")
+                      + f"), argmax agree {agree_pre}")
+                print(f"{label}: rank {rank} bytes sent by op@axis (gloo through the host, not "
+                      f"NCCL): prefill {json.dumps(rec['sent_prefill'])}, check step and "
+                      f"{SERVE_GEN} steps {json.dumps(rec['sent_decode'])}")
+                check(gap <= tol, f"{label} rank {rank}: first decode step differs from the "
+                      f"one-rank port by {gap}")
+                check(cfg.family == "moe" or gap_pre <= tol,
+                      f"{label} rank {rank}: prefill differs from the one-rank port by {gap_pre}")
+            for a, ra in zip(ranks, recs):
+                for b, rb in zip(ranks, recs):
+                    if a["coords"]["data"] == b["coords"]["data"]:
+                        check(np.array_equal(ra["tokens"], rb["tokens"]),
+                              f"{label}: ranks {a['rank']} and {b['rank']} share rows, "
+                              "generated other tokens")
+            print(f"{label}: tokens equal across each model group: True; greedy tokens of "
+                  f"row 0 {recs[0]['tokens'][0, :12].tolist()}; largest gap {max(gaps)}")
+            if cfg.family == "moe":
+                for r, rec in zip(ranks, recs):
+                    check(len(rec["dispatch"]) == L, f"{label} rank {r['rank']}: "
+                          f"{len(rec['dispatch'])} mesh dispatch calls in prefill, want {L}")
+                    for layer, g in enumerate(rec["dispatch"]):
+                        print(f"{label}: rank {r['rank']} layer {layer} {dispatch} output vs "
+                              f"dispatch_grouped on the same tokens at the same capacity: max "
+                              f"abs err {g['max_abs_err']} (atol = rtol = {MOE_DISPATCH_TOL}; "
+                              f"outputs up to {g['max_abs']}), bit-equal {g['bit_equal']}")
+                        check(g["ok"], f"{label} rank {r['rank']} layer {layer}: the mesh "
+                              f"dispatch differs from dispatch_grouped by {g['max_abs_err']}")
+                    ids = rec["route_ids"]
+                    # the global token index (row * S + position) of each routed
+                    # token: alltoall routes this rank's S/n slice of its rows,
+                    # allgather the slices of every model rank of its row
+                    half, rows = SERVE_PROMPT // n_model, SERVE_BATCH // n_data
+                    d, m = r["coords"]["data"], r["coords"]["model"]
+                    ms = [m] if dispatch == "alltoall" else range(n_model)
+                    tok = np.asarray([(d * rows + b) * SERVE_PROMPT + mm * half + s
+                                      for mm in ms for b in range(rows) for s in range(half)])
+                    C = moe.capacity(ids.shape[0], cfg)
+                    _, keep = moe._positions_in_expert(torch.from_numpy(ids),
+                                                       cfg.moe.num_experts, C)
+                    share = float((ids == one["ids"][tok]).mean())
+                    drops = int((~keep).sum())
+                    drops_one = int((~one["keep"][tok]).sum())
+                    print(f"{label}: rank {r['rank']} routed {len(tok)} tokens (capacity "
+                          f"{C} an expert; the one-rank prefill's "
+                          f"{one['C']} over {one['ids'].shape[0]}): share of (token, slot) "
+                          f"expert ids equal to the one-rank grouped prefill's {share}; "
+                          f"(token, slot) pairs dropped {drops}, the one-rank prefill "
+                          f"dropped {drops_one} of the same tokens' pairs")
+                    check(share >= SHARDED_ROUTE_SHARE, f"{label}: routing share {share}")
+            shapes = set()
+            for rec in recs:
+                shapes |= set(rec["flash_shapes"])
+            paths[label] = {
+                "flash_attention": sum(sum(rec[k]["flash_attention"] for k in (
+                    "launches_prefill", "launches_check", "launches_decode")) for rec in recs),
+                "ssm_scan_chunk": sum(sum(rec[k]["ssm_scan_chunk"] for k in (
+                    "launches_prefill", "launches_check", "launches_decode")) for rec in recs),
+                "flash by shape": {_shape_key(*k): n for k, n in sum(
+                    (Counter(rec["flash_shapes"]) for rec in recs), Counter()).items()}}
+            _check_sharded_flash(torch, arch, cfg, shapes, checked)
+        print(f"serve sharded {arch}: spawn to exit {wall:.3f} s; every process exited 0")
+        del ranks, one
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def phase_sum_kernel(torch) -> dict:
     """``unpack_dequant_sum`` against its plain version on the card, then
     timed at the two-rank phase's gradient."""
@@ -1785,6 +2192,7 @@ def main() -> int:
                                             HYMBA_LOGITS_TOL)
     for arch, n_params, tol, layers in NEW_SERVE:
         paths[f"serve {arch}"] = phase_serve(torch, arch, n_params, tol, layers)
+    paths.update(phase_serve_sharded(torch, flash["checked"]))
     dsum = phase_sum_kernel(torch)
     paths["train 1 rank"] = phase_train_one(torch, 1_235_814_400)
     paths["train 2 ranks"] = phase_train_two(torch)
@@ -1843,7 +2251,7 @@ def main() -> int:
                     "cases": flash["cases"]})
     kernels.append({"name": "ssm_scan_chunk", "route": "cuda", "source": SSM_SOURCE,
                     "replaces": SSM_REPLACES,
-                    "launches": paths["serve hymba-1.5b"]["ssm_scan_chunk"],
+                    "launches": sum(n["ssm_scan_chunk"] for n in serve_paths),
                     **{k: scan[k] for k in keys}, "launches_by_path": by_path["ssm_scan_chunk"]})
     check(not THREAD_ERRORS, f"exceptions in threads: {THREAD_ERRORS}")
     print(smi)

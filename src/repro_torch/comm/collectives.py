@@ -29,9 +29,12 @@ bytes the reference's schedule moves, and no all-reduce ever stands in for
 the ring or the reduce-scatter.
 
 ``SENT`` counts the bytes this rank hands to the transport, keyed
-``"<operation>@<axis>"``: a point-to-point send its size; an all-reduce of B
-bytes over n ranks 2(n-1)/n·B, and an all-gather of B bytes (n-1)·B, as their
-ring schedules send them (the library's own algorithm may differ).
+``"<operation>@<axis>"``: a point-to-point send its size; an all-reduce (sum
+or max) of B bytes over n ranks 2(n-1)/n·B, an all-gather of B bytes (n-1)·B
+and an all-to-all of n blocks of b bytes (n-1)·b, as their ring or direct
+schedules send them (the library's own algorithm may differ). The serving
+path's all-to-all (``all_to_all@model``, the MoE dispatch) and max
+(``all_reduce_max@model``, the flash-decode combine) are counted so.
 
 Sharded parameters (``models.sharding.Layout``) are gathered for the forward
 by :func:`gather_param`, counted as ``gather_param@<axis>``; its backward
@@ -128,6 +131,50 @@ def all_gather(x: torch.Tensor, mesh, axis: str, *, op: str = "all_gather") -> t
     out = torch.empty((n,) + tuple(src.shape), dtype=src.dtype, device=src.device)
     dist.all_gather_into_tensor(out, src, group=mesh.group(axis))
     return out
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axis: str, *,
+                   op: str = "all_reduce_max") -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``axis`` (a new tensor): the
+    reference's ``pmax``."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x.clone()
+    buf = _staged(mesh, x)
+    buf = buf.clone() if buf is x else buf
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=mesh.group(axis))
+    _count(op, axis, 2 * (n - 1) / n * buf.numel() * buf.element_size())
+    return buf.to(x.device)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, *, op: str = "all_to_all") -> torch.Tensor:
+    """Block ``j`` of ``x`` (n, ...) goes to the rank at index ``j`` along
+    ``axis``; the result (n, ...) is indexed by source rank: the reference's
+    ``all_to_all(x, axis, split_axis=0, concat_axis=0, tiled=False)``.
+    Point-to-point sends to each peer under gloo, the library's all-to-all
+    under NCCL."""
+    n = mesh.shape[axis]
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all over {axis} ({n} ranks) of a leading dim {x.shape[0]}")
+    if n == 1:
+        return x.clone()
+    src = _staged(mesh, x.contiguous())
+    out = torch.empty_like(src)
+    _count(op, axis, (n - 1) * src[0].numel() * src.element_size())
+    if mesh.backend != "gloo":
+        dist.all_to_all_single(out, src, group=mesh.group(axis))
+        return out
+    members, i = mesh.members(axis), mesh.coords[axis]
+    group = mesh.group(axis)
+    out[i] = src[i]
+    ops = []
+    for j in range(n):
+        if j != i:
+            ops += [dist.P2POp(dist.isend, src[j], members[j], group),
+                    dist.P2POp(dist.irecv, out[j], members[j], group)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return out.to(x.device)
 
 
 def _exchange(mesh, axis: str, send: torch.Tensor, recv: torch.Tensor,

@@ -8,6 +8,9 @@
       --layers 3 --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --batch 2 --prompt-len 32 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --world 4 --data 2 --model 2 --kv-partition sequence \\
+      --batch 4 --prompt-len 2048 --gen 32
 
 The counterpart of ``src/repro/launch/serve.py``, for every family. It
 serves parameters drawn from seed 0 (the reference serves its random init
@@ -28,6 +31,18 @@ does: every K/V leaf (the encoder-decoder's cross caches too), only the
 global layers' K/V of the hybrid family, nothing of xlstm's state. The last
 line printed gives prefill ms, decode ms per token and the first row of
 generated tokens.
+
+``--world N`` serves on a mesh of N ranks, one process each
+(``serving.steps.serve_sharded``): (pod, data, model) with ``--data`` and
+``--model`` ranks on those axes, parameters laid out by the reference's
+``param_specs``, the batch's rows dealt over pod and data, the cache's
+capacity ``prompt + gen`` rounded up to a multiple of 64, decode through
+the KV-partition chunnel ``--kv-partition`` (``auto``: heads where the KV
+heads divide ``--model``, else sequence) and the moe family's expert
+dispatch ``--moe-dispatch`` (``alltoall`` by default, the config's). These
+are the ``ShardingConfig(kv_partition=...)`` and ``moe.dispatch`` that the
+reference's dry run sets. Each rank prints its prefill ms, decode ms per
+token and the bytes it sent by ``op@axis``.
 """
 from __future__ import annotations
 
@@ -139,7 +154,15 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     ap.add_argument("--attn-impl", default="pallas", choices=IMPLS)
     ap.add_argument("--layers", type=int, default=None,
                     help="serve the first N layers (a cut of depth)")
+    ap.add_argument("--world", type=int, default=1, help="ranks, one process each")
+    ap.add_argument("--data", type=int, default=1, help="ranks on the data axis")
+    ap.add_argument("--model", type=int, default=1, help="ranks on the model axis")
+    ap.add_argument("--kv-partition", default="auto", choices=("auto", "heads", "sequence"))
+    ap.add_argument("--moe-dispatch", default=None,
+                    choices=("dense", "grouped", "alltoall", "allgather"))
     args = ap.parse_args(argv)
+    if args.world > 1:
+        return _main_sharded(args)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(attn_impl=args.attn_impl)
@@ -153,6 +176,25 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
           f"decode={res.decode_ms_per_token:.1f}ms/tok "
           f"first row: {res.tokens[0, :10].tolist()}")
     return res
+
+
+def _main_sharded(args: argparse.Namespace) -> list:
+    from repro_torch.serving.steps import serve_sharded
+
+    ranks = serve_sharded(args.arch, world=args.world, data=args.data, model=args.model,
+                          kv_partition=args.kv_partition, moe_dispatch=args.moe_dispatch,
+                          smoke=args.smoke, batch=args.batch, prompt_len=args.prompt_len,
+                          gen=args.gen, device=args.device, attn_impl=args.attn_impl,
+                          layers=args.layers)
+    for r in ranks:
+        run = r["runs"][0]
+        print(f"arch={r['arch']} rank {r['rank']} {r['coords']} kv={run['kv']} "
+              f"prefill({run['tokens'].shape[0]} rows x {args.prompt_len})="
+              f"{run['prefill_s'] * 1e3:.0f}ms decode={run['decode_s'] / args.gen * 1e3:.1f}"
+              f"ms/tok sent {run['sent_prefill']} + {run['sent_decode']}")
+    print(f"arch={ranks[0]['arch']} world={args.world} first row: "
+          f"{ranks[0]['runs'][0]['tokens'][0, :10].tolist()}")
+    return ranks
 
 
 if __name__ == "__main__":

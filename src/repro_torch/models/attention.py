@@ -129,3 +129,52 @@ def decode_attention_local(q, k_cache, v_cache, cache_len, *,
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bkgs,bskd->bkgd", w, v_cache).reshape(B, 1, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# The decode-attention slot (the KV-partition chunnel's seam)
+# ---------------------------------------------------------------------------
+
+
+class LocalDecode:
+    """The decode slot's default: a cache that lies whole on this rank.
+
+    A slot is called as ``attn_fn(q, k_cache, v_cache, kv_len, window)``, the
+    reference's signature, and says two more things a partitioned cache
+    changes (``comm.kvshard``): ``capacity(k_cache)``, the positions the
+    cache holds over all its shards, and ``write(cache, new, pos)``, which
+    puts the new entry ``new`` (B, 1, KH, hd) of position ``pos`` into this
+    rank's ``cache`` (B, S, KH, hd) in place. In the reference the write is
+    a ``dynamic_update_slice`` of the global array and the partitioner finds
+    the owner."""
+
+    def capacity(self, k_cache: torch.Tensor) -> int:
+        return k_cache.shape[1]
+
+    def write(self, cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+        cache[:, pos] = new[:, 0].to(cache.dtype)
+
+    def __call__(self, q, k_cache, v_cache, kv_len, window=None):
+        return decode_attention_local(q, k_cache, v_cache, kv_len, window=window)
+
+
+class _FnDecode(LocalDecode):
+    """A plain ``attn_fn`` over a whole local cache, in the slot."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, q, k_cache, v_cache, kv_len, window=None):
+        return self.fn(q, k_cache, v_cache, kv_len, window)
+
+
+LOCAL_DECODE = LocalDecode()
+
+
+def decode_slot(attn_fn=None) -> LocalDecode:
+    """The slot for ``attn_fn``: the local default for None, a partitioned
+    slot as it is (it has ``write``), a plain function over a whole cache
+    wrapped."""
+    if attn_fn is None:
+        return LOCAL_DECODE
+    return attn_fn if hasattr(attn_fn, "write") else _FnDecode(attn_fn)

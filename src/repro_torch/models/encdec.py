@@ -191,15 +191,19 @@ class EncDecLM(DenseLM):
         return {**{n: F.pad(cache[n], pad) for n in CACHE_KEYS}, "len": cache["len"]}
 
     @torch.no_grad()
-    def decode_step(self, cache: dict, tokens: torch.Tensor):
+    def decode_step(self, cache: dict, tokens: torch.Tensor, attn_fn=None):
         """One token per row, ``tokens`` ``(B, 1)``: self-attention over the
         ``len + 1`` cached positions (its K and V written at ``len``, in
-        place), cross-attention over every row of ``xk`` and ``xv``."""
+        place) through the slot ``attn_fn`` (the model's ``decode_attn_fn``
+        where None), cross-attention over every row of ``xk`` and ``xv``,
+        local (``src/repro/models/encdec.py:187-195``)."""
         cfg = self.cfg
+        slot = attn.decode_slot(attn_fn if attn_fn is not None else self.decode_attn_fn)
         B = tokens.shape[0]
         pos = int(cache["len"])
-        if pos >= cache["k"].shape[2]:
-            raise ValueError(f"the cache holds {cache['k'].shape[2]} positions, all used; "
+        cap = slot.capacity(cache["k"][0])
+        if pos >= cap:
+            raise ValueError(f"the cache holds {cap} positions, all used; "
                              "grow it before decoding")
         x = self.embed(tokens)
         rope = rope_cos_sin(torch.arange(pos, pos + 1, device=x.device), cfg.head_dim_,
@@ -207,9 +211,9 @@ class EncDecLM(DenseLM):
         n_src = cache["xk"].shape[2]
         for i, layer in enumerate(self.decoder):
             q, k, v = layer.self_attn.qkv(layer.ln1(x), rope)
-            cache["k"][i, :, pos] = k[:, 0].to(COMPUTE)
-            cache["v"][i, :, pos] = v[:, 0].to(COMPUTE)
-            o = attn.decode_attention_local(q, cache["k"][i], cache["v"][i], pos + 1)
+            slot.write(cache["k"][i], k, pos)
+            slot.write(cache["v"][i], v, pos)
+            o = slot(q, cache["k"][i], cache["v"][i], pos + 1, None)
             x = x + layer.self_attn.wo(o.reshape(B, 1, -1))
             qx = layer.cross_attn.wq(layer.lnx(x)).reshape(B, 1, cfg.num_heads, cfg.head_dim_)
             ox = attn.decode_attention_local(qx, cache["xk"][i], cache["xv"][i], n_src)

@@ -14,7 +14,9 @@ the full K/V, and every layer its SSM state (``ssm_h`` float32,
 "len": int}``.
 
 Decode attends over a ring by count, ``min(pos + 1, cap)`` entries, with no
-window mask, as the reference does: slot order does not matter to the
+window mask, as the reference does; the KV-partition slot (``attn_fn``)
+serves the global layers only, and the rings stay local
+(``src/repro/models/hymba.py:127-130``): slot order does not matter to the
 softmax, and a ring of ``cap`` slots holds the last ``cap`` positions. A ring
 made by a prompt shorter than the window has ``cap = S`` slots, so decode
 overwrites position 0 although it is still inside the window: a quirk of
@@ -159,12 +161,15 @@ class HymbaLM(DenseLM):
         return {"layers": layers, "len": S}, self._logits(self.final_norm(x)[:, -1])
 
     @torch.no_grad()
-    def decode_step(self, cache: dict, tokens: torch.Tensor):
+    def decode_step(self, cache: dict, tokens: torch.Tensor, attn_fn=None):
         """One token per row, ``tokens`` ``(B, 1)``, against the cache: its K
         and V are written at position ``len`` of a global layer and at slot
-        ``len % cap`` of a ring. The K/V tensors are updated in place (the
-        reference returns new arrays); the returned cache shares them."""
+        ``len % cap`` of a ring. A global layer attends through the slot
+        ``attn_fn`` (the model's ``decode_attn_fn`` where None). The K/V
+        tensors are updated in place (the reference returns new arrays); the
+        returned cache shares them."""
         cfg = self.cfg
+        slot = attn.decode_slot(attn_fn if attn_fn is not None else self.decode_attn_fn)
         B = tokens.shape[0]
         pos = int(cache["len"])
         x = self.embed(tokens)
@@ -172,7 +177,8 @@ class HymbaLM(DenseLM):
                             cfg.rope_theta)
         layers = []
         for idx, (layer, c) in enumerate(zip(self.layers, cache["layers"])):
-            cap = c["k"].shape[1]
+            kv = slot if self._is_global(idx) else attn.LOCAL_DECODE
+            cap = kv.capacity(c["k"])
             if self._is_global(idx):
                 if pos >= cap:
                     raise ValueError(f"layer {idx} holds {cap} positions, all used; "
@@ -182,9 +188,9 @@ class HymbaLM(DenseLM):
                 write = pos % cap  # ring buffer
             xn = layer.ln1(x)
             q, k, v = layer.attn.qkv(xn, rope)
-            c["k"][:, write] = k[:, 0].to(c["k"].dtype)
-            c["v"][:, write] = v[:, 0].to(c["v"].dtype)
-            o = attn.decode_attention_local(q, c["k"], c["v"], min(pos + 1, cap))
+            kv.write(c["k"], k, write)
+            kv.write(c["v"], v, write)
+            o = kv(q, c["k"], c["v"], min(pos + 1, cap), None)
             a = layer.attn.wo(o.reshape(B, 1, -1))
             s, st = ssm.ssm_decode(layer.ssm, xn, cfg.ssm,
                                    ssm.SSMState(h=c["ssm_h"], conv=c["ssm_conv"]),

@@ -45,6 +45,11 @@ def _param(shape, device) -> nn.Parameter:
 class Linear(nn.Module):
     """``y = x @ w (+ b)`` in bfloat16; ``w`` is ``(d_in, d_out)`` float32."""
 
+    #: True where the serving forward also multiplies the float32 weight
+    #: (``forward(..., dtype=torch.float32)``, the MoE router): a sharded
+    #: server then keeps a float32 working copy beside the bfloat16 one
+    reads_f32 = False
+
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False, device=None):
         super().__init__()
         self.w = _param((d_in, d_out), device)

@@ -8,10 +8,32 @@ expert-dispatch layer is a Select (``cfg.moe.dispatch``, negotiated by
   dense      every expert for every token, weighted: the oracle, tiny
              configs only
   grouped    capacity-based gather, batched expert SwiGLU, scatter combine
-  alltoall   expert-parallel over the mesh's ``model`` axis: with no mesh the
-  allgather  reference resolves both to ``grouped`` (``moe_ffn``), and so does
-             the port; on a mesh with a ``model`` axis they raise
-             ``NotImplementedError`` (ROADMAP §A item 7b)
+  alltoall   expert-parallel over the mesh's ``model`` axis: each rank
+             routes its slice of tokens, all-to-alls the capacity buffers
+             to the experts' owners, runs its E/|model| experts and
+             all-to-alls the outputs back
+  allgather  each rank runs its E/|model| experts for its data row's tokens
+             (all-gathered over ``model``), the partial outputs summed
+
+``alltoall`` and ``allgather`` run on a mesh with a ``data`` and a ``model``
+axis whose sizes divide the global batch, the sequence and the experts
+(``moe_ffn``, the reference's conditions at ``moe.py:317-329``); anywhere
+else they resolve to ``grouped``, as the reference's do (decode, with one
+token a row, always). On a mesh, ``moe_ffn`` is given this rank's rows of
+the global batch (``batch_split`` blocks of rows dealt over ``pod`` and
+``data``, 1 where every rank holds them all; the caller passes it), each
+rank computing the whole forward on its rows: the mesh dispatches take the
+rank's ``S/|model|`` slice of the sequence (the reference's in-spec
+``P(b_axes, "model", None)``), route it with the capacity of its own
+tokens, run the rank's ``E/|model|`` experts, and hand the output back
+all-gathered over ``model``; ``grouped`` and ``dense`` on dealt rows route
+the global batch (its rows all-gathered), as the reference's global
+computation does. The load-balance aux loss is averaged over ``model``,
+then ``data``, as in the reference. The rank's experts are slices of the
+bfloat16 serving banks, which every rank holds whole for decode's
+``grouped``; the reference gathers them over ``data`` inside the dispatch
+(``_gathered_weights``) because its banks stay sharded, which decode on one
+rank's whole forward cannot keep.
 
 All share the routing (``route``) and ``capacity``. The expert products are
 ``torch.bmm``/``torch.einsum`` in bfloat16, as the reference leaves its
@@ -42,8 +64,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.comm import collectives
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import COMPUTE, Linear, Norm, activation, truncated_normal_
+from repro_torch.models.sharding import batch_axes
 from repro_torch.models.transformer import Attention, DenseLM
 
 AUX_LOSS_COEF = 0.01
@@ -62,6 +86,7 @@ class MoeMLP(nn.Module):
         m = cfg.moe
         E, D, Fe = m.num_experts, cfg.d_model, m.d_ff_expert
         self.router = Linear(D, E, device=device)
+        self.router.reads_f32 = True  # ``route`` multiplies the float32 weight
         self.gate = nn.Parameter(torch.empty((E, D, Fe), device=device))
         self.up = nn.Parameter(torch.empty((E, D, Fe), device=device))
         self.down = nn.Parameter(torch.empty((E, Fe, D), device=device))
@@ -166,22 +191,36 @@ def dispatch_dense(p: MoeMLP, x2d: torch.Tensor, cfg: ModelConfig):
     return y.to(x2d.dtype), aux
 
 
-def _gather_scatter_ffn(p: MoeMLP, x2d: torch.Tensor, gates, ids, cfg: ModelConfig, C: int):
-    """Capacity gather -> expert ffn -> scatter combine. x2d ``(T, D)``."""
-    Tn, D = x2d.shape
-    E = cfg.moe.num_experts
-    pos, keep = _positions_in_expert(ids, E, C)
-    tok_idx = torch.arange(Tn, device=x2d.device)[:, None].expand_as(ids)
-    # sentinel row T gathers zeros for empty slots
-    x_pad = torch.cat([x2d, x2d.new_zeros(1, D)], dim=0)
-    slot_tok = torch.full((E, C), Tn, dtype=torch.long, device=x2d.device)
+def _slot_tokens(ids, pos, keep, n_experts: int, C: int, sentinel: int) -> torch.Tensor:
+    """(n_experts, C): the token in each capacity slot, ``sentinel`` (a zero
+    row) where empty; only the kept (token, slot) pairs are scattered."""
+    tok_idx = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)
+    slot_tok = torch.full((n_experts, C), sentinel, dtype=torch.long, device=ids.device)
     kept = keep.reshape(-1)
     slot_tok.index_put_((ids.reshape(-1)[kept], pos.reshape(-1)[kept]),
                         tok_idx.reshape(-1)[kept])
-    y_sorted = expert_ffn(p.banks(), x_pad[slot_tok], cfg)  # (E, C, D)
-    y_tk = y_sorted[ids, pos.clamp(max=C - 1)]  # (T, k, D); dropped slots weigh 0
-    w = (gates * keep).float()
-    return torch.einsum("tkd,tk->td", y_tk.float(), w).to(x2d.dtype)
+    return slot_tok
+
+
+def _combine(y_sorted, ids, pos, gates, keep, C: int) -> torch.Tensor:
+    """(T, D) float32: each token's kept slots' expert outputs, weighted by
+    their gates; dropped slots read a clamped position and weigh 0."""
+    y_tk = y_sorted[ids, pos.clamp(max=C - 1)]  # (T, k, D)
+    return torch.einsum("tkd,tk->td", y_tk.float(), (gates * keep).float())
+
+
+def _sorted_tokens(x2d, slot_tok) -> torch.Tensor:
+    """The capacity buffers ``x2d[slot_tok]``, empty slots gathering zeros."""
+    return torch.cat([x2d, x2d.new_zeros(1, x2d.shape[1])], dim=0)[slot_tok]
+
+
+def _gather_scatter_ffn(p: MoeMLP, x2d: torch.Tensor, gates, ids, cfg: ModelConfig, C: int):
+    """Capacity gather -> expert ffn -> scatter combine. x2d ``(T, D)``."""
+    E = cfg.moe.num_experts
+    pos, keep = _positions_in_expert(ids, E, C)
+    slot_tok = _slot_tokens(ids, pos, keep, E, C, x2d.shape[0])
+    y_sorted = expert_ffn(p.banks(), _sorted_tokens(x2d, slot_tok), cfg)  # (E, C, D)
+    return _combine(y_sorted, ids, pos, gates, keep, C).to(x2d.dtype)
 
 
 def dispatch_grouped(p: MoeMLP, x2d: torch.Tensor, cfg: ModelConfig):
@@ -191,24 +230,128 @@ def dispatch_grouped(p: MoeMLP, x2d: torch.Tensor, cfg: ModelConfig):
     return _gather_scatter_ffn(p, x2d, gates, ids, cfg, C), aux
 
 
-def moe_ffn(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh=None):
-    """The dispatch Select's resolution: x3d ``(B, S, D)`` -> (``(B, S, D)``,
-    aux). ``alltoall`` and ``allgather`` resolve to ``grouped`` without a
-    mesh that has a ``model`` axis, as the reference's do; with one they
-    raise."""
+def _local_banks(p: MoeMLP, mesh, axis: str):
+    """This rank's E/|axis| experts of the bfloat16 serving banks, whole in
+    d_model (the reference's ``_gathered_weights``)."""
+    n, r = mesh.shape[axis], mesh.coords[axis]
+    banks = p.banks()
+    e_loc = banks[0].shape[0] // n
+    return tuple(w[r * e_loc:(r + 1) * e_loc] for w in banks)
+
+
+def _mean_aux(aux: torch.Tensor, mesh, axis: str, data_axis: str) -> torch.Tensor:
+    """``pmean(pmean(aux, axis), data_axis)``."""
+    for a in (axis, data_axis):
+        aux = collectives.all_reduce_sum(aux.reshape(1), mesh, a)[0] / mesh.shape[a]
+    return aux
+
+
+def _seq_slice(x3d: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """This rank's S/|axis| positions of its rows, flattened: (B_l*S_l, D)."""
+    n, r = mesh.shape[axis], mesh.coords[axis]
+    B_l, S, D = x3d.shape
+    s_l = S // n
+    return x3d[:, r * s_l:(r + 1) * s_l].reshape(B_l * s_l, D)
+
+
+def dispatch_alltoall(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
+                      axis: str = "model", data_axis: str = "data"):
+    """Explicit expert-parallel all-to-all over ``axis``.
+
+    x3d ``(B_l, S, D)`` is this rank's rows. The rank routes its S/n slice
+    of them with the capacity of its own tokens, all-to-alls the
+    ``(n, E/n, C, D)`` capacity buffers to the experts' owners, computes its
+    E/n experts, all-to-alls the outputs back and combines them; the output
+    is all-gathered over ``axis`` into the rows' whole sequence. Returns
+    (``(B_l, S, D)``, aux)."""
+    n = mesh.shape[axis]
+    E = cfg.moe.num_experts
+    if E % n:
+        raise ValueError(f"{E} experts over {n} ranks")
+    B_l, S, D = x3d.shape
+    x_loc = _seq_slice(x3d, mesh, axis)
+    banks = _local_banks(p, mesh, axis)
+    gates, ids, aux = route(p.router.w, x_loc, cfg)
+    C = capacity(x_loc.shape[0], cfg)
+    pos, keep = _positions_in_expert(ids, E, C)
+    x_sorted = _sorted_tokens(x_loc, _slot_tokens(ids, pos, keep, E, C, x_loc.shape[0]))
+    # (n, E_loc, C, D) --a2a--> indexed by source rank
+    x_recv = collectives.all_to_all(x_sorted.to(COMPUTE).reshape(n, E // n, C, D), mesh, axis)
+    x_pe = x_recv.transpose(0, 1).reshape(E // n, n * C, D)
+    y_pe = expert_ffn(banks, x_pe, cfg)
+    y_send = y_pe.reshape(E // n, n, C, D).transpose(0, 1).contiguous()
+    y_sorted = collectives.all_to_all(y_send, mesh, axis).reshape(E, C, D)  # this rank's slots
+    y_loc = _combine(y_sorted, ids, pos, gates, keep, C).to(x3d.dtype)
+    y = collectives.gather_dim(y_loc.reshape(B_l, S // n, D), mesh, axis, 1)
+    return y, _mean_aux(aux, mesh, axis, data_axis)
+
+
+def dispatch_allgather(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
+                       axis: str = "model", data_axis: str = "data"):
+    """Each model-rank computes its local experts for its data row's
+    tokens: the rank's S/n slice is all-gathered over ``axis`` (bfloat16),
+    routed with the capacity of the row's tokens, and the partial outputs
+    summed over ``axis``. The sum is the row's whole output, the port's
+    layout: the reference keeps this rank's slice of it. Returns
+    (``(B_l, S, D)``, aux)."""
+    n, r = mesh.shape[axis], mesh.coords[axis]
+    E = cfg.moe.num_experts
+    if E % n:
+        raise ValueError(f"{E} experts over {n} ranks")
+    e_loc = E // n
+    B_l, S, D = x3d.shape
+    x_loc = _seq_slice(x3d, mesh, axis)
+    banks = _local_banks(p, mesh, axis)
+    x_row = collectives.gather_dim(x_loc.to(COMPUTE), mesh, axis, 0)  # (n*T_loc, D)
+    Tn = x_row.shape[0]
+    gates, ids, aux = route(p.router.w, x_row.float(), cfg)
+    C = capacity(Tn, cfg)
+    pos, keep = _positions_in_expert(ids, E, C)
+    keep_loc = keep & ((ids // e_loc) == r)
+    ids_loc = torch.where(keep_loc, ids - r * e_loc, 0)
+    x_sorted = _sorted_tokens(x_row, _slot_tokens(ids_loc, pos, keep_loc, e_loc, C, Tn))
+    y_sorted = expert_ffn(banks, x_sorted, cfg)
+    y_part = _combine(y_sorted, ids_loc, pos, gates, keep_loc, C)  # (Tn, D)
+    y_row = collectives.all_reduce_sum(y_part, mesh, axis)
+    # rows of x_row are (model rank, row, position in the slice)
+    y = y_row.reshape(n, B_l, S // n, D).transpose(0, 1).reshape(B_l, S, D)
+    return y.to(x3d.dtype), _mean_aux(aux, mesh, axis, data_axis)
+
+
+def moe_ffn(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh=None, *,
+            batch_split: int = 1):
+    """The dispatch Select's resolution: x3d ``(B_l, S, D)`` -> (``(B_l, S,
+    D)``, aux). On ``mesh`` x3d is this rank's rows: one of ``batch_split``
+    blocks of the global batch dealt over ``pod`` and ``data`` (1: all of
+    them). ``alltoall`` and ``allgather`` run on a mesh with ``data`` and
+    ``model`` axes when the global batch divides the batch axes and
+    ``model`` divides the sequence and the experts; else they resolve to
+    ``grouped``, as the reference's do."""
     impl = cfg.moe.dispatch
     if impl not in DISPATCHES:
         raise ValueError(f"unknown moe dispatch {impl!r}")
-    axes = tuple(getattr(mesh, "axis_names", ())) if mesh is not None else ()
-    if impl in ("alltoall", "allgather") and "model" in axes:
-        raise NotImplementedError(
-            f"the {impl} expert-parallel dispatch over torch.distributed is not ported "
-            "(ROADMAP §A item 7b); serve on one device, or negotiate grouped")
-    B, S, D = x3d.shape
-    x2d = x3d.reshape(B * S, D)
+    B_l, S, D = x3d.shape
+    axes = tuple(mesh.axis_names) if mesh is not None else ()
+    n_batch = math.prod(mesh.shape[a] for a in batch_axes(mesh)) if mesh is not None else 1
+    n_model = mesh.shape["model"] if "model" in axes else 1
+    manual_ok = ("model" in axes and "data" in axes and (B_l * batch_split) % n_batch == 0
+                 and S % n_model == 0 and cfg.moe.num_experts % n_model == 0)
+    if impl == "alltoall" and manual_ok:
+        return dispatch_alltoall(p, x3d, cfg, mesh)
+    if impl == "allgather" and manual_ok:
+        return dispatch_allgather(p, x3d, cfg, mesh)
     fn = dispatch_dense if impl == "dense" else dispatch_grouped
-    y, aux = fn(p, x2d, cfg)
-    return y.reshape(B, S, D), aux
+    if batch_split == 1:
+        y, aux = fn(p, x3d.reshape(B_l * S, D), cfg)
+        return y.reshape(B_l, S, D), aux
+    # dealt rows: the global batch's tokens, routed together, as the
+    # reference's global computation routes them; this rank keeps its rows
+    x_all = x3d
+    for a in reversed(batch_axes(mesh)):  # innermost first: rows in (pod, data) order
+        x_all = collectives.gather_dim(x_all, mesh, a, 0)
+    y, aux = fn(p, x_all.reshape(-1, D), cfg)
+    idx, _ = mesh.batch_index()
+    return y.reshape(-1, S, D)[idx * B_l:(idx + 1) * B_l], aux
 
 
 # ---------------------------------------------------------------------------
@@ -218,10 +361,12 @@ def moe_ffn(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh=None):
 
 class MoeLM(DenseLM):
     """The moe family's model: ``DenseLM``'s embedding, attention, cache,
-    prefill and decode, with each layer's MLP replaced by ``moe_ffn``."""
+    prefill and decode, with each layer's MLP replaced by ``moe_ffn`` on the
+    model's ``mesh``."""
 
     FAMILY, LAYER = "moe", MoeLayer
 
-    def _ffn(self, layer: MoeLayer, h: torch.Tensor) -> torch.Tensor:
-        y, _aux = moe_ffn(layer.moe, layer.ln2(h), self.cfg)
+    def _ffn(self, layer: MoeLayer, h: torch.Tensor, batch_split: int = 1) -> torch.Tensor:
+        y, _aux = moe_ffn(layer.moe, layer.ln2(h), self.cfg, self.mesh,
+                          batch_split=batch_split)
         return y

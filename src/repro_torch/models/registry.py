@@ -11,7 +11,8 @@ labels). ``serve_batch_specs(cfg, shape)`` is the reference's
 and the audio batch ``frames`` outside decode. ``param_specs(model, sh,
 mesh)`` is the reference's ``Model.param_specs``: the spec of every leaf of
 the model's parameter tree in the reference's layout
-(``stacking.stack_layers`` over the model's ``stacks()``)."""
+(``stacking.stack_layers`` over the model's ``stacks()``).
+``cache_shapes(cfg, shape)`` is the reference's ``Model.cache_specs``."""
 from __future__ import annotations
 
 import importlib
@@ -102,10 +103,25 @@ def param_specs(model, sh, mesh=None):
     return sharding.param_specs(param_shapes(model), sh, mesh)
 
 
-def build(cfg: ModelConfig, *, device="cuda", seed: int = 0):
+def cache_shapes(cfg: ModelConfig, shape: ShapeConfig):
+    """The reference's ``Model.cache_specs(shape)``: the cache tree of
+    ``shape.global_batch`` rows and ``shape.seq_len`` positions as meta
+    tensors (``"len"`` an int), from a model on the meta device."""
+    model = model_class(cfg)(cfg, device=torch.device("meta"))
+    return model.init_cache(shape.global_batch, shape.seq_len)
+
+
+def build(cfg: ModelConfig, *, device="cuda", seed: int = 0, mesh=None,
+          decode_attn_fn=None):
     """The model of ``cfg`` on ``device``, its parameters drawn from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``; ``decode_attn_fn`` is its
+    decode's KV-partition slot (``comm.kvshard``; the local attention where
+    None). With a ``mesh`` (the rank's, the reference's ``build(cfg,
+    mesh)``) the model is drawn in full but makes no serving copies: a
+    sharded serve step (``serving.steps``) lays its parameters out and
+    makes them from the blocks."""
     dev = backend.resolve_device(device)
-    cls = model_class(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return cls(cfg, device=dev, generator=gen)
+    model = model_class(cfg)(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    model.mesh, model.decode_attn_fn = mesh, decode_attn_fn
+    return model if mesh is not None else model.prepare()

@@ -25,8 +25,13 @@ Parameter names follow the reference's tree (``embed.table``,
 
 ``attn_impl`` starts as the config's and can be switched on a built model;
 it is the Select of ``models.attention.attention`` (``"pallas"`` is the
-Hopper flash-attention kernel). Decode attends through
-``decode_attention_local`` in every case, as the reference's default.
+Hopper flash-attention kernel). Decode attends through the KV-partition
+chunnel slot, ``decode_step(..., attn_fn)`` or the model's
+``decode_attn_fn`` (``registry.build(decode_attn_fn=...)``):
+``decode_attention_local`` over a whole local cache by default, as the
+reference's, or a branch of ``comm.kvshard`` over this rank's shard of it.
+``mesh`` is the rank's mesh when the model serves on one
+(``serving.steps``; the moe family's expert dispatch reads it).
 """
 from __future__ import annotations
 
@@ -102,6 +107,9 @@ class DenseLM(nn.Module):
 
     #: the family served, and its layer's module (a subclass sets both)
     FAMILY, LAYER = "dense", DecoderLayer
+    #: the rank's mesh, and the decode slot (``registry.build`` sets both)
+    mesh = None
+    decode_attn_fn = None
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -258,16 +266,21 @@ class DenseLM(nn.Module):
                 "v": torch.zeros(shape, dtype=COMPUTE, device=self.device),
                 "len": 0}
 
-    def _ffn(self, layer: nn.Module, h: torch.Tensor) -> torch.Tensor:
-        """The serving layer's feed-forward branch on the residual ``h``."""
+    def _ffn(self, layer: nn.Module, h: torch.Tensor, batch_split: int = 1) -> torch.Tensor:
+        """The serving layer's feed-forward branch on the residual ``h``; a
+        row-local one ignores ``batch_split``."""
         return layer.mlp(layer.ln2(h))
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None):
+    def prefill(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None, *,
+                batch_split: int = 1):
         """Process the whole prompt ``(B, S)`` (its first P embeddings
         replaced by ``patches`` ``(B, P, D)`` where given); return the cache
         of its S positions and the last position's logits
-        ``(B, vocab_padded)``."""
+        ``(B, vocab_padded)``. On a mesh, ``tokens`` may be this rank's
+        block of ``batch_split`` blocks of the global batch's rows (a
+        sharded serve step's): the moe family's dispatch routes the global
+        batch, the other layers are row-local."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embed(tokens)
@@ -280,7 +293,7 @@ class DenseLM(nn.Module):
             o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                                window=cfg.sliding_window, chunk=cfg.attn_chunk)
             x = x + layer.attn.wo(o.reshape(B, S, -1))
-            x = x + self._ffn(layer, x)
+            x = x + self._ffn(layer, x, batch_split)
             ks.append(k.to(COMPUTE))
             vs.append(v.to(COMPUTE))
         x = self.final_norm(x)
@@ -292,28 +305,32 @@ class DenseLM(nn.Module):
         return grow_cache(cache, extra)
 
     @torch.no_grad()
-    def decode_step(self, cache: dict, tokens: torch.Tensor):
+    def decode_step(self, cache: dict, tokens: torch.Tensor, attn_fn=None, *,
+                    batch_split: int = 1):
         """One token per row, ``tokens`` ``(B, 1)``, against the cache: its K
         and V are written at position ``cache["len"]`` and the token attends
-        to ``len + 1`` entries. The cache's tensors are updated in place (the
-        reference returns new arrays); the returned cache shares them."""
+        to ``len + 1`` entries through the slot ``attn_fn`` (the model's
+        ``decode_attn_fn`` where None). The cache's tensors are updated in
+        place (the reference returns new arrays); the returned cache shares
+        them. ``batch_split`` as for :meth:`prefill`."""
         cfg = self.cfg
+        slot = attn.decode_slot(attn_fn if attn_fn is not None else self.decode_attn_fn)
         B = tokens.shape[0]
         pos = int(cache["len"])
-        if pos >= cache["k"].shape[2]:
-            raise ValueError(f"the cache holds {cache['k'].shape[2]} positions, all used; "
+        cap = slot.capacity(cache["k"][0])
+        if pos >= cap:
+            raise ValueError(f"the cache holds {cap} positions, all used; "
                              "grow it before decoding")
         x = self.embed(tokens)
         rope = rope_cos_sin(torch.arange(pos, pos + 1, device=x.device), cfg.head_dim_,
                             cfg.rope_theta)
         for i, layer in enumerate(self.layers):
             q, k, v = layer.attn.qkv(layer.ln1(x), rope)
-            cache["k"][i, :, pos] = k[:, 0].to(COMPUTE)
-            cache["v"][i, :, pos] = v[:, 0].to(COMPUTE)
-            o = attn.decode_attention_local(q, cache["k"][i], cache["v"][i], pos + 1,
-                                            window=cfg.sliding_window)
+            slot.write(cache["k"][i], k, pos)
+            slot.write(cache["v"][i], v, pos)
+            o = slot(q, cache["k"][i], cache["v"][i], pos + 1, cfg.sliding_window)
             x = x + layer.attn.wo(o.reshape(B, 1, -1))
-            x = x + self._ffn(layer, x)
+            x = x + self._ffn(layer, x, batch_split)
         x = self.final_norm(x)
         return {"k": cache["k"], "v": cache["v"], "len": pos + 1}, self._logits(x[:, -1])
 

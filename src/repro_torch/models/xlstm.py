@@ -59,6 +59,8 @@ class MLSTM(nn.Module):
         self.wf = Linear(D, H, bias=True, device=device)
         self.wo_gate = Linear(D, H * hd, device=device)
         self.wo = Linear(H * hd, D, device=device)
+        for lin in (self.wi, self.wf, self.wo_gate):  # the gates run in float32
+            lin.reads_f32 = True
 
     def init(self, gen: torch.Generator) -> None:
         self.ln.init()
@@ -152,6 +154,8 @@ class SLSTM(nn.Module):
         self.r = nn.Parameter(torch.empty((4, D), dtype=F32, device=device))
         self.ln2 = Norm(D, cfg.norm, cfg.norm_eps, device=device)
         self.ffn = MLP(D, int(D * 4 / 3), gated=True, act=cfg.act, device=device)
+        for lin in (self.wz, self.wi, self.wf, self.wo_gate):  # the gates run in float32
+            lin.reads_f32 = True
 
     def init(self, gen: torch.Generator) -> None:
         self.ln.init()

@@ -1,7 +1,9 @@
 """The port stands alone: nothing under ``src/repro_torch``, not
-``chip_smoke.py`` and not ``examples/torch_train_reconfigure.py`` imports
-``jax`` or the reference package ``repro``, and the package and the example
-import in a process where both are blocked."""
+``chip_smoke.py`` and not the port's examples
+(``examples/torch_train_reconfigure.py``, ``torch_serve_kv.py``,
+``torch_quickstart.py``) imports ``jax`` or the reference package ``repro``,
+and the package and the examples import in a process where both are
+blocked."""
 import ast
 import os
 import shutil
@@ -13,8 +15,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLE = ROOT / "examples" / "torch_train_reconfigure.py"
+EXAMPLES = [EXAMPLE, ROOT / "examples" / "torch_serve_kv.py",
+            ROOT / "examples" / "torch_quickstart.py"]
 SCANNED = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                 EXAMPLE]
+                                                                 *EXAMPLES]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -51,7 +55,8 @@ def test_imports_with_jax_and_reference_blocked():
             "import repro_torch.data.synthetic, repro_torch.optim.adamw\n"
             "import repro_torch.checkpoint.ckpt, repro_torch.train.step\n"
             "import repro_torch.train.trainer, repro_torch.models.sharding\n"
-            "import torch_train_reconfigure\n")
+            "import repro_torch.comm.kvshard, repro_torch.serving.steps\n"
+            "import torch_train_reconfigure, torch_serve_kv, torch_quickstart\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(EXAMPLE.parent)]))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

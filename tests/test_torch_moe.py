@@ -190,22 +190,30 @@ class TestDispatch:
         assert torch.equal(y[~keep.any(dim=1)], torch.zeros_like(y[~keep.any(dim=1)]))
 
     def test_select_resolution(self):
-        """alltoall and allgather run as grouped without a mesh, or on a mesh
-        with no ``model`` axis; on one with a ``model`` axis they raise."""
+        """alltoall and allgather run as grouped without a mesh, on a mesh
+        with no ``model`` axis or no ``data`` axis, and on a mesh with both
+        where the reference's conditions fail (the global batch does not
+        divide the batch axes, ``model`` does not divide the sequence or the
+        experts); on a mesh that meets them they dispatch over it
+        (``test_torch_moe_sharded.py``)."""
         cfg = tconfigs.get_smoke_config("dbrx-132b")
         m = tmoe.MoeMLP(cfg).requires_grad_(False)
         m.init(torch.Generator().manual_seed(0))
         m.prepare()
         x = torch.from_numpy(tokens_np(n=24)).bfloat16().reshape(2, 12, D)
         grouped, _ = tmoe.moe_ffn(m, x, configure(cfg, "grouped"))
-        data_mesh = SimpleNamespace(axis_names=("data",), shape={"data": 2})
-        model_mesh = SimpleNamespace(axis_names=("data", "model"), shape={"data": 2, "model": 2})
+
+        def mesh_of(**shape):
+            return SimpleNamespace(axis_names=tuple(shape), shape=shape)
+
+        meshes = [None, mesh_of(data=2), mesh_of(model=2),
+                  mesh_of(data=4, model=2),  # 2 rows over 4
+                  mesh_of(data=2, model=5),  # 12 positions, 4 experts over 5
+                  mesh_of(data=2, model=8)]  # 4 experts over 8
         for impl in ("alltoall", "allgather"):
-            for mesh in (None, data_mesh):
+            for mesh in meshes:
                 y, _ = tmoe.moe_ffn(m, x, configure(cfg, impl), mesh)
                 assert torch.equal(y, grouped)
-            with pytest.raises(NotImplementedError, match="item 7b"):
-                tmoe.moe_ffn(m, x, configure(cfg, impl), model_mesh)
         with pytest.raises(ValueError, match="unknown moe dispatch"):
             tmoe.moe_ffn(m, x, configure(cfg, "ring"))
 
