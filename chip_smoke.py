@@ -173,6 +173,14 @@ Phases, each of which exits non-zero on any failed check:
     rank quantizes is the full logical one, gathered over ``model``). It
     prints ms/step, the bytes each rank sent per step by axis, and each
     rank's peak memory;
+6b. analysis (after phase 6): llama3.2-1b's decode_32k cell priced by the
+    dry run on the meta device for the 16x16 mesh (``repro_torch.launch.dryrun
+    .lower_cell``, the reference's one-cell test), its record's keys and
+    ``fits_16GB`` checked; FlopCounterMode's count of phase 6's prefill (4 x
+    2048, full width, ``xla_chunked`` attention) on the card, within 15% of
+    ``analysis.flops.fwd_flops_layerwise``; and the H100 roofline's compute
+    and memory terms for that prefill beside phase 6's warm prefill, with the
+    share of the roofline reached. No kernel launches in it;
 13. training the hybrid family on one rank: ``python -m
     repro_torch.launch.train --arch hymba-1.5b --steps 4 --batch 8 --seq 128
     --transport xla`` through its ``main``, at the full published config
@@ -220,15 +228,9 @@ BLOCKS = (256, 64)
 REPLACES = {"quantize_pack": "src/repro/kernels/quantize/quantize.py:46",
             "unpack_dequant": "src/repro/kernels/quantize/quantize.py:73"}
 SOURCE = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
-#: device-memory rate of an H100 SXM (NVIDIA's H100 data sheet), bytes/s
-MEMORY_RATE = 3.35e12
-#: peak float32 rate outside the tensor cores (H100 SXM data sheet)
-F32_OPS_PER_S = 67e12
 #: elementwise operations per element: abs, max, divide, round, 2 clamps, and
 #: the scale's multiply per row; unpack: convert and multiply
 OPS_PER_ELEM = {"quantize_pack": 6, "unpack_dequant": 2}
-#: dense bf16 tensor-core peak of an H100 SXM (NVIDIA's H100 data sheet)
-BF16_OPS_PER_S = 989e12
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:109"
 SSM_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
@@ -350,6 +352,17 @@ def _record_thread_error(args) -> None:
     THREAD_ERRORS.append(f"{args.thread.name if args.thread else '?'}: "
                          f"{args.exc_type.__name__}: {args.exc_value}")
     traceback.print_exception(args.exc_type, args.exc_value, args.exc_traceback)
+
+
+def hw(key: str) -> float:
+    """The H100 SXM's figure ``key`` from the port's table
+    (``repro_torch.launch.mesh.HW``, NVIDIA's data sheet): ``hbm_bw`` the
+    device-memory rate in bytes/s, ``peak_flops_f32`` the float32 rate
+    outside the tensor cores and ``peak_flops_bf16`` the dense bf16
+    tensor-core peak, in operations/s."""
+    from repro_torch.launch.mesh import HW
+
+    return HW[key]
 
 
 def fail(msg: str) -> None:
@@ -492,8 +505,8 @@ def phase_kernels(torch) -> dict:
                 route_ms[which].append(time_ms(
                     torch, lambda: launch(name, which, *args[name], n_blocks, block)))
             route_ms = {which: min(t) for which, t in route_ms.items()}
-            bytes_ms = io[name] / MEMORY_RATE * 1e3
-            ops_ms = OPS_PER_ELEM[name] * n / F32_OPS_PER_S * 1e3
+            bytes_ms = io[name] / hw("hbm_bw") * 1e3
+            ops_ms = OPS_PER_ELEM[name] * n / hw("peak_flops_f32") * 1e3
             bound = max(bytes_ms, ops_ms)
             results[(name, block)] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -563,7 +576,7 @@ def phase_flash(torch) -> dict:
     print(f"time flash_attention prefill: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
           f"sdpa {library_ms:.4f} ms, sdpa vs plain max abs err {lib_err}, "
           f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}: {res['flops']} flops at "
-          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, {res['bytes']} bytes; "
+          f"{hw('peak_flops_bf16') / 1e12:.0f} TFLOP/s, {res['bytes']} bytes; "
           f"{res['flops'] / ms / 1e9:.1f} TFLOP/s, {res['bound_ms'] / ms:.1%} of the bound)")
 
     # hymba's two prefill shapes (29 layers with the window, 3 without), head
@@ -648,7 +661,7 @@ def flash_bound(q, k, window, causal: bool = True) -> dict:
 
     flops = 4 * B * H * hd * sum(kept(i) for i in range(Sq))
     io = 2 * (2 * q.numel() + 2 * k.numel())
-    ops_ms, bytes_ms = flops / BF16_OPS_PER_S * 1e3, io / MEMORY_RATE * 1e3
+    ops_ms, bytes_ms = flops / hw("peak_flops_bf16") * 1e3, io / hw("hbm_bw") * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "flops": flops, "bytes": io}
@@ -991,7 +1004,7 @@ def phase_ssm_scan(torch) -> dict:
     # multiply and an add per lane and step
     io = 4 * (3 * a.numel() + 2 * h0.numel())
     flops = 2 * a.numel()
-    bytes_ms, ops_ms = io / MEMORY_RATE * 1e3, flops / F32_OPS_PER_S * 1e3
+    bytes_ms, ops_ms = io / hw("hbm_bw") * 1e3, flops / hw("peak_flops_f32") * 1e3
     res = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1239,7 +1252,7 @@ def phase_serve(torch, arch: str, n_params: int, tol: float, layers=None) -> dic
     del model, cache
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches, **{"flash by shape": by_shape})
+    return dict(launches, **{"flash by shape": by_shape, "warm prefill ms": warm.prefill_s * 1e3})
 
 
 def _decode_steps(model, cache, tok, n):
@@ -1654,7 +1667,7 @@ def phase_sum_kernel(torch) -> dict:
         plain_ms = time_ms(torch, lambda: unpack_dequant_sum_ref(codes, scales), reps=5, group=2)
         io = codes.numel() + 4 * scales.numel() + 4 * out.numel()
         flops = (2 * n - 1) * out.numel()
-        bytes_ms, ops_ms = io / MEMORY_RATE * 1e3, flops / F32_OPS_PER_S * 1e3
+        bytes_ms, ops_ms = io / hw("hbm_bw") * 1e3, flops / hw("peak_flops_f32") * 1e3
         bound = max(bytes_ms, ops_ms)
         res[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1676,6 +1689,77 @@ def phase_sum_kernel(torch) -> dict:
     errs.append(check_case("offset view", codes_off, scales, "scalar"))
     res["max_abs_err"] = max(errs)
     return res
+
+
+def phase_analysis(torch, smi: str, warm_prefill_ms: float) -> None:
+    """The analysis slice (``repro_torch.analysis``, ``launch.dryrun``):
+    llama3.2-1b's decode_32k cell priced on the meta device for the 16x16
+    mesh, the reference's slow-test cell, its record's keys checked; then
+    FlopCounterMode's count of llama3.2-1b's prefill at the serve phase's
+    shape (4 x 2048, 16 layers, published widths, seed weights) on the card
+    with ``xla_chunked`` attention, held to ``analysis.flops``'
+    ``fwd_flops_layerwise`` within 15%; then the H100 roofline's terms for
+    that prefill on one card beside the serve phase's warm prefill (B3 on
+    the card) and the share of the roofline it reached. No kernel launches
+    in this phase."""
+    from collections import Counter
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis import flops as F
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.models.registry import build
+
+    t0 = time.perf_counter()
+    for w in _wrappers().values():
+        w.launches = 0
+    rec = dryrun.lower_cell("llama3.2-1b", "decode_32k", multi_pod=False)
+    keys = {"arch", "shape", "kind", "multi_pod", "mesh", "transport", "kv_partition",
+            "moe_dispatch", "lower_s", "compile_s", "memory", "cost_analysis", "roofline",
+            "skipped"}
+    check(keys <= set(rec) and not rec["skipped"], f"dry-run record keys {sorted(rec)}")
+    check(rec["memory"]["fits_16GB"], f"decode_32k does not fit 16 GB: {rec['memory']}")
+    r = rec["roofline"]
+    print(f"analysis dry run llama3.2-1b decode_32k 16x16 (meta device, "
+          f"{rec['count_s']} s): dom={r['dominant']} comp={r['compute_s']:.6e}s "
+          f"mem={r['memory_s']:.6e}s coll={r['collective_s']:.6e}s "
+          f"mfu={r['mfu']:.6f} fits_16GB={rec['memory']['fits_16GB']} "
+          f"per_device_total={rec['memory']['per_device_total']} "
+          f"collectives={json.dumps(rec['collectives'])}")
+
+    cfg = get_config("llama3.2-1b").replace(attn_impl="xla_chunked")
+    shape = ShapeConfig("serve", SERVE_PROMPT, SERVE_BATCH, "prefill")
+    model = build(cfg, device="cuda", seed=serve.SEED)
+    tokens, _ = _prefill_inputs(torch, cfg, SERVE_PROMPT)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        model.prefill(tokens)
+    torch.cuda.synchronize()
+    counted = fc.get_total_flops()
+    analytic = sum(F.fwd_flops_layerwise(cfg, shape, "prefill"))
+    ratio = counted / analytic
+    print(f"analysis count llama3.2-1b prefill {SERVE_BATCH} x {SERVE_PROMPT} on the card "
+          f"(xla_chunked): FlopCounterMode {counted} FLOPs, fwd_flops_layerwise {analytic:.0f}, "
+          f"ratio {ratio:.6f} (tolerance 0.85-1.15)")
+    check(0.85 < ratio < 1.15, f"counted FLOPs {counted} vs analytic {analytic}: {ratio}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rf = roofline.analyze(Counter(), cfg, shape, {})
+    step_ms = rf.step_time_s * 1e3
+    print(f"analysis roofline llama3.2-1b prefill {SERVE_BATCH} x {SERVE_PROMPT}, one "
+          f"{smi}: compute {rf.compute_s * 1e3:.4f} ms ({rf.flops_per_dev:.0f} FLOPs at "
+          f"{hw('peak_flops_bf16') / 1e12:.0f} TFLOP/s), memory {rf.memory_s * 1e3:.4f} ms "
+          f"({rf.bytes_per_dev:.0f} bytes at {hw('hbm_bw') / 1e12} TB/s), dominant "
+          f"{rf.dominant}; the serve phase's warm prefill {warm_prefill_ms:.3f} ms (flash "
+          f"kernel), share of the roofline {step_ms / warm_prefill_ms:.4f}, model FLOPs "
+          f"utilisation {rf.model_flops / hw('peak_flops_bf16') / (warm_prefill_ms / 1e3):.4f}")
+    launched = _counts()
+    check(not any(launched.values()), f"the analysis phase launched kernels: {launched}")
+    print(f"analysis phase: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_train_one(torch, n_params: int) -> dict:
@@ -2179,7 +2263,8 @@ def main() -> int:
         return 2
     threading.excepthook = _record_thread_error
     smi = phase_backend(torch, backend)
-    print(f"memory rate used for the bound: H100 SXM {MEMORY_RATE / 1e12} TB/s")
+    print(f"memory rate used for the bound: H100 SXM {hw('hbm_bw') / 1e12} TB/s "
+          "(repro_torch.launch.mesh.HW)")
     timed = phase_kernels(torch)
     flash_build_report(backend)
     flash = phase_flash(torch)
@@ -2187,6 +2272,7 @@ def main() -> int:
     phase_profile(torch, batches)
     paths = {"connection": dict(launches), "wan": phase_wan(torch)}
     paths["serve llama3.2-1b"] = phase_serve(torch, "llama3.2-1b", 1_235_814_400, LOGITS_TOL)
+    phase_analysis(torch, smi, paths["serve llama3.2-1b"]["warm prefill ms"])
     scan = phase_ssm_scan(torch)
     paths["serve hymba-1.5b"] = phase_serve(torch, "hymba-1.5b", 1_663_080_000,
                                             HYMBA_LOGITS_TOL)

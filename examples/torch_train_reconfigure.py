@@ -50,6 +50,8 @@ def parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--slow", type=float, default=0.05,
                     help="seconds added to each step once the straggler appears")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--threads", type=int, default=None,
+                    help="CPU threads of each spawned rank (default: the cores over the world)")
     return ap.parse_args(argv)
 
 
@@ -106,7 +108,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     backend = choose_backend(args.device, world)
     with tempfile.TemporaryDirectory(prefix="repro-torch-ckpt-") as ckpt_dir:
         runs = spawn("torch_train_reconfigure:_rank", world, backend=backend,
-                     args=(argv, ckpt_dir, backend), reason="one process per rank")
+                     args=(argv, ckpt_dir, backend), threads=args.threads,
+                     reason="one process per rank")
     run = runs[0]
     if any(r != run for r in runs):
         raise RuntimeError("the ranks report different runs")

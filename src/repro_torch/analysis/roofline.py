@@ -1,0 +1,395 @@
+"""Three-term roofline of a step on a mesh of H100s.
+
+  compute    = FLOPs_per_device / peak_bf16
+  memory     = HBM_bytes_per_device / hbm_bw
+  collective = NVLink_bytes / nvlink_bw + InfiniBand_bytes / ib_bw   (per device)
+
+The counterpart of ``src/repro/analysis/roofline.py``, priced on the H100 of
+``launch.mesh.HW`` (the reference prices a TPU v5e). FLOPs and HBM bytes
+come from the analytic model (``analysis.flops``, where its docstring says
+why). Collective bytes come from the layout, not from HLO (the port has
+none, so the reference's ``hloparse`` has no counterpart):
+:func:`step_collectives` adds up the collectives the port's own steps issue,
+by ``op@axis`` as ``comm.collectives.SENT`` names them, and a test holds it
+to ``SENT`` from a gloo run of the same steps (``tests/test_torch_analysis.py``).
+
+Tiers. An HGX H100 node holds 8 GPUs on NVLink, and nodes meet over
+InfiniBand. Ranks are laid out row-major over the mesh axes (``launch.mesh``),
+so the ranks along an axis sit on one node only when every group of them
+falls in one block of 8 consecutive ranks (:func:`axis_tier`). On the
+production meshes every axis crosses nodes: ``model`` (16 consecutive ranks)
+spans two nodes, ``data`` (stride 16) and ``pod`` (stride 256) sixteen and
+two. So every collective byte there rides InfiniBand, and
+``dcn_bytes_per_dev`` (the bytes that cross nodes) equals
+``coll_bytes_per_dev``.
+"""
+from __future__ import annotations
+
+import math
+from collections import Counter
+from dataclasses import dataclass
+
+from repro_torch.analysis import flops as F
+from repro_torch.configs.base import ModelConfig, ShapeConfig, ShardingConfig, TrainConfig
+from repro_torch.launch.mesh import BATCH_AXES, HW
+
+F32, BF16 = 4, 2
+
+
+@dataclass
+class Roofline:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    dominant: str
+    flops_per_dev: float
+    bytes_per_dev: float
+    coll_bytes_per_dev: float
+    dcn_bytes_per_dev: float
+    model_flops: float
+    hlo_useful_ratio: float  # MODEL_FLOPS / implementation FLOPs (the reference's name)
+    step_time_s: float  # max of the three terms (no-overlap bound is their sum)
+    mfu: float  # model_flops / (chips * peak * step_time)
+
+    def to_dict(self):
+        return {k: getattr(self, k) for k in self.__dataclass_fields__}
+
+
+def axis_tier(mesh_shape: dict, axis: str, node_gpus: int = HW["node_gpus"]) -> str:
+    """``"nvlink"`` when every group of ranks along ``axis`` lies in one
+    node of ``node_gpus`` consecutive ranks, else ``"ib"``."""
+    n = mesh_shape[axis]
+    stride = math.prod(mesh_shape[a] for a in list(mesh_shape)[list(mesh_shape).index(axis) + 1:])
+    size = math.prod(mesh_shape.values())
+    for base in range(size):
+        if (base // stride) % n == 0 and base // node_gpus != (base + (n - 1) * stride) // node_gpus:
+            return "ib"
+    return "nvlink"
+
+
+def split_tiers(sent: dict, mesh_shape: dict) -> tuple:
+    """(NVLink bytes, InfiniBand bytes) of ``sent`` (bytes by ``op@axis``)."""
+    nvlink = ib = 0.0
+    for key, nbytes in sent.items():
+        axis = key.rsplit("@", 1)[-1]
+        if axis_tier(mesh_shape, axis) == "ib":
+            ib += nbytes
+        else:
+            nvlink += nbytes
+    return nvlink, ib
+
+
+def analyze(sent: dict, cfg: ModelConfig, shape: ShapeConfig, mesh_shape: dict) -> Roofline:
+    """The roofline of one step of ``cfg`` at ``shape`` on ``mesh_shape``,
+    with ``sent`` the bytes one device sends by ``op@axis``
+    (:func:`step_collectives`)."""
+    n_chips = math.prod(mesh_shape.values())
+    cost = F.step_cost(cfg, shape, mesh_shape)
+    fpd = cost.flops / n_chips
+    bpd = cost.bytes_hbm / n_chips
+    nvlink, ib = split_tiers(sent, mesh_shape)
+
+    compute_s = fpd / HW["peak_flops_bf16"]
+    memory_s = bpd / HW["hbm_bw"]
+    collective_s = nvlink / HW["nvlink_bw"] + ib / HW["ib_bw"]
+    terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
+    dominant = max(terms, key=terms.get)
+    step = max(terms.values())
+    mfu = cost.model_flops / (n_chips * HW["peak_flops_bf16"] * step) if step > 0 else 0.0
+    return Roofline(
+        compute_s=compute_s,
+        memory_s=memory_s,
+        collective_s=collective_s,
+        dominant=dominant,
+        flops_per_dev=fpd,
+        bytes_per_dev=bpd,
+        coll_bytes_per_dev=nvlink + ib,
+        dcn_bytes_per_dev=ib,
+        model_flops=cost.model_flops,
+        hlo_useful_ratio=cost.model_flops / max(cost.flops, 1.0),
+        step_time_s=step,
+        mfu=mfu,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The collectives of the port's steps, from the layout
+# ---------------------------------------------------------------------------
+
+
+class _Sent(Counter):
+    """Bytes by ``op@axis``, each call's count truncated as ``SENT``'s is."""
+
+    def all_reduce(self, op: str, axis: str, n: int, nbytes: float) -> None:
+        if n > 1:
+            self[f"{op}@{axis}"] += int(2 * (n - 1) / n * nbytes)
+
+    def all_gather(self, op: str, axis: str, n: int, nbytes: float) -> None:
+        if n > 1:
+            self[f"{op}@{axis}"] += int((n - 1) * nbytes)
+
+    def sends(self, op: str, axis: str, count: int, nbytes: float) -> None:
+        """``count`` point-to-point steps of ``nbytes`` (a ring)."""
+        if count > 0:
+            self[f"{op}@{axis}"] += count * int(nbytes)
+
+
+def local_numel(sharding, shape) -> int:
+    """The elements of the block of a ``shape`` leaf that ``sharding``'s
+    rank holds."""
+    return math.prod(len(range(*s.indices(d))) for s, d in zip(sharding.index(shape), shape))
+
+
+def train_layout(model, mesh, sh: ShardingConfig, transport: str):
+    """(the trainer's gradient stack for ``transport``, built on the CPU:
+    the accounting reads its names and axes and moves no tensor; the
+    parameters' spec tree in the reference's layout, less the axes the
+    stack takes manual), as ``train.step.shardings_for`` lays them out."""
+    from repro_torch import tree as T
+    from repro_torch.comm.chunnels import stack_manual_axes, transport_chunnels
+    from repro_torch.models import registry
+    from repro_torch.train.step import _drop_axes
+
+    chunnels = transport_chunnels(transport, mesh, "cpu")
+    manual = stack_manual_axes(chunnels) & set(mesh.axis_names)
+    specs = registry.param_specs(model, sh, mesh)
+    if manual:
+        specs = T.map(lambda s: _drop_axes(s, manual), specs)
+    return chunnels, specs
+
+
+def _transport_bytes(out: _Sent, ch, mesh, numel: int) -> None:
+    """The transport ``ch``'s collectives on a flat float32 gradient of
+    ``numel`` elements (``comm.collectives``' schedules)."""
+    from repro_torch.comm.collectives import dcn_bytes_factor
+
+    name = type(ch).__name__
+    if name in ("GradHierarchical", "GradHierCompressed"):
+        nf, fast, slow = mesh.shape[ch.fast_axis], ch.fast_axis, ch.slow_axis
+        shard = (numel + (-numel) % nf) // nf
+        out.sends("reduce_scatter", fast, nf - 1, shard * F32)
+        if name == "GradHierarchical":
+            out.all_reduce("all_reduce", slow, mesh.shape[slow], shard * F32)
+        else:
+            _compressed(out, slow, mesh.shape[slow], shard, ch.block)
+        out.all_gather("all_gather", fast, nf, shard * F32)
+        return
+    n = mesh.shape[ch.axis]
+    if name == "GradPsum":
+        out.all_reduce("all_reduce", ch.axis, n, numel * F32)
+    elif name == "GradRing":
+        out.sends("send", ch.axis, 2 * (n - 1), -(-numel // n) * F32)
+    elif name == "GradCompressed":
+        _compressed(out, ch.axis, n, numel, ch.block)
+    elif name == "GradLocalSGD":  # one all-reduce every sync_every steps
+        out.all_reduce("all_reduce", ch.axis, n,
+                       numel * F32 * dcn_bytes_factor("localsgd", sync_every=ch.sync_every))
+    else:
+        raise ValueError(f"no byte count for transport {name}")
+
+
+def _compressed(out: _Sent, axis: str, n: int, numel: int, block: int) -> None:
+    """``compressed_allgather_sum``: the int8 codes and the f32 scales."""
+    blocks = -(-numel // block)
+    out.all_gather("all_gather", axis, n, blocks * block)
+    out.all_gather("all_gather", axis, n, blocks * F32)
+
+
+def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
+                      transport: str = "xla", tcfg: TrainConfig = TrainConfig()) -> Counter:
+    """Bytes one rank sends in one ``train.step`` step of ``model`` (full
+    parameter shapes, as built: a meta model will do) on ``mesh`` (a
+    ``launch.mesh.Mesh`` or ``AbstractMesh``), by ``op@axis``:
+
+    - the forward's parameter gathers (``gather_param``, each layer's twice
+      under remat: the backward recomputes it) and their backward over a
+      batch axis (``grad_reduce_scatter``), per microbatch;
+    - the mean over the batch axes the transport leaves automatic
+      (``all_reduce``) and the agreement over ``model`` (``grad_agree``);
+    - with a transport: the gradient's and its state's gathers
+      (``gather_grad``, ``gather_state``) and the transport's own schedule;
+    - AdamW's norm (``grad_norm``) and ZeRO-1 gather (``zero1_gather``);
+    - the metrics' mean (``all_reduce``)."""
+    from repro_torch import tree as T
+    from repro_torch.comm.chunnels import stack_manual_axes
+    from repro_torch.models import registry
+    from repro_torch.models.sharding import Layout, NamedSharding, per_layer
+    from repro_torch.train.step import _zero1_pod
+
+    cfg = model.cfg
+    chunnels, specs = train_layout(model, mesh, sh, transport)
+    manual = stack_manual_axes(chunnels) & set(mesh.axis_names)
+    shapes_tree = registry.param_shapes(model)
+    stacks = model.stacks()
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    layout = Layout(mesh, per_layer(specs, stacks), shapes)
+    local = {n: local_numel(layout.shardings[n], shapes[n]) for n in shapes}
+    out = _Sent()
+    n_mb = max(tcfg.microbatches, 1)
+
+    # forward gathers, and the backward's reduce-scatter over a batch axis
+    for name in shapes:
+        passes = 2 if cfg.remat != "none" and name.split(".", 1)[0] in stacks else 1
+        cur = local[name]
+        for _dim, axis in layout._gather_order[name]:
+            n = mesh.shape[axis]
+            for _ in range(passes * n_mb):
+                out.all_gather("gather_param", axis, n, cur * F32)
+            if axis in BATCH_AXES:
+                out.sends("grad_reduce_scatter", axis, (n - 1) * n_mb, cur * F32)
+            cur *= n
+
+    batch = [a for a in BATCH_AXES if a in mesh.axis_names and mesh.shape[a] > 1]
+    shared = [a for a in mesh.axis_names if a not in BATCH_AXES and mesh.shape[a] > 1]
+    for a in (a for a in batch if a not in manual):
+        rest = sum(local[n] for n in shapes if a not in layout.axes(n))
+        out.all_reduce("all_reduce", a, mesh.shape[a], rest * F32)
+    for a in shared:
+        rep = [n for n in shapes if a not in layout.axes(n)]
+        if rep:
+            out.all_reduce("grad_agree", a, mesh.shape[a], sum(local[n] for n in rep) * F32)
+
+    if chunnels:
+        for name in shapes:
+            cur = local[name]
+            for _dim, axis in reversed(layout.splits[name]):
+                out.all_gather("gather_grad", axis, mesh.shape[axis], cur * F32)
+                cur *= mesh.shape[axis]
+        ef = [ch for ch in chunnels if getattr(ch, "error_feedback", False)]
+        for _ in ef:  # the error-feedback residuals, laid out by the parameters' specs
+            for leaf, spec in zip(T.leaves(shapes_tree), T.leaves(specs)):
+                sharding = NamedSharding(mesh, spec)
+                cur = local_numel(sharding, tuple(leaf.shape))
+                for _dim, axis in reversed(sharding.splits(leaf.dim())):
+                    out.all_gather("gather_state", axis, mesh.shape[axis], cur * F32)
+                    cur *= mesh.shape[axis]
+        numel = sum(math.prod(s) for s in shapes.values())
+        for ch in chunnels:
+            _transport_bytes(out, ch, mesh, numel)
+
+    # AdamW: the norm's squares over each group of axes, then ZeRO-1
+    groups = {tuple(a for _, a in layout.splits[n]) for n in shapes}
+    for axes in sorted(groups):
+        for a in axes:
+            out.all_reduce("grad_norm", a, mesh.shape[a], F32)
+    m_specs = per_layer(T.map(lambda s, t: _zero1_pod(s, tuple(t.shape), mesh), specs,
+                              shapes_tree), stacks)
+    for name in shapes:
+        m_split = NamedSharding(mesh, m_specs[name]).splits(len(shapes[name]))
+        if any(a == "pod" and (d, a) not in layout.splits[name] for d, a in m_split):
+            n = mesh.shape["pod"]
+            out.all_gather("zero1_gather", "pod", n, local[name] // n * F32)
+
+    for a in batch + shared:  # loss and gradient norm
+        out.all_reduce("all_reduce", a, mesh.shape[a], 2 * F32)
+    return out
+
+
+def _moe_layer(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int, batch_split: int) -> None:
+    """One ``models.moe.moe_ffn`` call on ``rows`` rows of ``S`` positions
+    (bfloat16 activations), its dispatch resolved as ``moe_ffn`` does."""
+    from repro_torch.models.moe import capacity
+
+    D, E = cfg.d_model, cfg.moe.num_experts
+    axes = mesh.axis_names
+    b_axes = [a for a in BATCH_AXES if a in axes]
+    n_batch = math.prod(mesh.shape[a] for a in b_axes)
+    n = mesh.shape["model"] if "model" in axes else 1
+    manual_ok = ("model" in axes and "data" in axes and (rows * batch_split) % n_batch == 0
+                 and S % n == 0 and E % n == 0)
+    impl = cfg.moe.dispatch
+    if impl in ("alltoall", "allgather") and manual_ok:
+        T_loc = rows * S // n
+        if impl == "alltoall":
+            block = E // n * capacity(T_loc, cfg) * D * BF16
+            out.all_gather("all_to_all", "model", n, block)
+            out.all_gather("all_to_all", "model", n, block)
+            out.all_gather("all_gather", "model", n, T_loc * D * BF16)
+        else:
+            out.all_gather("all_gather", "model", n, T_loc * D * BF16)
+            out.all_reduce("all_reduce", "model", n, n * T_loc * D * F32)
+        for a in ("model", "data"):  # the aux loss's mean
+            out.all_reduce("all_reduce", a, mesh.shape[a], F32)
+        return
+    if batch_split > 1:  # the global batch's tokens gathered, innermost axis first
+        cur = rows * S * D * BF16
+        for a in reversed(b_axes):
+            out.all_gather("all_gather", a, mesh.shape[a], cur)
+            cur *= mesh.shape[a]
+
+
+def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                      sh: ShardingConfig = ShardingConfig()) -> Counter:
+    """Bytes one rank sends in one ``serving.steps.ServeSteps`` step at a
+    ``shape`` of kind ``"prefill"`` (the prompt of ``shape.seq_len``
+    positions) or ``"decode"`` (one token against a cache of
+    ``shape.seq_len``), by ``op@axis``. The layout's one-time gathers of the
+    working copies (``lay_out``) are not a step's. A prefill sends only the
+    MoE dispatches'; a decode step gathers the cache leaves the port does
+    not compute split (``gather_cache``), runs each attended layer's
+    KV-partition slot (heads: the output's ``all_gather``; sequence: the
+    flash-decode combine's ``all_reduce_max`` and ``all_reduce``) and the
+    MoE dispatches."""
+    from repro_torch import tree as T
+    from repro_torch.models import registry
+    from repro_torch.models.sharding import NamedSharding, batch_axes, kv_partition_mode
+    from repro_torch.serving.steps import KV_LEAVES, cache_shardings
+
+    out = _Sent()
+    b_axes = batch_axes(mesh)
+    n_rows = math.prod(mesh.shape[a] for a in b_axes)
+    dealt = shape.global_batch % n_rows == 0
+    rows = shape.global_batch // n_rows if dealt else shape.global_batch
+    split = n_rows if dealt and cfg.family == "moe" else 1
+    m = mesh.shape.get("model", 1)
+    if shape.kind == "prefill":
+        if cfg.family == "moe":
+            for _ in range(cfg.num_layers):
+                _moe_layer(out, cfg, mesh, rows, shape.seq_len, split)
+        return out
+    if shape.kind != "decode":
+        raise ValueError(f"serve_collectives takes prefill or decode, not {shape.kind!r}")
+    cache = registry.cache_shapes(cfg, shape)
+    specs = cache_shardings(cache, cfg, mesh, sh)
+    slot_layers = 0
+    for (path, leaf), spec in zip(T.flatten_with_paths(cache), T.leaves(specs)):
+        if not hasattr(leaf, "shape"):
+            continue
+        behind_slot = (cfg.family != "ssm" and path[-1] in KV_LEAVES
+                       and (cfg.family != "hybrid" or int(path[1]) in cfg.global_layers))
+        if behind_slot:
+            slot_layers += (leaf.shape[0] if leaf.dim() == 5 else 1) if path[-1] == "k" else 0
+            continue
+        sharding = NamedSharding(mesh, spec)
+        cur = local_numel(sharding, tuple(leaf.shape)) * leaf.element_size()
+        for _dim, axis in reversed(sharding.splits(leaf.dim())):
+            if axis not in BATCH_AXES:
+                out.all_gather("gather_cache", axis, mesh.shape[axis], cur)
+                cur *= mesh.shape[axis]
+    if cfg.family != "ssm" and m > 1:
+        H, hd = cfg.num_heads, cfg.head_dim_
+        for _ in range(slot_layers):
+            if kv_partition_mode(cfg, mesh, sh) == "heads":
+                out.all_gather("all_gather", "model", m, rows * H // m * hd * BF16)
+            else:
+                out.all_reduce("all_reduce_max", "model", m, rows * H * F32)
+                out.all_reduce("all_reduce", "model", m, rows * H * (hd + 1) * F32)
+    if cfg.family == "moe":
+        for _ in range(cfg.num_layers):
+            _moe_layer(out, cfg, mesh, rows, 1, split)
+    return out
+
+
+def step_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                     sh: ShardingConfig = ShardingConfig(), transport: str = "xla",
+                     tcfg: TrainConfig = TrainConfig(), model=None) -> Counter:
+    """Bytes one rank sends in one step of the cell, by ``op@axis``: a train
+    step (:func:`train_collectives`, of ``model`` or a meta model of
+    ``cfg``) or a serve step (:func:`serve_collectives`)."""
+    if shape.kind == "train":
+        if model is None:
+            from repro_torch.models import registry
+
+            model = registry.build(cfg, device="meta")
+        return train_collectives(model, mesh, sh, transport=transport, tcfg=tcfg)
+    return serve_collectives(cfg, shape, mesh, sh)

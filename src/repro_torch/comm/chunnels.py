@@ -519,6 +519,20 @@ def make_transport(name: str, **kw) -> StepChunnel:
     return TRANSPORTS[name](**kw)
 
 
+def transport_chunnels(name: str, mesh, device) -> tuple:
+    """The trainer's gradient stack for transport ``name`` on ``mesh``: none
+    for ``xla`` or on a mesh without a ``pod`` axis; the hierarchical ones
+    over (``data``, ``pod``), the others over ``pod``; a kernel-running
+    wire's on ``device``."""
+    if name == "xla" or "pod" not in mesh.axis_names:
+        return ()
+    kw = ({"fast_axis": "data", "slow_axis": "pod"}
+          if name in ("hierarchical", "hier_compressed") else {"axis": "pod"})
+    if name in DEVICE_TRANSPORTS:
+        kw["device"] = device
+    return (make_transport(name, **kw),)
+
+
 # ---------------------------------------------------------------------------
 # WAN link layer (host plane, ROADMAP direction 5)
 # ---------------------------------------------------------------------------

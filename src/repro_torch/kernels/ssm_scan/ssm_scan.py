@@ -40,9 +40,12 @@ def ssm_scan_chunk_ref(a: torch.Tensor, bx: torch.Tensor,
                        h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: a float32 loop over t, the
     product and the sum rounded one at a time (what the TPU kernel's
-    ``fori_loop`` computes)."""
+    ``fori_loop`` computes). Elementwise only: on meta tensors
+    (``launch.dryrun``'s FLOP count) it returns the shapes without the loop."""
     a, bx, h = a.float(), bx.float(), h0.float()
     h_seq = torch.empty_like(a)
+    if a.device.type == "meta":
+        return h_seq, h
     for t in range(a.shape[1]):
         h = a[:, t] * h + bx[:, t]
         h_seq[:, t] = h

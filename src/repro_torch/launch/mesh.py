@@ -123,6 +123,33 @@ class Mesh:
                 f"device {self.device})")
 
 
+class AbstractMesh:
+    """A mesh's shape without its ranks: the axes, their sizes and one
+    rank's coordinates (rank 0's by default), no process group and no
+    device. What the layout reads (``models.sharding``'s specs and
+    ``local_slice``) works on it, so the dry run (``launch.dryrun``) prices
+    the production meshes from one process."""
+
+    def __init__(self, shape: Dict[str, int], rank: int = 0):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.size = math.prod(self.shape.values())
+        self.rank = rank
+        strides, s = {}, 1
+        for a in reversed(self.axis_names):
+            strides[a] = s
+            s *= self.shape[a]
+        self.coords = {a: (rank // strides[a]) % self.shape[a] for a in self.axis_names}
+
+    def group(self, axis: str):
+        raise RuntimeError("an abstract mesh has no process groups")
+
+    batch_index = Mesh.batch_index
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape}, rank {self.rank})"
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda",
               backend: Optional[str] = None) -> Mesh:
     if len(shape) != len(axes):
@@ -136,12 +163,33 @@ def make_test_mesh(shape=(1, 1), axes=("data", "model"), *, device="cuda") -> Me
     return make_mesh(shape, axes, device=device)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+def production_shape(multi_pod: bool = False) -> Dict[str, int]:
     """The reference's production mesh, (data 16, model 16), or (pod 2,
-    data 16, model 16) with ``multi_pod``, over a world of 256 or 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device=device)
+    data 16, model 16) with ``multi_pod``."""
+    return {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The production mesh over a world of 256 or 512 ranks."""
+    shape = production_shape(multi_pod)
+    return make_mesh(tuple(shape.values()), tuple(shape), device=device)
+
+
+#: One NVIDIA H100 SXM5 80GB, as the roofline prices it (``analysis.roofline``
+#: and ``chip_smoke.py``'s bounds), from NVIDIA's H100 Tensor Core GPU data
+#: sheet: the dense (no sparsity) tensor-core and FP32 rates, HBM3, NVLink 4
+#: (18 links, 900 GB/s per GPU, the data sheet's total of both directions) in
+#: an HGX H100 node of 8 GPUs, and one NDR InfiniBand NIC per GPU (400 Gb/s)
+#: between nodes. The reference's table prices a TPU v5e.
+HW = {
+    "peak_flops_bf16": 989e12,  # FLOP/s
+    "peak_flops_f32": 67e12,  # FLOP/s outside the tensor cores
+    "hbm_bw": 3.35e12,  # B/s
+    "hbm_bytes": 80e9,  # B
+    "nvlink_bw": 900e9,  # B/s per GPU, inside a node
+    "ib_bw": 50e9,  # B/s per GPU, between nodes
+    "node_gpus": 8,  # GPUs on one NVLink domain
+}
 
 
 def choose_backend(device, world: int) -> str:
@@ -176,8 +224,9 @@ def init_distributed(rank: int, world: int, *, backend: str, init_method: str,
               + (f" ({reason})" if reason else ""), flush=True)
 
 
-def _rank_main(rank, world, backend, init_method, target, args, results, timeout_s, reason):
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+def _rank_main(rank, world, backend, init_method, target, args, results, timeout_s, reason,
+               threads):
+    torch.set_num_threads(threads)
     try:
         init_distributed(rank, world, backend=backend, init_method=init_method,
                          timeout_s=timeout_s, reason=reason)
@@ -193,21 +242,29 @@ def _rank_main(rank, world, backend, init_method, target, args, results, timeout
 
 
 def spawn(target: str, world: int, *, backend: str, args: tuple = (),
-          timeout_s: float = 900.0, reason: str = "") -> list:
+          threads: Optional[int] = None, timeout_s: float = 900.0, reason: str = "") -> list:
     """Run ``module:function`` with ``args`` on each rank of a new world of
     ``world`` processes (``spawn`` start method, file rendezvous under
     ``TMPDIR``) and return each rank's result, by rank. Results must pickle
     (numbers, numpy arrays). Any rank's exception, a nonzero exit code or
-    the timeout fails the whole run, and no process outlives it."""
+    the timeout fails the whole run, and no process outlives it.
+
+    Each rank runs torch's CPU ops on ``threads`` threads, by default the
+    host's cores shared out over the world. A caller that shares the host
+    with other work (a test beside other test workers) passes fewer: ranks
+    that spin on more threads than they get cores delay every other
+    process's wakeups."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_torch_rdv_")
     init_method = f"file://{os.path.join(tmp, 'rendezvous')}"
     results = ctx.Queue()
+    if threads is None:
+        threads = max(1, (os.cpu_count() or 1) // world)
     procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
                          args=(r, world, backend, init_method, target, args, results,
-                               timeout_s, reason))
+                               timeout_s, reason, threads))
              for r in range(world)]
     out: Dict[int, object] = {}
     errors: List[str] = []
@@ -250,5 +307,6 @@ def spawn(target: str, world: int, *, backend: str, args: tuple = (),
     return [out[r] for r in range(world)]
 
 
-__all__ = ["BATCH_AXES", "Mesh", "choose_backend", "init_distributed", "make_mesh",
-           "make_production_mesh", "make_test_mesh", "rank_device", "spawn"]
+__all__ = ["BATCH_AXES", "HW", "AbstractMesh", "Mesh", "choose_backend", "init_distributed",
+           "make_mesh", "make_production_mesh", "make_test_mesh", "production_shape",
+           "rank_device", "spawn"]

@@ -155,6 +155,8 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     ap.add_argument("--layers", type=int, default=None,
                     help="serve the first N layers (a cut of depth)")
     ap.add_argument("--world", type=int, default=1, help="ranks, one process each")
+    ap.add_argument("--threads", type=int, default=None,
+                    help="CPU threads of each spawned rank (default: the cores over the world)")
     ap.add_argument("--data", type=int, default=1, help="ranks on the data axis")
     ap.add_argument("--model", type=int, default=1, help="ranks on the model axis")
     ap.add_argument("--kv-partition", default="auto", choices=("auto", "heads", "sequence"))
@@ -185,7 +187,7 @@ def _main_sharded(args: argparse.Namespace) -> list:
                           kv_partition=args.kv_partition, moe_dispatch=args.moe_dispatch,
                           smoke=args.smoke, batch=args.batch, prompt_len=args.prompt_len,
                           gen=args.gen, device=args.device, attn_impl=args.attn_impl,
-                          layers=args.layers)
+                          layers=args.layers, threads=args.threads)
     for r in ranks:
         run = r["runs"][0]
         print(f"arch={r['arch']} rank {r['rank']} {r['coords']} kv={run['kv']} "

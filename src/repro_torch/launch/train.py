@@ -91,6 +91,8 @@ def parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--no-fsdp", action="store_true",
                     help="replicate parameters over data (no ZeRO-3)")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"))
+    ap.add_argument("--threads", type=int, default=None,
+                    help="CPU threads of each spawned rank (default: the cores over the world)")
     args = ap.parse_args(argv)
     if args.world < 1 or args.world % (args.data * args.model):
         raise ValueError(f"--data {args.data} x --model {args.model} does not divide "
@@ -181,7 +183,7 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                else "a GPU per rank" if backend == "nccl"
                else "the ranks share one GPU; NCCL refuses two ranks on one device")
         runs = spawn("repro_torch.launch.train:_rank", args.world, backend=backend,
-                     args=(argv, backend), reason=why)
+                     args=(argv, backend), threads=args.threads, reason=why)
         if any(r["losses"] != runs[0]["losses"] for r in runs):
             raise RuntimeError(f"ranks report different losses: {[r['losses'] for r in runs]}")
         run = TrainRun(**runs[0])

@@ -85,6 +85,11 @@ class HymbaLM(DenseLM):
         layers, the sliding window elsewhere."""
         return {"window": None if self._is_global(idx) else self.cfg.sliding_window}
 
+    def _remat_group(self) -> int:
+        """One layer per checkpoint: the reference's hymba stack takes no
+        ``remat_group``."""
+        return 1
+
     def _train_layer(self, layer: HymbaLayer, x: torch.Tensor, rope: tuple, *,
                      window) -> torch.Tensor:
         """The reference's ``hymba_layer``: both branches on the normed input,

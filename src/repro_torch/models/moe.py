@@ -193,13 +193,15 @@ def dispatch_dense(p: MoeMLP, x2d: torch.Tensor, cfg: ModelConfig):
 
 def _slot_tokens(ids, pos, keep, n_experts: int, C: int, sentinel: int) -> torch.Tensor:
     """(n_experts, C): the token in each capacity slot, ``sentinel`` (a zero
-    row) where empty; only the kept (token, slot) pairs are scattered."""
+    row) where empty; only the kept (token, slot) pairs land in a slot, the
+    dropped ones in one spare slot past the end. No index depends on the
+    data's values, so the dispatch also runs on meta tensors
+    (``launch.dryrun``)."""
     tok_idx = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)
-    slot_tok = torch.full((n_experts, C), sentinel, dtype=torch.long, device=ids.device)
-    kept = keep.reshape(-1)
-    slot_tok.index_put_((ids.reshape(-1)[kept], pos.reshape(-1)[kept]),
-                        tok_idx.reshape(-1)[kept])
-    return slot_tok
+    slot_tok = torch.full((n_experts * C + 1,), sentinel, dtype=torch.long, device=ids.device)
+    dest = torch.where(keep, ids * C + pos, n_experts * C)
+    slot_tok.index_put_((dest.reshape(-1),), tok_idx.reshape(-1))
+    return slot_tok[:-1].view(n_experts, C)
 
 
 def _combine(y_sorted, ids, pos, gates, keep, C: int) -> torch.Tensor:

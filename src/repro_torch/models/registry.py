@@ -119,9 +119,16 @@ def build(cfg: ModelConfig, *, device="cuda", seed: int = 0, mesh=None,
     None). With a ``mesh`` (the rank's, the reference's ``build(cfg,
     mesh)``) the model is drawn in full but makes no serving copies: a
     sharded serve step (``serving.steps``) lays its parameters out and
-    makes them from the blocks."""
-    dev = backend.resolve_device(device)
-    model = model_class(cfg)(cfg, device=dev)
-    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    makes them from the blocks.
+
+    On the ``"meta"`` device (``launch.dryrun``) the model has every
+    parameter's shape and no data: nothing is drawn, and no memory is
+    taken."""
+    if torch.device(device).type == "meta":
+        model = model_class(cfg)(cfg, device=torch.device("meta"))
+    else:
+        dev = backend.resolve_device(device)
+        model = model_class(cfg)(cfg, device=dev)
+        model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     model.mesh, model.decode_attn_fn = mesh, decode_attn_fn
     return model if mesh is not None else model.prepare()

@@ -4,7 +4,10 @@ uses.
 ``apply_stack`` runs ``x`` through the layers one by one (the reference's
 ``scan`` has no counterpart: the port unrolls), each under
 ``torch.utils.checkpoint`` with ``remat="full"``, so backward recomputes a
-layer's activations instead of keeping them. It is also the seam of a
+layer's activations instead of keeping them. ``remat="dots"`` keeps the
+outputs of the layer's 2-D products and recomputes the rest, and
+``remat_group=g`` checkpoints each run of g layers as one unit, with the
+reference's semantics (``remat``, ``apply_stack``). It is also the seam of a
 sharded model (``sharding.Layout``): each layer's parameters are gathered
 from their shards just for that layer's body.
 
@@ -22,37 +25,75 @@ from __future__ import annotations
 from typing import Callable, ContextManager, Dict, Mapping, Optional, Sequence
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+
+#: the 2-D products whose outputs ``"dots"`` keeps: ``aten.mm`` and
+#: ``aten.addmm`` (a ``Linear`` on (B, S, D) folds into one); ``bmm`` and
+#: batched ``einsum`` products, over heads or experts, are recomputed
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: save
+    the outputs of matrix products without a batch dimension, recompute
+    everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def remat(fn: Callable, policy: str) -> Callable:
-    """``fn`` recomputed in backward (``"full"``) or kept (``"none"``)."""
+    """``fn`` recomputed in backward (``"full"``), recomputed but for its
+    2-D products' outputs (``"dots"``), or kept (``"none"``)."""
     if policy == "none":
         return fn
     if policy == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    raise NotImplementedError(f"remat policy {policy!r}: the port has 'none' and 'full'")
+    if policy == "dots":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(dots_policy))
+    raise ValueError(f"remat policy {policy!r}: use 'none', 'full' or 'dots'")
+
+
+def group_size(num_layers: int, remat_group: int) -> int:
+    """The layers checkpointed as one unit: ``remat_group`` where the
+    stack's length divides by it and is longer than it, else 1 (the
+    reference's rule, ``apply_stack``)."""
+    if remat_group > 1 and num_layers % remat_group == 0 and num_layers > remat_group:
+        return remat_group
+    return 1
 
 
 def apply_stack(layers: Sequence[torch.nn.Module], x: torch.Tensor, body: Callable, *,
-                remat_policy: str = "full", static: Optional[Callable[[int], dict]] = None,
+                remat_policy: str = "full", remat_group: int = 1,
+                static: Optional[Callable[[int], dict]] = None,
                 gathered: Optional[Callable[[int], ContextManager]] = None) -> torch.Tensor:
     """``x`` through ``body(layer, x, **static(i))`` for each layer ``i`` in
     turn (``static``: the keywords of the reference's segment that holds
-    layer ``i``). A sharded model passes ``gathered(i)``, under which layer
-    ``i``'s parameters read as their full tensors: they are gathered from
-    their shards before the body and freed after, and gathered again when
-    ``remat`` recomputes the layer in backward."""
-    def run(i: int, layer, h):
-        kw = static(i) if static is not None else {}
-        if gathered is None:
-            return body(layer, h, **kw)
-        with gathered(i):
-            return body(layer, h, **kw)
+    layer ``i``). Each run of ``group_size(len(layers), remat_group)``
+    layers is one ``remat`` unit: backward keeps its input and recomputes
+    its layers, each once. A sharded model passes ``gathered(i)``, under
+    which layer ``i``'s parameters read as their full tensors: they are
+    gathered from their shards before the body and freed after, and
+    gathered again when ``remat`` recomputes the layer in backward."""
+    def run(first: int, g: int, h):
+        for i in range(first, first + g):
+            kw = static(i) if static is not None else {}
+            if gathered is None:
+                h = body(layers[i], h, **kw)
+            else:
+                with gathered(i):
+                    h = body(layers[i], h, **kw)
+        return h
 
+    g = group_size(len(layers), remat_group)
     fn = remat(run, remat_policy)
-    for i, layer in enumerate(layers):
-        x = fn(i, layer, x)
+    for first in range(0, len(layers), g):
+        x = fn(first, g, x)
     return x
 
 

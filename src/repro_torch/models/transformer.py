@@ -5,7 +5,8 @@ The counterpart of ``src/repro/models/transformer.py``. Training:
 ``DenseLM.hidden_states(tokens)`` and ``DenseLM.loss(batch)`` (the
 reference's ``loss_fn``), on a model whose serving copies are released
 (:meth:`DenseLM.release`) so that every weight is cast inside the autograd
-graph; each layer is recomputed in backward under ``cfg.remat = "full"``.
+graph; each layer, or each run of ``cfg.remat_group`` layers, is recomputed
+in backward under ``cfg.remat`` (``stacking.remat``).
 A model sharded over a mesh (:meth:`DenseLM.shard`) holds only its rank's
 block of each parameter and gathers the full tensors for the training
 forward (``sharding.Layout``); its code paths are the full-shape ones.
@@ -189,6 +190,12 @@ class DenseLM(nn.Module):
         overrides it)."""
         return {}
 
+    def _remat_group(self) -> int:
+        """The layers per checkpoint: ``cfg.remat_group`` for a scanned stack,
+        as the reference's ``forward`` passes it (a family whose reference
+        stack takes none overrides this)."""
+        return self.cfg.remat_group if self.cfg.scan_layers else 1
+
     def _train_layer(self, layer: DecoderLayer, x: torch.Tensor, rope: tuple) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
@@ -221,7 +228,8 @@ class DenseLM(nn.Module):
                     else lambda i: self._gathered(self.layers[i], f"layers.{i}."))
         x = apply_stack(self.layers, x,
                         lambda layer, h, **kw: self._train_layer(layer, h, rope, **kw),
-                        remat_policy=cfg.remat, static=self._layer_static, gathered=gathered)
+                        remat_policy=cfg.remat, remat_group=self._remat_group(),
+                        static=self._layer_static, gathered=gathered)
         return self.final_norm(x)
 
     def head_weight(self) -> torch.Tensor:

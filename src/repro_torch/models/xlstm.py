@@ -174,24 +174,35 @@ def slstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
 def slstm_apply(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: Optional[dict] = None):
     """The sequential recurrence over time (the paper: sLSTM does not
     parallelise), then the block's gated MLP."""
-    B, S, _ = x.shape
-    state = state if state is not None else slstm_state(B, cfg, x.device)
+    state = state if state is not None else slstm_state(x.shape[0], cfg, x.device)
     xn = p.ln(x)
     # every step's input contributions, float32, gates stacked (B, S, 4, D)
     pre = torch.stack([lin(xn, dtype=F32) for lin in (p.wz, p.wi, p.wf, p.wo_gate)], dim=2)
-    c, n, h = state["c"], state["n"], state["h"]
+    hs, c, n, h = slstm_recurrence(pre, p.r, state["c"], state["n"], state["h"])
+    x = x + hs.to(x.dtype)
+    x = x + p.ffn(p.ln2(x))
+    return x, {"c": c, "n": n, "h": h}
+
+
+def slstm_recurrence(pre: torch.Tensor, r: torch.Tensor, c, n, h):
+    """The sLSTM's steps over time: ``pre`` (B, S, 4, D) the input
+    contributions, ``r`` the recurrent weights, (c, n, h) the state. Returns
+    every step's h (B, S, D) and the last state. Elementwise only, no
+    product: on meta tensors (``launch.dryrun``'s FLOP count, where the loop
+    over 32,768 steps a layer took minutes a cell) it returns the shapes
+    without running the loop."""
+    if pre.device.type == "meta":
+        return pre[:, :, 0].clone(), c, n, h
     hs = []
-    for t in range(S):
-        g = pre[:, t] + p.r * h[:, None]  # (B, 4, D)
+    for t in range(pre.shape[1]):
+        g = pre[:, t] + r * h[:, None]  # (B, 4, D)
         z = torch.tanh(g[:, 0])
         ifo = torch.sigmoid(g[:, 1:])
         c = ifo[:, 1] * c + ifo[:, 0] * z
         n = ifo[:, 1] * n + ifo[:, 0]
         h = ifo[:, 2] * c / torch.clamp_min(n, 1e-6)
         hs.append(h)
-    x = x + torch.stack(hs, dim=1).to(x.dtype)
-    x = x + p.ffn(p.ln2(x))
-    return x, {"c": c, "n": n, "h": h}
+    return torch.stack(hs, dim=1), c, n, h
 
 
 # ---------------------------------------------------------------------------

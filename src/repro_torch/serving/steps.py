@@ -429,12 +429,14 @@ def serve_rank(spec: dict, observe=None) -> dict:
 def serve_sharded(arch: str, *, world: int, data: int = 1, model: int = 1,
                   kv_partition: str = "auto", moe_dispatch: Optional[str] = None,
                   smoke: bool = False, batch: int = 4, prompt_len: int = 64, gen: int = 16,
-                  device="cuda", attn_impl: str = "pallas", layers: Optional[int] = None) -> list:
+                  device="cuda", attn_impl: str = "pallas", layers: Optional[int] = None,
+                  threads: Optional[int] = None) -> list:
     """Serve ``arch`` on a new world of ``world`` ranks, a (pod, data,
     model) mesh (``serve_rank`` on each, by ``launch.mesh.spawn``, over
     ``launch.mesh.choose_backend``'s backend); returns each rank's record,
     by rank. The ranks along ``model`` serve the same rows and must
-    generate the same tokens: a difference raises."""
+    generate the same tokens: a difference raises. ``threads``: each rank's
+    CPU threads (``spawn``'s)."""
     from repro_torch.launch.mesh import choose_backend, spawn
 
     mesh_axes(world, data, model)
@@ -449,7 +451,7 @@ def serve_sharded(arch: str, *, world: int, data: int = 1, model: int = 1,
             "batch": batch, "prompt_len": prompt_len, "gen": gen, "device": str(device),
             "attn_impl": attn_impl, "layers": layers}
     ranks = spawn("repro_torch.serving.steps:serve_rank", world, backend=backend,
-                  args=(spec,), reason=why)
+                  args=(spec,), threads=threads, reason=why)
     for r in ranks:
         for o in ranks:
             same_rows = all(r["coords"][a] == o["coords"][a] for a in BATCH_AXES)

@@ -56,7 +56,7 @@ from repro_torch.comm.chunnels import (
     TRANSPORTS,
     calibrate_cost_models,
     init_grad_states,
-    make_transport,
+    transport_chunnels,
 )
 from repro_torch.configs.base import ModelConfig, ShapeConfig, ShardingConfig, TrainConfig
 from repro_torch.core import KVStore, rendezvous
@@ -216,15 +216,6 @@ class ReconfigurableTrainer:
             dist.barrier()
 
     # -- negotiation (multi-party, rendezvous §5.3) ----------------------------
-    def _transport_chunnels(self, name: str) -> tuple:
-        if name == "xla" or "pod" not in self.mesh.axis_names:
-            return ()
-        kw = ({"fast_axis": "data", "slow_axis": "pod"}
-              if name in ("hierarchical", "hier_compressed") else {"axis": "pod"})
-        if name in DEVICE_TRANSPORTS:
-            kw["device"] = self.device
-        return (make_transport(name, **kw),)
-
     def _negotiate_transport(self) -> str:
         chosen = None
         for h in self.hosts:
@@ -271,7 +262,7 @@ class ReconfigurableTrainer:
 
     # -- step construction -------------------------------------------------------
     def _build_step(self) -> None:
-        self.chunnels = self._transport_chunnels(self.transport_name)
+        self.chunnels = transport_chunnels(self.transport_name, self.mesh, self.device)
         self.state_sh = step_mod.shardings_for(self.model, self.mesh, self.sharding,
                                                self.chunnels)
         self._layout = step_mod.model_layout(self.state_sh)

@@ -148,7 +148,7 @@ def _rank_collectives() -> dict:
 @pytest.fixture(scope="module")
 def port_out():
     return spawn("test_torch_collectives:_rank_collectives", WORLD, backend="gloo",
-                 timeout_s=300.0)
+                 threads=1, timeout_s=300.0)
 
 
 @pytest.fixture(scope="module")

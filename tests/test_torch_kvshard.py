@@ -73,7 +73,6 @@ def _rank_cases() -> dict:
     from repro_torch.comm import collectives
     from repro_torch.launch.mesh import make_mesh
 
-    torch.set_num_threads(1)
     out = {}
     mesh2 = make_mesh((2, 2), ("data", "model"), device="cpu")
     mesh4 = make_mesh((4,), ("model",), device="cpu")
@@ -118,7 +117,8 @@ def _rank_cases() -> dict:
 
 @pytest.fixture(scope="module")
 def ranks():
-    return spawn("test_torch_kvshard:_rank_cases", 4, backend="gloo", timeout_s=300.0)
+    return spawn("test_torch_kvshard:_rank_cases", 4, backend="gloo", threads=1,
+                 timeout_s=300.0)
 
 
 @pytest.fixture(scope="module")

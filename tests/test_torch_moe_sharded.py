@@ -72,7 +72,6 @@ def _rank_cases(params) -> dict:
     from repro_torch.comm import collectives
     from repro_torch.launch.mesh import make_mesh
 
-    torch.set_num_threads(1)
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
     d = mesh.coords["data"]
     out = {"coords": dict(mesh.coords)}
@@ -110,6 +109,7 @@ def params(jax):
 @pytest.fixture(scope="module")
 def four_ranks(params):
     ranks = spawn("test_torch_moe_sharded:_rank_cases", 4, backend="gloo", args=(params,),
+                  threads=1,
                   timeout_s=300.0)
     for r, out in enumerate(ranks):
         for key, val in out.items():

@@ -134,7 +134,6 @@ def _rank_serve(params: dict) -> dict:
     traceback."""
     from repro_torch.launch.mesh import make_mesh
 
-    torch.set_num_threads(1)
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
     out = {"coords": dict(mesh.coords)}
     for arch in SERVED:
@@ -167,7 +166,7 @@ def ref_params(jax):
 @pytest.fixture(scope="module")
 def four_ranks(ref_params):
     ranks = spawn("test_torch_serve_sharded:_rank_serve", 4, backend="gloo",
-                  args=(ref_params,), timeout_s=400.0)
+                  args=(ref_params,), threads=1, timeout_s=400.0)
     for r, out in enumerate(ranks):
         for key, val in out.items():
             assert not isinstance(val, str), f"rank {r}, {key}:\n{val}"
@@ -381,7 +380,8 @@ def test_launcher_world_serves_the_one_rank_tokens(arch, kv, dispatch):
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "4", "--prompt-len", "24",
             "--gen", "4"]
     one = serve.main(args).tokens.numpy()
-    ranks = serve.main(args + ["--world", "4", "--data", "2", "--model", "2", "--kv-partition",
+    ranks = serve.main(args + ["--world", "4", "--threads", "1", "--data", "2", "--model", "2",
+                               "--kv-partition",
                                kv] + (["--moe-dispatch", dispatch] if dispatch else []))
     assert len(ranks) == 4
     for r in ranks:
@@ -395,7 +395,6 @@ def test_launcher_world_serves_the_one_rank_tokens(arch, kv, dispatch):
 
 def _rank_serve_runs(spec: dict) -> dict:
     """``serve_rank`` with an observer that records its calls (spawn target)."""
-    torch.set_num_threads(1)
     seen = []
     out = S.serve_rank(spec, observe=lambda run, phase: seen.append((run, phase)))
     out["observed"] = seen
@@ -428,7 +427,7 @@ def test_serve_rank_runs_and_check_step():
             "attn_impl": "pallas", "runs": [("heads", None), ("sequence", None)],
             "check_tokens": check}
     ranks = spawn("test_torch_serve_sharded:_rank_serve_runs", 4, backend="gloo",
-                  args=(spec,), timeout_s=300.0)
+                  args=(spec,), threads=1, timeout_s=300.0)
     phases = ["start", "prefill", "check", "decode"]
     for r in ranks:
         rows = rows_of(r)

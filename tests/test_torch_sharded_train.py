@@ -138,9 +138,7 @@ def _resharding_restore(shared: str) -> list:
 
 def _rank_scenarios(shared: str, ref_params: dict, names: tuple) -> dict:
     """The scenarios ``names`` on this rank (spawn target): each one's
-    record, or the traceback; then the resharding restore. One thread a
-    rank: the ranks share the cores with the other test workers."""
-    torch.set_num_threads(1)
+    record, or the traceback; then the resharding restore."""
     out = {}
     dirs = {n: str(Path(shared) / n) for n in SCENARIOS}
     for name in names:
@@ -191,7 +189,7 @@ def shared():
 @pytest.fixture(scope="module")
 def four_ranks(ref_params, shared, names):
     ranks = spawn("test_torch_sharded_train:_rank_scenarios", 4, backend="gloo",
-                  args=(shared, ref_params, names), timeout_s=400.0)
+                  args=(shared, ref_params, names), threads=1, timeout_s=400.0)
     for r, out in enumerate(ranks):
         for key, val in out.items():
             assert not isinstance(val, str), f"rank {r}, {key}:\n{val}"

@@ -155,7 +155,7 @@ def ref_params():
 @pytest.fixture(scope="module")
 def two_ranks(ref_params):
     with tempfile.TemporaryDirectory() as shared:
-        yield spawn("test_torch_train:_rank_scenarios", 2, backend="gloo",
+        yield spawn("test_torch_train:_rank_scenarios", 2, backend="gloo", threads=1,
                     args=(shared, ref_params), timeout_s=300.0)
 
 
@@ -237,7 +237,8 @@ def test_launcher_rank_path_each_transport(two_ranks, transport):
 
 
 def test_launcher_spawns_two_ranks(tmp_path, capfd):
-    run = launch_train.main(["--smoke", "--device", "cpu", "--world", "2", "--backend", "gloo",
+    run = launch_train.main(["--smoke", "--device", "cpu", "--world", "2", "--threads", "1",
+                             "--backend", "gloo",
                              "--transport", "compressed_int8", "--steps", "3",
                              "--ckpt", str(tmp_path), "--ckpt-every", "2"])
     assert run.world == 2 and run.backend == "gloo" and run.transport == "compressed_int8"

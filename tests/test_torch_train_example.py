@@ -14,8 +14,8 @@ def test_example_runs_on_pod_and_model_axes(capfd):
     try:
         import torch_train_reconfigure as example
 
-        run = example.main(["--device", "cpu", "--steps", "20", "--pod", "2", "--model", "2",
-                            "--window", "4", "--slow", "1.0"])
+        run = example.main(["--device", "cpu", "--threads", "1", "--steps", "20", "--pod", "2",
+                            "--model", "2", "--window", "4", "--slow", "1.0"])
     finally:
         sys.path.pop(0)
     assert run["negotiated"] == "psum" and run["transport"] == "compressed_int8"
