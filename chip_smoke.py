@@ -187,7 +187,42 @@ Phases, each of which exits non-zero on any failed check:
     (1,663,080,000 parameters), every kernel counter set to 0 just before
     and read just after (none launches: training scans with the plain
     version and attends with ``xla_chunked``), every loss finite; ms/step
-    and peak memory printed.
+    and peak memory printed;
+14. training the vlm, audio, ssm and moe families on one rank at their
+    published widths, each through ``repro_torch.launch.train.main`` with
+    ``--transport xla --steps 4``: phi-3-vision-4.2b (32 layers,
+    3,822,259,200 parameters, batch 4 x 1024: its 576 patch positions need
+    S > 576), seamless-m4t-medium (12 + 12 layers, 978,972,672; batch 8 x
+    128, frames (8, 32, 1024)), xlstm-125m (12 layers, 123,558,192; 8 x
+    128) and qwen3-moe-235b-a22b **reduced** to 1 of its 94 layers at the
+    published widths (3,733,467,136; 8 x 128; ``grouped`` on one rank).
+    Every kernel counter set to 0 just before and read just after (none
+    launches: ``xla_chunked`` attention, the plain scans), every loss
+    finite; first and warm ms/step, tokens/s and peak memory printed, and
+    one warm step of the same trainer built again profiled (idle share).
+    Before each, the card against the CPU: one model drawn on the card from
+    the seed at 2 layers of the published widths (2 + 2 for seamless, 1
+    for qwen3-moe), copied to the CPU, the first loss within 2e-3
+    (relative) and the gradient within 4e-2 (relative L2) on the same
+    batch;
+15. the compressed transport on a new tree: xlstm-125m at its published
+    config on two ranks that share the card (``pod`` = 2, gloo), global
+    batch 8 x 128: 2 psum steps, a 2PC switch to compressed_int8, 2
+    compressed steps. Each compressed step launches ``quantize_pack`` and
+    ``unpack_dequant_sum`` 148 times on each rank (the flat gradient, and
+    one per leaf of the reference's tree of 147 leaves: xlstm's layers an
+    unstacked list), all on the vector route at block 256; no kernel in a
+    psum step; the parameters bit-equal across the ranks after every step;
+16. the moe dispatches' backward on CUDA tensors: four gloo ranks sharing
+    the card on (data 2, model 2), FSDP, qwen3-moe-235b-a22b at its smoke
+    widths (the published widths gathered whole on four ranks of one card
+    do not fit), global batch 8 x 64: 2 steps with ``alltoall``, then 2
+    with ``allgather``, each from the same parameters; then the same runs
+    on the CPU in the same processes. Each rank's own loss of each step
+    bit-equal across its ``model`` group, the card's losses within 1e-2
+    (relative) of the CPU's, the backward's own collectives present
+    (``grad_all_to_all@model``, ``grad_reduce_scatter@model``), no kernel
+    launch.
 
 The line before the last is one JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -315,6 +350,38 @@ RESTART_RTOL = 1e-6
 SHARDED_WORLD, SHARDED_A_STEPS, SHARDED_B_STEPS, SHARDED_RTOL = 4, 3, 2, 1e-2
 #: the hybrid phase: hymba-1.5b at its published config on one rank
 HYMBA_TRAIN_STEPS, HYMBA_PARAMS = 4, 1_663_080_000
+#: phase 14: the vlm, audio, ssm and moe families trained on one rank at
+#: their published widths through the launcher: (arch, the launcher's argv
+#: beyond --arch/--steps/--transport, parameters). phi-3-vision's 576 patch
+#: positions need S > 576; qwen3-moe at 1 of its 94 layers (one card)
+FAMILY_TRAIN_STEPS = 4
+FAMILY_TRAIN = [
+    ("phi-3-vision-4.2b", ["--batch", "4", "--seq", "1024"], 3_822_259_200),
+    ("seamless-m4t-medium", ["--batch", "8", "--seq", "128"], 978_972_672),
+    ("xlstm-125m", ["--batch", "8", "--seq", "128"], 123_558_192),
+    ("qwen3-moe-235b-a22b", ["--batch", "8", "--seq", "128", "--layers", "1"], 3_733_467_136),
+]
+#: phase 14's card-against-CPU check: (layers of the published widths, (rows,
+#: positions)); 2 layers (2 + 2 for seamless), qwen3-moe's 1 (3.73 B
+#: parameters: the CPU side holds them, their gradients and the bf16 banks);
+#: phi-3-vision's positions past its 576 patches, a multiple of the loss chunk
+FAMILY_CHECK = {"phi-3-vision-4.2b": (2, (1, 1024)), "seamless-m4t-medium": (2, (2, 128)),
+                "xlstm-125m": (2, (2, 128)), "qwen3-moe-235b-a22b": (1, (2, 64))}
+#: the first loss, relative, and the gradient's relative L2 distance, card
+#: against CPU: each side multiplies in bfloat16 with its own accumulation
+#: order (cuBLAS against oneDNN); the parity tests' 4e-2 of each leaf holds
+#: each side's own bf16 rounding against float32 products
+FAMILY_LOSS_RTOL, FAMILY_GRAD_L2 = 2e-3, 4e-2
+#: phase 15: xlstm-125m at its published config on two ranks (pod 2): its
+#: parameters and reference leaves (an unstacked list of 12 unlike layers)
+XLSTM_ARCH, XLSTM_PARAMS, XLSTM_LEAVES = "xlstm-125m", 123_558_192, 147
+XLSTM_PSUM_STEPS = XLSTM_COMPRESSED_STEPS = 2
+#: phase 16: qwen3-moe's smoke widths on (data 2, model 2), 2 steps with each
+#: mesh dispatch; the card's reported losses against the CPU's, relative
+#: (bf16 products on either side, two AdamW steps)
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_MESH_DISPATCHES = ("alltoall", "allgather")
+MOE_MESH_STEPS, MOE_MESH_BATCH, MOE_MESH_SEQ, MOE_MESH_RTOL = 2, 8, 64, 1e-2
 #: serving on a mesh of gloo ranks that share the card: four prompts of 2048
 #: tokens into a cache of 2112 positions (2048 + 32 rounded up to a multiple
 #: of 64, a decode ShapeConfig's), 32 greedy steps. Each case: (arch, layers
@@ -2249,6 +2316,402 @@ def phase_train_hymba(torch) -> dict:
     return launches
 
 
+def _card_routes(torch, moe):
+    """``moe.route`` and two wrappers of it: (route, record, follow, the
+    recorded ids, [ids alike, calls followed]). ``record`` keeps the
+    expert ids of every call, in order; ``follow`` routes each call to the
+    recorded ids instead of its own top-k (the gates its own softmax's
+    values there, renormalised, and the aux of its probabilities with the
+    recorded slot-0 experts, as ``route`` computes them) and counts the
+    (token, slot) ids its own top-k would have chosen alike. A near-uniform
+    router at a seeded draw has near-ties among 128 experts that one
+    bfloat16 step of its input flips, so the card's and the CPU's own
+    top-k differ; following the card's ids compares the arithmetic."""
+    real, calls, agree = moe.route, [], [0, 0]
+
+    def record(router_w, x2d, cfg):
+        out = real(router_w, x2d, cfg)
+        calls.append(out[1].cpu())
+        return out
+
+    def follow(router_w, x2d, cfg):
+        _, own, _ = real(router_w, x2d, cfg)
+        ids = calls[agree[1]].to(own.device)
+        agree[0] += int((own == ids).sum())
+        agree[1] += 1
+        probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+        gates = probs.gather(-1, ids)
+        gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        E = cfg.moe.num_experts
+        frac = torch.nn.functional.one_hot(ids[:, 0], E).float().mean(dim=0)
+        aux = E * torch.sum(frac * probs.mean(dim=0)) * moe.AUX_LOSS_COEF
+        return gates, ids, aux
+
+    return real, record, follow, calls, agree
+
+
+def _family_check(torch, arch: str) -> dict:
+    """The first loss and gradient of ``arch`` cut to ``FAMILY_CHECK``'s
+    depth, on the card against the CPU: one model drawn on the card from
+    the seed, copied to a model on the CPU, the same batch on both; the moe
+    family's CPU side routed to the card's expert ids (``_card_routes``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.serve import cut_depth
+    from repro_torch.models import moe, registry
+
+    layers, (rows, seq) = FAMILY_CHECK[arch]
+    cfg = cut_depth(get_config(arch), layers)
+    t0 = time.perf_counter()
+    models = {dev: registry.model_class(cfg)(cfg, device=torch.device(dev))
+              for dev in ("cuda", "cpu")}
+    models["cuda"].init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    with torch.no_grad():
+        for (_, p), (_, q) in zip(models["cuda"].named_parameters(),
+                                  models["cpu"].named_parameters()):
+            q.copy_(p)
+    batch = batches_for(cfg, ShapeConfig("check", seq, rows, "train"))(0)
+    real, record, follow, calls, agree = _card_routes(torch, moe)
+    loss = {}
+    try:
+        for dev, model in models.items():
+            if cfg.family == "moe":
+                moe.route = record if dev == "cuda" else follow
+            t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            out = registry.loss(model, t)
+            out.backward()
+            loss[dev] = out.item()
+    finally:
+        moe.route = real
+    if cfg.family == "moe":
+        check(agree[1] == len(calls), f"{arch} check: the CPU routed {agree[1]} times, the "
+              f"card {len(calls)}")
+    diff = total = 0.0
+    for (name, p), (_, q) in zip(models["cuda"].named_parameters(),
+                                 models["cpu"].named_parameters()):
+        check(p.grad is not None and q.grad is not None, f"{arch} check: {name} has no gradient")
+        want = q.grad.to("cuda")
+        diff += torch.linalg.vector_norm((p.grad - want).double()).item() ** 2
+        total += torch.linalg.vector_norm(want.double()).item() ** 2
+        del want
+    n = sum(p.numel() for p in models["cpu"].parameters())
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    routed = sum(c.numel() for c in calls)
+    return {"layers": layers, "rows": rows, "seq": seq, "params": n, "loss": loss,
+            "loss_rel": abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"]),
+            "grad_l2": math.sqrt(diff / total), "s": time.perf_counter() - t0,
+            "routed_alike": agree[0] / routed if routed else None}
+
+
+def phase_train_families(torch) -> dict:
+    """Phase 14: the vlm, audio, ssm and moe families' training at their
+    published widths on one rank, each through the launcher's ``main`` with
+    every kernel counter set to 0 just before and read just after; then one
+    profiled warm step of the same trainer built again, and the card against
+    the CPU at ``FAMILY_CHECK``'s depth. Returns the launches, summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+
+    total: Counter = Counter()
+    for arch, extra, n_params in FAMILY_TRAIN:
+        t_phase = time.perf_counter()
+        chk = _family_check(torch, arch)
+        tag = f"train family {arch}"
+        routed = ("" if chk["routed_alike"] is None else
+                  f"; the CPU routed to the card's expert ids, its own top-k choosing "
+                  f"{chk['routed_alike']:.4f} of the (token, slot) ids alike")
+        print(f"{tag}: check at {chk['layers']} layer(s) of the published widths "
+              f"({chk['params']} parameters), {chk['rows']} x {chk['seq']}{routed}: first loss card "
+              f"{chk['loss']['cuda']:.6f} CPU {chk['loss']['cpu']:.6f}, relative difference "
+              f"{chk['loss_rel']:.3e} (tolerance {FAMILY_LOSS_RTOL}); gradient's relative L2 "
+              f"distance {chk['grad_l2']:.3e} (tolerance {FAMILY_GRAD_L2}); {chk['s']:.1f} s")
+        check(chk["loss_rel"] <= FAMILY_LOSS_RTOL, f"{tag}: card and CPU losses {chk['loss']}")
+        check(chk["grad_l2"] <= FAMILY_GRAD_L2, f"{tag}: gradient {chk['grad_l2']} apart")
+
+        argv = ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--transport", "xla", *extra]
+        print(f"{tag}: python -m repro_torch.launch.train", " ".join(argv))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        run = train.main(argv)
+        wall = time.perf_counter() - t0
+        launches = _all_counts()
+        total.update(launches)
+        check(not any(launches.values()), f"{tag} launched kernels: {launches}")
+        check(len(run.losses) == FAMILY_TRAIN_STEPS and all(math.isfinite(l) for l in run.losses),
+              f"{tag}: losses {run.losses}")
+        check(run.n_params == n_params, f"{tag}: {run.n_params} parameters, want {n_params}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tr = train.build(train.parse(argv), make_mesh((1,), ("data",), device="cuda"))
+        gen = batches_for(tr.cfg, tr.shape)
+        state, _ = tr.run(tr.init_state(SEED), gen, 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.run(state, gen, 1)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        dev = device_events(torch, prof.key_averages())
+        busy = sum(us for us, _, _ in dev) / 1e6
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{tag}: launches {json.dumps(launches)} (want 0 of each: xla_chunked attention, "
+              f"the plain scans, one rank builds no transport chunnel); {run.n_params} "
+              f"parameters; losses {run.losses}; first step {run.first_ms:.3f} ms, warm "
+              f"{run.warm_ms:.3f} ms/step (median of steps 2-{FAMILY_TRAIN_STEPS}), "
+              f"{run.tokens_per_s:.1f} tokens/s ({run.tokens_per_step} tokens a step); peak "
+              f"memory {run.peak_memory_bytes / 2**30:.2f} GiB ({run.peak_memory_bytes} bytes); "
+              f"step ms {[round(t * 1e3, 3) for t in run.step_s]}; main {wall:.3f} s")
+        print(f"profile {tag}, one warm step: wall {prof_wall:.4f} s, device busy {busy:.4f} s, "
+              f"idle share {1 - busy / prof_wall:.4f}, {sum(c for _, _, c in dev)} device kernels "
+              "and copies")
+        for us, key, count in dev[:5]:
+            print(f"profile {tag}: device {us / 1e3:.3f} ms in {count} x {key[:90]}")
+        print(f"{tag}: phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(total)
+
+
+def train_xlstm_rank() -> dict:
+    """One rank of phase 15 (run by ``spawn``; every rank runs the same
+    calls): xlstm-125m on a mesh of ``pod`` = 2, psum, a 2PC switch, then
+    the compressed transport. Returns its per-step records."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.comm import collectives
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.kernels.quantize.quantize import (quantize_pack, unpack_dequant,
+                                                       unpack_dequant_sum)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import HostSpec, ReconfigurableTrainer
+
+    errors: list = []
+    threading.excepthook = lambda a: errors.append(f"{a.thread.name}: {a.exc_value!r}")
+    torch.cuda.set_device(0)
+    mesh = make_mesh((2,), ("pod",), device="cuda:0")
+    cfg = get_config(XLSTM_ARCH)
+    shape = ShapeConfig("xlstm2", TRAIN_SEQ, TRAIN_BATCH, "train")
+    offers = ["psum", "compressed_int8"]
+    tr = ReconfigurableTrainer(cfg, shape, mesh,
+                               tcfg=TrainConfig(warmup_steps=10, total_steps=TRAIN_STEPS),
+                               transport="psum",
+                               hosts=[HostSpec(0, list(offers)), HostSpec(1, list(offers))])
+    gen = batches_for(cfg, shape)
+    state = tr.init_state(SEED)
+    wrappers = {"quantize_pack": quantize_pack, "unpack_dequant": unpack_dequant,
+                "unpack_dequant_sum": unpack_dequant_sum}
+    records = []
+
+    def one_step(state):
+        for w in wrappers.values():
+            w.launches = 0
+            w.route_launches.clear()
+        sent0 = sum(collectives.SENT.values())
+        state, hist = tr.run(state, gen, 1)
+        sums = [None] * mesh.size
+        dist.all_gather_object(sums, _checksum(torch, state.params))
+        records.append({
+            "transport": tr.transport_name, "step": state.step, "loss": hist[0]["loss"],
+            "ms": tr.step_times[-1] * 1e3,
+            "sent_bytes": sum(collectives.SENT.values()) - sent0,
+            "launches": {n: w.launches for n, w in wrappers.items()},
+            "routes": {n: {f"{r} b{b}": c for (r, b), c in w.route_launches.items()}
+                       for n, w in wrappers.items()},
+            "params_equal_on_ranks": all(x == sums[0] for x in sums)})
+        return state
+
+    for _ in range(XLSTM_PSUM_STEPS):
+        state = one_step(state)
+    state = tr.reconfigure(state, "compressed_int8")
+    for _ in range(XLSTM_COMPRESSED_STEPS):
+        state = one_step(state)
+    return {"rank": dist.get_rank(), "records": records, "reconfig_log": tr.reconfig_log,
+            "n_params": sum(p.numel() for p in tr.model.parameters()),
+            "n_leaves": len(T.leaves(step_mod.grad_shapes(tr.model))),
+            "thread_errors": errors, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_train_xlstm_two(torch) -> dict:
+    """Phase 15: the compressed transport on xlstm's tree, two ranks on the
+    one card; every check on both ranks' records. Returns the launches of
+    each kernel, over both ranks."""
+    from repro_torch.launch.mesh import spawn
+
+    why = "the ranks share one GPU; NCCL refuses two ranks on one device"
+    print(f"train xlstm 2 ranks: two processes on cuda:0, gloo ({why}); {XLSTM_ARCH} at its "
+          f"published config; global batch {TRAIN_BATCH} x {TRAIN_SEQ}; psum x "
+          f"{XLSTM_PSUM_STEPS}, 2PC to compressed_int8, compressed_int8 x "
+          f"{XLSTM_COMPRESSED_STEPS}")
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:train_xlstm_rank", 2, backend="gloo", timeout_s=600.0, reason=why)
+    wall = time.perf_counter() - t0
+    total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0}
+    for r in ranks:
+        rank = r["rank"]
+        check(not r["thread_errors"], f"rank {rank}: exceptions in threads {r['thread_errors']}")
+        check(r["n_params"] == XLSTM_PARAMS and r["n_leaves"] == XLSTM_LEAVES,
+              f"rank {rank}: {r['n_params']} parameters in {r['n_leaves']} leaves")
+        check(r["reconfig_log"] == [{"from": "psum", "to": "compressed_int8", "committed": True,
+                                     "at_step": XLSTM_PSUM_STEPS}], f"rank {rank}: {r['reconfig_log']}")
+        for rec in r["records"]:
+            compressed = rec["transport"] == "compressed_int8"
+            want = ({"quantize_pack": 1 + XLSTM_LEAVES, "unpack_dequant": 0,
+                     "unpack_dequant_sum": 1 + XLSTM_LEAVES} if compressed
+                    else {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0})
+            check(rec["launches"] == want, f"rank {rank} step {rec['step']}: launches "
+                  f"{rec['launches']}, want {want}")
+            if compressed:
+                for name in ("quantize_pack", "unpack_dequant_sum"):
+                    check(rec["routes"][name] == {"vector b256": want[name]},
+                          f"rank {rank} step {rec['step']}: {name} routes {rec['routes'][name]}")
+            check(rec["params_equal_on_ranks"],
+                  f"rank {rank} step {rec['step']}: parameters differ across the ranks")
+            check(math.isfinite(rec["loss"]), f"rank {rank} step {rec['step']}: loss {rec['loss']}")
+            for name in total:
+                total[name] += rec["launches"][name]
+    r0, r1 = ranks[0]["records"], ranks[1]["records"]
+    for rec, other in zip(r0, r1):
+        print(f"train xlstm 2 ranks: step {rec['step']} {rec['transport']}: loss "
+              f"{rec['loss']:.6f}, {rec['ms']:.3f} ms (rank 0; rank 1 {other['ms']:.3f} ms), "
+              f"{rec['sent_bytes']} bytes sent by rank 0, launches {json.dumps(rec['launches'])}, "
+              "parameters bit-equal on both ranks")
+    print(f"train xlstm 2 ranks: {XLSTM_LEAVES} reference leaves; launches over both ranks "
+          f"{json.dumps(total)}; peak memory by rank "
+          f"{[r['peak_memory_bytes'] for r in ranks]} bytes; spawn to exit {wall:.3f} s; both "
+          "processes exited 0")
+    return total
+
+
+def moe_mesh_rank(params) -> dict:
+    """One rank of phase 16 (run by ``spawn``): the moe training step on
+    (data 2, model 2) with each mesh dispatch, on the card and then on the
+    CPU, from the same parameters ``params`` (the reference's tree)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comm import collectives
+    from repro_torch.comm.moe_dispatch import configure
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig, ShardingConfig, TrainConfig
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import ReconfigurableTrainer
+
+    errors: list = []
+    threading.excepthook = lambda a: errors.append(f"{a.thread.name}: {a.exc_value!r}")
+    torch.cuda.set_device(0)
+    shape = ShapeConfig("moe mesh", MOE_MESH_SEQ, MOE_MESH_BATCH, "train")
+    out = {"rank": dist.get_rank(), "thread_errors": errors}
+    for device in ("cuda:0", "cpu"):
+        mesh = make_mesh((2, 2), ("data", "model"), device=device)
+        out[f"coords {device}"] = dict(mesh.coords)
+        for impl in MOE_MESH_DISPATCHES:
+            cfg = configure(get_smoke_config(MOE_ARCH), impl)
+            tr = ReconfigurableTrainer(cfg, shape, mesh, sharding=ShardingConfig(fsdp=True),
+                                       tcfg=TrainConfig(warmup_steps=10, total_steps=TRAIN_STEPS),
+                                       transport="xla")
+            state = tr.init_state(params=params)
+            gen = batches_for(cfg, shape)
+            _reset_all_counts()
+            sent0 = dict(collectives.SENT)
+            local, reported = [], []
+            for step in range(MOE_MESH_STEPS):
+                with torch.no_grad():
+                    rows = step_mod.local_rows(gen(step), mesh)
+                    local.append(registry.loss(tr.model, rows, batch_split=2).item())
+                state, hist = tr.run(state, gen, 1)
+                reported.append(hist[0]["loss"])
+            out[(device, impl)] = {
+                "local": local, "reported": reported,
+                "ms": [t * 1e3 for t in tr.step_times], "launches": _all_counts(),
+                "sent": {k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
+                         if v > sent0.get(k, 0)}}
+            del tr, state
+    return out
+
+
+def phase_train_moe_mesh(torch) -> dict:
+    """Phase 16: the moe dispatches' backward on CUDA tensors, four gloo
+    ranks on (data 2, model 2) at qwen3-moe's smoke widths, against the same
+    ranks' run on the CPU. Returns the launches, summed over the ranks."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import registry
+    from repro_torch.models.stacking import stack_layers
+
+    cfg = get_smoke_config(MOE_ARCH)
+    model = registry.model_class(cfg)(cfg, device=torch.device("cpu"))
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    params = T.map(lambda t: t.detach().numpy(),
+                   stack_layers(dict(model.named_parameters()), model.stacks()))
+    why = "the ranks share one GPU; NCCL refuses two ranks on one device"
+    print(f"train moe mesh: four processes on cuda:0, gloo ({why}); {cfg.name} (the published "
+          "widths gathered on four ranks of one card do not fit: the smoke widths), (data 2, "
+          f"model 2), fsdp, global batch {MOE_MESH_BATCH} x {MOE_MESH_SEQ}; "
+          f"{MOE_MESH_STEPS} steps with each of {MOE_MESH_DISPATCHES} on the card, then the same "
+          "on the CPU in the same processes")
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:moe_mesh_rank", 4, backend="gloo", args=(params,),
+                  timeout_s=600.0, reason=why)
+    wall = time.perf_counter() - t0
+    total: Counter = Counter()
+    for r in ranks:
+        check(not r["thread_errors"], f"rank {r['rank']}: exceptions in threads")
+        for impl in MOE_MESH_DISPATCHES:
+            rec = r[("cuda:0", impl)]
+            total.update(rec["launches"])
+            check(not any(rec["launches"].values()),
+                  f"rank {r['rank']} {impl}: launched kernels {rec['launches']}")
+            check(all(math.isfinite(l) for l in rec["local"] + rec["reported"]),
+                  f"rank {r['rank']} {impl}: losses {rec}")
+            grads = {k for k in rec["sent"] if k.startswith("grad_")}
+            want = {"alltoall": "grad_all_to_all@model",
+                    "allgather": "grad_reduce_scatter@model"}[impl]
+            check(want in grads, f"rank {r['rank']} {impl}: backward collectives {grads}")
+    for impl in MOE_MESH_DISPATCHES:
+        for device in ("cuda:0", "cpu"):
+            by_data: dict = {}
+            for r in ranks:
+                d = r[f"coords {device}"]["data"]
+                by_data.setdefault(d, []).append(r[(device, impl)]["local"])
+            for d, losses in by_data.items():
+                check(all(l == losses[0] for l in losses),
+                      f"{impl} on {device}: losses differ in the model group of data {d}: "
+                      f"{losses}")
+        card = ranks[0][("cuda:0", impl)]
+        cpu = ranks[0][("cpu", impl)]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(card["reported"], cpu["reported"]))
+        check(diff <= MOE_MESH_RTOL, f"{impl}: card losses {card['reported']}, CPU "
+              f"{cpu['reported']}")
+        ms = [m for r in ranks for m in r[("cuda:0", impl)]["ms"]]
+        print(f"train moe mesh {impl}: losses on the card {card['reported']}, on the CPU "
+              f"{cpu['reported']}: max relative difference {diff:.3e} (tolerance "
+              f"{MOE_MESH_RTOL}); each rank's own loss bit-equal across its model group on "
+              f"both; card step ms {[round(m, 3) for m in ms]} (all ranks, gloo through the "
+              f"host); rank 0's bytes by op@axis {json.dumps(card['sent'])}")
+    print(f"train moe mesh: launches over all ranks {json.dumps(dict(total))}; spawn to exit "
+          f"{wall:.3f} s; every process exited 0")
+    return dict(total)
+
+
 def main() -> int:
     import torch
 
@@ -2284,6 +2747,9 @@ def main() -> int:
     paths["train 2 ranks"] = phase_train_two(torch)
     paths["train sharded"] = phase_train_sharded(torch)
     paths["train hymba"] = phase_train_hymba(torch)
+    paths["train families"] = phase_train_families(torch)
+    paths["train xlstm 2 ranks"] = phase_train_xlstm_two(torch)
+    paths["train moe mesh"] = phase_train_moe_mesh(torch)
     names = ("quantize_pack", "unpack_dequant", "unpack_dequant_sum", "flash_attention",
              "ssm_scan_chunk")
     # every serve and train path for every kernel, zeros included; the
@@ -2304,7 +2770,8 @@ def main() -> int:
                         "replaces": REPLACES[name],
                         "launches": (launches[name] + paths["wan"][name]
                                      + paths["train 2 ranks"][name]
-                                     + paths["train sharded"][name]),
+                                     + paths["train sharded"][name]
+                                     + paths["train xlstm 2 ranks"][name]),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
@@ -2316,7 +2783,8 @@ def main() -> int:
     kernels.append({"name": "unpack_dequant_sum", "route": "cuda", "source": SOURCE,
                     "replaces": SUM_REPLACES,
                     "launches": (paths["train 2 ranks"]["unpack_dequant_sum"]
-                                 + paths["train sharded"]["unpack_dequant_sum"]),
+                                 + paths["train sharded"]["unpack_dequant_sum"]
+                                 + paths["train xlstm 2 ranks"]["unpack_dequant_sum"]),
                     "max_abs_err": dsum["max_abs_err"],
                     **{k: dsum[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                     "library_ms": None, "launches_by_path": by_path["unpack_dequant_sum"],

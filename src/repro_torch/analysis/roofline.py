@@ -196,14 +196,18 @@ def _compressed(out: _Sent, axis: str, n: int, numel: int, block: int) -> None:
 
 
 def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
-                      transport: str = "xla", tcfg: TrainConfig = TrainConfig()) -> Counter:
+                      transport: str = "xla", tcfg: TrainConfig = TrainConfig(),
+                      shape: ShapeConfig | None = None) -> Counter:
     """Bytes one rank sends in one ``train.step`` step of ``model`` (full
     parameter shapes, as built: a meta model will do) on ``mesh`` (a
-    ``launch.mesh.Mesh`` or ``AbstractMesh``), by ``op@axis``:
+    ``launch.mesh.Mesh`` or ``AbstractMesh``) for a global batch of
+    ``shape`` (the moe family's dispatches read it), by ``op@axis``:
 
     - the forward's parameter gathers (``gather_param``, each layer's twice
       under remat: the backward recomputes it) and their backward over a
       batch axis (``grad_reduce_scatter``), per microbatch;
+    - the moe family's dispatches, forward and backward, per layer and
+      microbatch (:func:`_moe_layer_train`);
     - the mean over the batch axes the transport leaves automatic
       (``all_reduce``) and the agreement over ``model`` (``grad_agree``);
     - with a transport: the gradient's and its state's gathers
@@ -238,6 +242,16 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
             if axis in BATCH_AXES:
                 out.sends("grad_reduce_scatter", axis, (n - 1) * n_mb, cur * F32)
             cur *= n
+
+    if cfg.family == "moe":
+        if shape is None:
+            raise ValueError("the moe family's dispatch bytes need the batch's shape")
+        n_rows = math.prod(mesh.shape[a] for a in BATCH_AXES if a in mesh.axis_names)
+        rows = shape.global_batch // n_rows if shape.global_batch % n_rows == 0 \
+            else shape.global_batch
+        for _ in range(cfg.num_layers * n_mb):
+            _moe_layer_train(out, cfg, mesh, rows // n_mb, shape.seq_len,
+                             shape.global_batch // rows)
 
     batch = [a for a in BATCH_AXES if a in mesh.axis_names and mesh.shape[a] > 1]
     shared = [a for a in mesh.axis_names if a not in BATCH_AXES and mesh.shape[a] > 1]
@@ -318,6 +332,53 @@ def _moe_layer(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int, batch_spli
             cur *= mesh.shape[a]
 
 
+def _moe_layer_train(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int,
+                     batch_split: int) -> None:
+    """One training ``moe_ffn`` (``comm.collectives``' differentiable
+    collectives): the forward's collectives, then the backward's
+    (``grad_<op>``). A layer recomputed under remat issues only those of its
+    forward's collectives that precede its last saved activation (the
+    recomputation stops there), which are the all-to-alls and ``allgather``'s
+    row gather: so they count twice (held to ``SENT`` under ``"full"``)."""
+    from repro_torch.models.moe import capacity
+
+    D, E = cfg.d_model, cfg.moe.num_experts
+    axes = mesh.axis_names
+    b_axes = [a for a in BATCH_AXES if a in axes]
+    n_batch = math.prod(mesh.shape[a] for a in b_axes)
+    n = mesh.shape["model"] if "model" in axes else 1
+    manual_ok = ("model" in axes and "data" in axes and (rows * batch_split) % n_batch == 0
+                 and S % n == 0 and E % n == 0)
+    impl = cfg.moe.dispatch
+    remat = cfg.remat != "none"
+    if impl in ("alltoall", "allgather") and manual_ok:
+        T_loc = rows * S // n
+        _moe_layer(out, cfg, mesh, rows, S, batch_split)
+        if impl == "alltoall":
+            block = E // n * capacity(T_loc, cfg) * D * BF16
+            for _ in range(2):
+                if remat:
+                    out.all_gather("all_to_all", "model", n, block)
+                out.all_gather("grad_all_to_all", "model", n, block)
+        else:
+            if remat:
+                out.all_gather("all_gather", "model", n, T_loc * D * BF16)
+            out.sends("grad_reduce_scatter", "model", n - 1, T_loc * D * BF16)
+        out.all_reduce("grad_all_reduce", "data", mesh.shape["data"], F32)  # the aux's mean
+        out.all_reduce("grad_all_reduce", "model", n, D * E * F32)  # the router
+        for _ in range(3):  # the banks' experts
+            out.all_gather("grad_all_gather", "model", n, E // n * D * cfg.moe.d_ff_expert * BF16)
+        out.all_gather("grad_all_gather", "model", n, T_loc * D * BF16)  # the rows' slice
+        return
+    if batch_split > 1:  # the global batch's rows: gathered, and reduce-scattered back
+        cur = rows * S * D * BF16
+        for a in reversed(b_axes):
+            for _ in range(2 if remat else 1):
+                out.all_gather("all_gather", a, mesh.shape[a], cur)
+            out.sends("grad_reduce_scatter", a, mesh.shape[a] - 1, cur)
+            cur *= mesh.shape[a]
+
+
 def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
                       sh: ShardingConfig = ShardingConfig()) -> Counter:
     """Bytes one rank sends in one ``serving.steps.ServeSteps`` step at a
@@ -391,5 +452,5 @@ def step_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
             from repro_torch.models import registry
 
             model = registry.build(cfg, device="meta")
-        return train_collectives(model, mesh, sh, transport=transport, tcfg=tcfg)
+        return train_collectives(model, mesh, sh, transport=transport, tcfg=tcfg, shape=shape)
     return serve_collectives(cfg, shape, mesh, sh)

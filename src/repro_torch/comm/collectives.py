@@ -39,6 +39,10 @@ path's all-to-all (``all_to_all@model``, the MoE dispatch) and max
 Sharded parameters (``models.sharding.Layout``) are gathered for the forward
 by :func:`gather_param`, counted as ``gather_param@<axis>``; its backward
 over a batch axis is a reduce-scatter, ``grad_reduce_scatter@<axis>``.
+The MoE dispatches train through differentiable all-to-all, gather and
+sum (:func:`all_to_all_grad`, :func:`gather_grad`, :func:`all_reduce_grad`,
+:func:`replicated`, :func:`replicated_block`), whose backwards count as
+``grad_<op>@<axis>``.
 """
 from __future__ import annotations
 
@@ -230,40 +234,165 @@ def _own_block(full: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return full.narrow(dim, mesh.coords[axis] * per, per)
 
 
-class _GatherParam(torch.autograd.Function):
-    """All-gather in the forward. The backward depends on the axis: over an
-    axis the batch is dealt out on (``pod``, ``data``), every rank's
-    gradient is a part of the sum, so it is a reduce-scatter sum; over an
-    axis the batch is replicated on (``model``), every rank computed the same
-    gradient, so it is the rank's own block with no sum (a sum would
-    multiply it by the axis size)."""
+def gather_param(shard: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The parameter block ``shard``, split over ``axis`` on ``dim``, joined
+    with every other rank's along ``axis``; differentiable. The backward
+    depends on the axis: over an axis the batch is dealt out on (``pod``,
+    ``data``), every rank's gradient is a part of the sum, so it is a
+    reduce-scatter sum; over an axis the batch is replicated on (``model``),
+    every rank computed the same gradient, so it is the rank's own block
+    with no sum (a sum would multiply it by the axis size): :func:`gather_grad`
+    with the downstream of each."""
+    if mesh.shape[axis] == 1:
+        return shard
+    downstream = "partial" if axis in BATCH_AXES else "replicated"
+    return _Gather.apply(shard, mesh, axis, dim, downstream, "gather_param")
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (the MoE dispatches in training)
+# ---------------------------------------------------------------------------
+#
+# The reference differentiates its dispatches through ``shard_map``, whose
+# transpose rules these follow. The port's compute model differs: each rank
+# of a ``model`` group holds the same rows and computes the whole forward on
+# them, and each rank of a batch axis holds its own rows' loss (the step
+# averages the gradients over the batch axes afterwards). So a collective's
+# backward depends on what consumes its output: ``downstream="replicated"``
+# when every rank of the axis repeats the same computation on it (its
+# cotangent is the same whole one on every rank), ``"partial"`` when each
+# rank's copy feeds only that rank's own part (the cotangents are parts of
+# a sum). The forwards count their bytes under the forward-only
+# collectives' names; the backwards under ``grad_<op>``.
+
+DOWNSTREAM = ("replicated", "partial")
+
+
+def _check_downstream(downstream: str) -> None:
+    if downstream not in DOWNSTREAM:
+        raise ValueError(f"downstream {downstream!r}: use one of {DOWNSTREAM}")
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_to_all(x.detach(), mesh, axis)
 
     @staticmethod
-    def forward(ctx, shard, mesh, axis, dim):
-        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        return gather_dim(shard.detach(), mesh, axis, dim, op="gather_param")
+    def backward(ctx, g):
+        # the exchange is its own transpose: block j of rank i went to rank j
+        # as its block i
+        return all_to_all(g.contiguous(), ctx.mesh, ctx.axis, op="grad_all_to_all"), None, None
+
+
+def all_to_all_grad(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """:func:`all_to_all`, differentiable: its backward is the all-to-all of
+    the cotangent (``grad_all_to_all``)."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, mesh, axis, dim, downstream, op):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.downstream = mesh, axis, dim, downstream
+        return gather_dim(shard.detach(), mesh, axis, dim, op=op)
 
     @staticmethod
     def backward(ctx, g):
         mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
-        if axis not in BATCH_AXES:
-            return _own_block(g, mesh, axis, dim).contiguous(), None, None, None
+        if ctx.downstream == "replicated":
+            return _own_block(g, mesh, axis, dim).contiguous(), None, None, None, None, None
         n = mesh.shape[axis]
         blocks = g.movedim(dim, 0)
-        per = blocks.shape[0] // n
-        rows = blocks.reshape((n, per) + tuple(blocks.shape[1:]))
+        rows = blocks.reshape((n, blocks.shape[0] // n) + tuple(blocks.shape[1:]))
         own = reduce_scatter(rows.reshape(n, -1), mesh, axis, op="grad_reduce_scatter")
-        return (own.reshape((per,) + tuple(blocks.shape[1:])).movedim(0, dim).contiguous(),
-                None, None, None)
+        return (own.reshape(rows.shape[1:]).movedim(0, dim).contiguous(),
+                None, None, None, None, None)
 
 
-def gather_param(shard: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """The parameter block ``shard``, split over ``axis`` on ``dim``, joined
-    with every other rank's along ``axis``; differentiable (see
-    :class:`_GatherParam` for the backward)."""
+def gather_grad(shard: torch.Tensor, mesh, axis: str, dim: int, *,
+                downstream: str) -> torch.Tensor:
+    """:func:`gather_dim`, differentiable. Its backward: the rank's own block
+    of the cotangent where the gathered tensor feeds a replicated
+    computation (the reference's all-gather whose output every rank of the
+    axis uses alike), a reduce-scatter sum (``grad_reduce_scatter``) where
+    each rank uses it for its own part."""
+    _check_downstream(downstream)
     if mesh.shape[axis] == 1:
         return shard
-    return _GatherParam.apply(shard, mesh, axis, dim)
+    return _Gather.apply(shard, mesh, axis, dim, downstream, "all_gather")
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, downstream):
+        ctx.mesh, ctx.axis, ctx.downstream = mesh, axis, downstream
+        return all_reduce_sum(x.detach(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.downstream == "replicated":
+            return g, None, None, None
+        return all_reduce_sum(g, ctx.mesh, ctx.axis, op="grad_all_reduce"), None, None, None
+
+
+def all_reduce_grad(x: torch.Tensor, mesh, axis: str, *, downstream: str) -> torch.Tensor:
+    """:func:`all_reduce_sum`, differentiable. Its backward passes the
+    cotangent unchanged where the sum feeds a replicated computation (each
+    rank's part enters the one sum once), and sums the cotangents over the
+    axis (``grad_all_reduce``) where each rank's copy feeds its own part."""
+    _check_downstream(downstream)
+    if mesh.shape[axis] == 1:
+        return x
+    return _AllReduce.apply(x, mesh, axis, downstream)
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.mesh, ctx.axis, op="grad_all_reduce"), None, None
+
+
+def replicated(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x``, an input that enters a computation split over ``axis`` whole on
+    every rank of it (the router weight of a dispatch): the identity, whose
+    backward sums the ranks' cotangents over ``axis`` (``grad_all_reduce``),
+    as ``shard_map``'s transpose sums an input's cotangent over the manual
+    axes its spec does not name."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _Replicated.apply(x, mesh, axis)
+
+
+class _ReplicatedBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _own_block(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = gather_dim(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim, op="grad_all_gather")
+        return full, None, None, None
+
+
+def replicated_block(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, a tensor whole on every rank
+    of ``axis`` (a dispatch's rows before its sequence slice, the banks
+    before its experts): the slice, whose backward is the sum over ``axis``
+    of the ranks' cotangents (:func:`replicated`'s) less its zeros, the
+    ranks' disjoint blocks all-gathered (``grad_all_gather``)."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _ReplicatedBlock.apply(x, mesh, axis, dim)
 
 
 # ---------------------------------------------------------------------------

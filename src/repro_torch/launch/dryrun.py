@@ -37,7 +37,7 @@ ranks (``launch.mesh.AbstractMesh``). For each cell it records:
 
 Cells the port cannot run are recorded as skipped with the reason:
 ``long_500k`` on full-attention archs (``shape_applicable``, as the
-reference) and ``train_4k`` on the five families the port does not train yet.
+reference).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k --single-pod
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/dryrun
@@ -83,7 +83,7 @@ def input_specs(arch: str, shape_name: str):
     reference's global shapes: the batch, and for decode the cache."""
     cfg = get_config(arch)
     shape = get_shape(shape_name)
-    specs = {k: _meta(s, dt) for k, (s, dt) in registry.serve_batch_specs(cfg, shape).items()}
+    specs = {k: _meta(s, dt) for k, (s, dt) in registry.batch_specs(cfg, shape).items()}
     if shape.kind == "decode":
         specs = {"batch": specs, "cache": registry.cache_shapes(cfg, shape)}
     return specs
@@ -132,7 +132,7 @@ def _cache_bytes(cfg, shape: ShapeConfig, mesh, sh: ShardingConfig) -> int:
 def _count(model, cfg, shape: ShapeConfig, rows: int) -> float:
     """FlopCounterMode's FLOPs of one rank's step on ``rows`` rows."""
     local = ShapeConfig(shape.name, shape.seq_len, rows, shape.kind)
-    specs = registry.serve_batch_specs(cfg, local)
+    specs = registry.batch_specs(cfg, local)
     batch = {k: (torch.zeros(s, dtype=dt, device="meta") if not dt.is_floating_point
                  else _meta(s, dt)) for k, (s, dt) in specs.items()}
     with FlopCounterMode(display=False) as fc:
@@ -164,10 +164,6 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         cfg = cfg.replace(remat=remat)
     shape = get_shape(shape_name)
     ok, skip_reason = shape_applicable(cfg, shape)
-    if ok and shape.kind == "train" and cfg.family not in registry.TRAINED:
-        ok, skip_reason = False, (
-            f"train_4k skipped: the port does not train the {cfg.family!r} family yet "
-            f"(ROADMAP §A item 7c); it trains {registry.TRAINED}")
     if not ok:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
                 "skipped": True, "reason": skip_reason}
@@ -189,8 +185,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     flops = _count(model, model.cfg, shape, rows)
 
     state = _param_state_bytes(model, mesh, sh, transport, train, tcfg)
-    specs = registry.serve_batch_specs(cfg, ShapeConfig(shape.name, shape.seq_len, rows,
-                                                        shape.kind))
+    specs = registry.batch_specs(cfg, ShapeConfig(shape.name, shape.seq_len, rows, shape.kind))
     batch_bytes = sum(math.prod(s) * dt.itemsize for s, dt in specs.values())
     logits = rows * cfg.vocab_padded * 2
     if train:

@@ -57,7 +57,7 @@ import torch
 from repro_torch import backend
 from repro_torch.configs import ShapeConfig, get_config, get_smoke_config
 from repro_torch.models.attention import IMPLS
-from repro_torch.models.registry import build, serve_batch_specs
+from repro_torch.models.registry import batch_specs, build
 
 SEED = 0
 
@@ -90,9 +90,9 @@ def _sync(dev: torch.device) -> None:
 
 def serve_batch(cfg, batch: int, prompt_len: int, dev: torch.device):
     """The prompt tokens ``(B, S)`` and the family's other prefill inputs
-    (``patches`` for vlm, ``frames`` for audio: ``serve_batch_specs``),
+    (``patches`` for vlm, ``frames`` for audio: ``batch_specs``),
     standard normals, from a generator seeded with ``SEED``."""
-    specs = serve_batch_specs(cfg, ShapeConfig("serve", prompt_len, batch, "prefill"))
+    specs = batch_specs(cfg, ShapeConfig("serve", prompt_len, batch, "prefill"))
     g = torch.Generator(device=dev).manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab_size, specs["tokens"][0], generator=g, device=dev)
     extra = {name: torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -105,7 +105,7 @@ def cut_depth(cfg, layers: int):
     encoder-decoder)."""
     if cfg.family == "hybrid":
         raise ValueError("--layers would move the hybrid family's global layers; "
-                         "serve it at full depth")
+                         "run it at full depth")
     if cfg.family == "audio":
         return cfg.replace(num_layers=layers, encdec=dataclasses.replace(
             cfg.encdec, enc_layers=layers, dec_layers=layers))

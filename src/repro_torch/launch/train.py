@@ -6,9 +6,11 @@
       --world 2 --backend gloo --transport compressed_int8 --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --world 4 --model 2 --backend gloo --transport psum --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-235b-a22b \\
+      --layers 1 --steps 4 --batch 8 --seq 128 --transport xla
 
-The counterpart of ``src/repro/launch/train.py`` for the dense and hybrid
-families, with the reference's flags. Its ``--mesh`` (a JAX device mesh)
+The counterpart of ``src/repro/launch/train.py``, for every arch of the zoo
+(``--arch``), with the reference's flags. Its ``--mesh`` (a JAX device mesh)
 becomes ``--world`` ranks, each a process this launcher spawns, laid out as
 (``pod`` = world / (``--data`` x ``--model``), ``data``, ``model``) over a
 ``torch.distributed`` world of
@@ -19,7 +21,8 @@ transport chunnel is built, as in the reference's ``--mesh none``. The state
 is laid out by the reference's sharding rules (FSDP over ``data`` unless
 ``--no-fsdp``, tensor parallelism over ``model``, ZeRO-1 moments over
 ``pod``); rank 0 prints the layout on start. It trains on ``--device`` (``cuda`` by default, which raises without a GPU) from
-parameters drawn from seed 0. ``main(argv)`` returns the run's losses and
+parameters drawn from seed 0; ``--layers N`` keeps the first N layers of the
+published config (a cut of depth). ``main(argv)`` returns the run's losses and
 step times (rank 0's).
 """
 from __future__ import annotations
@@ -40,6 +43,7 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ShapeConfig, ShardingConfig, TrainConfig
 from repro_torch.data.synthetic import batches_for
 from repro_torch.launch.mesh import choose_backend, make_mesh, rank_device, spawn
+from repro_torch.launch.serve import cut_depth
 from repro_torch.train.trainer import HostSpec, ReconfigurableTrainer
 
 #: the parameters' seed (the reference trains its init from PRNGKey(0))
@@ -78,6 +82,8 @@ def parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train only the first N layers (a cut of depth)")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--transport", default="xla")
@@ -111,6 +117,8 @@ def mesh_shape(args: argparse.Namespace) -> tuple:
 def build(args: argparse.Namespace, mesh) -> ReconfigurableTrainer:
     """The trainer the launcher runs, on ``mesh``."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = cut_depth(cfg, args.layers)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     hosts = [HostSpec(h, [args.transport, "xla"]) for h in range(mesh.size)]
     return ReconfigurableTrainer(

@@ -1,7 +1,9 @@
-"""Encoder-decoder transformer (seamless-m4t family ``audio``): the serving
-path.
+"""Encoder-decoder transformer (seamless-m4t family ``audio``).
 
-The counterpart of ``src/repro/models/encdec.py``. The audio frontend is a
+The counterpart of ``src/repro/models/encdec.py``. Training:
+``EncDecLM.loss(batch)`` (the reference's ``loss_fn``): ``encode`` over the
+batch's ``frames``, then ``decode_states`` over its tokens, each stack's
+layers checkpointed one by one under ``cfg.remat``. The audio frontend is a
 stub, as in the reference: the batch carries precomputed frame embeddings
 ``frames`` ``(B, S_src, E)``, projected by ``src_proj``. The encoder is
 bidirectional (non-causal self-attention with RoPE); the decoder is causal
@@ -35,6 +37,7 @@ from torch.nn import functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import COMPUTE, MLP, Embedding, Linear, Norm, rope_cos_sin
+from repro_torch.models.stacking import apply_stack
 from repro_torch.models.transformer import Attention, DenseLM
 
 CACHE_KEYS = ("k", "v", "xk", "xv")
@@ -120,20 +123,73 @@ class EncDecLM(DenseLM):
     def stacks(self) -> dict:
         return {"encoder": self.cfg.encdec.enc_layers, "decoder": self.cfg.encdec.dec_layers}
 
-    # -- serving -------------------------------------------------------------
+    #: the top-level parameters ``loss`` gathers once for the whole loss
+    HEAD = ("embed", "src_proj", "enc_norm", "final_norm", "lm_head")
+
+    def _stack(self, name: str, x: torch.Tensor, body) -> torch.Tensor:
+        """``x`` (B, S, D) through the stack ``name`` (``encoder`` or
+        ``decoder``) by ``body(layer, x, rope)``, as the reference's
+        ``apply_stack(..., remat=cfg.remat)``: each layer one checkpoint
+        (no ``remat_group``) while autograd records, its parameters gathered
+        by the prefix ``name.{i}.`` on a sharded model."""
+        cfg = self.cfg
+        layers = getattr(self, name)
+        rope = rope_cos_sin(torch.arange(x.shape[1], device=x.device), cfg.head_dim_,
+                            cfg.rope_theta)
+        gathered = (None if self.layout is None
+                    else lambda i: self._gathered(layers[i], f"{name}.{i}."))
+        return apply_stack(layers, x, lambda layer, h: body(layer, h, rope),
+                           remat_policy=cfg.remat if torch.is_grad_enabled() else "none",
+                           gathered=gathered)
+
+    def _encoder_layer(self, layer: EncoderLayer, h: torch.Tensor, rope: tuple) -> torch.Tensor:
+        """Non-causal self-attention with RoPE, then the MLP."""
+        B, Ss, _ = h.shape
+        q, k, v = layer.attn.qkv(layer.ln1(h), rope)
+        o = attn.attention(q, k, v, impl=self.attn_impl, causal=False, chunk=self.cfg.attn_chunk)
+        h = h + layer.attn.wo(o.reshape(B, Ss, -1))
+        return h + layer.mlp(layer.ln2(h))
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames ``(B, S_src, E)`` -> the encoder's output ``(B, S_src, D)``."""
-        cfg = self.cfg
-        B, Ss, _ = frames.shape
-        h = self.src_proj(frames)
-        rope = rope_cos_sin(torch.arange(Ss, device=h.device), cfg.head_dim_, cfg.rope_theta)
-        for layer in self.encoder:
-            q, k, v = layer.attn.qkv(layer.ln1(h), rope)
-            o = attn.attention(q, k, v, impl=self.attn_impl, causal=False, chunk=cfg.attn_chunk)
-            h = h + layer.attn.wo(o.reshape(B, Ss, -1))
-            h = h + layer.mlp(layer.ln2(h))
+        """frames ``(B, S_src, E)`` -> the encoder's output ``(B, S_src, D)``:
+        the reference's ``encode``, for serving (under ``no_grad``) and
+        training."""
+        h = self._stack("encoder", self.src_proj(frames), self._encoder_layer)
         return self.enc_norm(h)
+
+    # -- training ------------------------------------------------------------
+
+    def decode_states(self, tokens: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+        """The reference's ``decode_states``: tokens ``(B, S)`` through the
+        decoder (causal self-attention, cross attention over ``enc_out``
+        with no RoPE on its keys, the MLP) -> final hidden states
+        ``(B, S, D)``."""
+        def body(layer: CrossDecoderLayer, x: torch.Tensor, rope: tuple) -> torch.Tensor:
+            B, S, _ = x.shape
+            q, k, v = layer.self_attn.qkv(layer.ln1(x), rope)
+            o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
+                               chunk=self.cfg.attn_chunk)
+            x = x + layer.self_attn.wo(o.reshape(B, S, -1))
+            ck, cv = self._cross_kv(layer, enc_out)
+            x = x + self._cross_attend(layer, layer.lnx(x), ck, cv)
+            return x + layer.mlp(layer.ln2(x))
+
+        return self.final_norm(self._stack("decoder", self.embed(tokens), body))
+
+    def hidden_states(self, tokens: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
+        """The decoder's final hidden states ``(B, S, D)`` of ``tokens`` over
+        the encoder's output of ``frames``."""
+        return self.decode_states(tokens, self.encode(frames))
+
+    def loss(self, batch: dict, *, loss_chunk=None, batch_split: int = 1) -> torch.Tensor:
+        """The reference's ``encdec.loss_fn``: the mean next-token
+        cross-entropy of ``batch`` (``tokens``, ``labels``, ``frames``)."""
+        self._check_released()
+        with self._head_gathered():
+            h = self.hidden_states(batch["tokens"], batch["frames"])
+            return self._lm_loss(h, batch["labels"], loss_chunk)
+
+    # -- serving -------------------------------------------------------------
 
     def _cross_kv(self, layer: CrossDecoderLayer, enc_out: torch.Tensor):
         cfg = self.cfg

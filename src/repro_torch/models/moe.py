@@ -1,4 +1,4 @@
-"""Mixture-of-Experts transformer (qwen3-moe, dbrx): the serving path.
+"""Mixture-of-Experts transformer (qwen3-moe, dbrx).
 
 The counterpart of ``src/repro/models/moe.py``. Each layer is the dense
 layer with its MLP replaced by a bank of experts behind a top-k router. The
@@ -39,7 +39,26 @@ All share the routing (``route``) and ``capacity``. The expert products are
 ``torch.bmm``/``torch.einsum`` in bfloat16, as the reference leaves its
 einsums to XLA; no kernel of the TPU package sits on this path. The
 load-balance aux loss is computed and dropped in serving, as in the
-reference.
+reference; training (``MoeLM.loss``) adds it to the LM loss.
+
+Training differentiates every dispatch. The index arithmetic carries no
+gradient (expert ids, positions, slots); the gradient flows through the
+gate values (``topk``'s backward), the gathered capacity buffers (a dropped
+or empty slot reads the zero row and gives nothing back) and the combine
+(``gates * keep`` zeroes a dropped pair's). The mesh dispatches follow the
+reference's ``shard_map`` transposes on the port's compute model, through
+``comm.collectives``' differentiable collectives: an all-to-all's backward
+is the all-to-all of the cotangent; the output gathered over ``model``
+feeds every rank's repeated forward (backward: the rank's block), the rows
+gathered for ``allgather``'s and the dealt ``grouped``'s experts feed each
+rank's own part (backward: a reduce-scatter sum); the partial outputs'
+sum feeds a repeated forward (backward: the cotangent as it is). The
+router, the rows before their sequence slice and the banks before their
+expert slice enter the dispatch whole on every rank of ``model``, and
+their backward sums the ranks' gradients over it (``_router``,
+``_seq_slice``, ``_local_banks``), as ``shard_map`` sums an input's
+cotangent over the axes its spec does not name; without it every rank
+would keep its own tokens' or experts' share of the gradient only.
 
 Three of the reference's semantics that PyTorch does not give for free:
 
@@ -233,27 +252,38 @@ def dispatch_grouped(p: MoeMLP, x2d: torch.Tensor, cfg: ModelConfig):
 
 
 def _local_banks(p: MoeMLP, mesh, axis: str):
-    """This rank's E/|axis| experts of the bfloat16 serving banks, whole in
-    d_model (the reference's ``_gathered_weights``)."""
-    n, r = mesh.shape[axis], mesh.coords[axis]
-    banks = p.banks()
-    e_loc = banks[0].shape[0] // n
-    return tuple(w[r * e_loc:(r + 1) * e_loc] for w in banks)
+    """This rank's E/|axis| experts of the bfloat16 banks, whole in d_model
+    (the reference's ``_gathered_weights``). The banks enter the dispatch
+    whole on every rank of ``axis``: the backward all-gathers the ranks'
+    experts' gradients (``collectives.replicated_block``)."""
+    return tuple(collectives.replicated_block(w, mesh, axis, 0) for w in p.banks())
+
+
+def _router(p: MoeMLP, mesh, axis: str) -> torch.Tensor:
+    """The router weight, whole on every rank of ``axis``: its backward sums
+    the ranks' gradients, each from its own tokens or experts
+    (``collectives.replicated``)."""
+    return collectives.replicated(p.router.w, mesh, axis)
 
 
 def _mean_aux(aux: torch.Tensor, mesh, axis: str, data_axis: str) -> torch.Tensor:
-    """``pmean(pmean(aux, axis), data_axis)``."""
-    for a in (axis, data_axis):
-        aux = collectives.all_reduce_sum(aux.reshape(1), mesh, a)[0] / mesh.shape[a]
+    """``pmean(pmean(aux, axis), data_axis)``. The mean feeds every rank's
+    loss: over ``axis`` the ranks repeat one loss (the backward passes the
+    cotangent), over ``data_axis`` each holds its rows' (the cotangents
+    sum), so that after the step's mean over the batch axes each rank's
+    aux weighs ``1 / (|axis| |data_axis|)``, as in the reference."""
+    for a, downstream in ((axis, "replicated"), (data_axis, "partial")):
+        aux = collectives.all_reduce_grad(aux.reshape(1), mesh, a,
+                                          downstream=downstream)[0] / mesh.shape[a]
     return aux
 
 
 def _seq_slice(x3d: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """This rank's S/|axis| positions of its rows, flattened: (B_l*S_l, D)."""
-    n, r = mesh.shape[axis], mesh.coords[axis]
-    B_l, S, D = x3d.shape
-    s_l = S // n
-    return x3d[:, r * s_l:(r + 1) * s_l].reshape(B_l * s_l, D)
+    """This rank's S/|axis| positions of its rows, flattened: (B_l*S_l, D).
+    The rows enter whole on every rank of ``axis``: the backward all-gathers
+    the ranks' slices' gradients (``collectives.replicated_block``)."""
+    x_loc = collectives.replicated_block(x3d, mesh, axis, 1)
+    return x_loc.reshape(-1, x3d.shape[2])
 
 
 def dispatch_alltoall(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
@@ -273,18 +303,21 @@ def dispatch_alltoall(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
     B_l, S, D = x3d.shape
     x_loc = _seq_slice(x3d, mesh, axis)
     banks = _local_banks(p, mesh, axis)
-    gates, ids, aux = route(p.router.w, x_loc, cfg)
+    gates, ids, aux = route(_router(p, mesh, axis), x_loc, cfg)
     C = capacity(x_loc.shape[0], cfg)
     pos, keep = _positions_in_expert(ids, E, C)
     x_sorted = _sorted_tokens(x_loc, _slot_tokens(ids, pos, keep, E, C, x_loc.shape[0]))
     # (n, E_loc, C, D) --a2a--> indexed by source rank
-    x_recv = collectives.all_to_all(x_sorted.to(COMPUTE).reshape(n, E // n, C, D), mesh, axis)
+    x_recv = collectives.all_to_all_grad(x_sorted.to(COMPUTE).reshape(n, E // n, C, D), mesh,
+                                         axis)
     x_pe = x_recv.transpose(0, 1).reshape(E // n, n * C, D)
     y_pe = expert_ffn(banks, x_pe, cfg)
     y_send = y_pe.reshape(E // n, n, C, D).transpose(0, 1).contiguous()
-    y_sorted = collectives.all_to_all(y_send, mesh, axis).reshape(E, C, D)  # this rank's slots
+    y_sorted = collectives.all_to_all_grad(y_send, mesh, axis).reshape(E, C, D)  # rank's slots
     y_loc = _combine(y_sorted, ids, pos, gates, keep, C).to(x3d.dtype)
-    y = collectives.gather_dim(y_loc.reshape(B_l, S // n, D), mesh, axis, 1)
+    # every rank of the axis goes on with the whole sequence of its rows
+    y = collectives.gather_grad(y_loc.reshape(B_l, S // n, D), mesh, axis, 1,
+                                downstream="replicated")
     return y, _mean_aux(aux, mesh, axis, data_axis)
 
 
@@ -304,9 +337,10 @@ def dispatch_allgather(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
     B_l, S, D = x3d.shape
     x_loc = _seq_slice(x3d, mesh, axis)
     banks = _local_banks(p, mesh, axis)
-    x_row = collectives.gather_dim(x_loc.to(COMPUTE), mesh, axis, 0)  # (n*T_loc, D)
+    # (n*T_loc, D); each rank runs its own experts on it: the backward sums
+    x_row = collectives.gather_grad(x_loc.to(COMPUTE), mesh, axis, 0, downstream="partial")
     Tn = x_row.shape[0]
-    gates, ids, aux = route(p.router.w, x_row.float(), cfg)
+    gates, ids, aux = route(_router(p, mesh, axis), x_row.float(), cfg)
     C = capacity(Tn, cfg)
     pos, keep = _positions_in_expert(ids, E, C)
     keep_loc = keep & ((ids // e_loc) == r)
@@ -314,7 +348,7 @@ def dispatch_allgather(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
     x_sorted = _sorted_tokens(x_row, _slot_tokens(ids_loc, pos, keep_loc, e_loc, C, Tn))
     y_sorted = expert_ffn(banks, x_sorted, cfg)
     y_part = _combine(y_sorted, ids_loc, pos, gates, keep_loc, C)  # (Tn, D)
-    y_row = collectives.all_reduce_sum(y_part, mesh, axis)
+    y_row = collectives.all_reduce_grad(y_part, mesh, axis, downstream="replicated")
     # rows of x_row are (model rank, row, position in the slice)
     y = y_row.reshape(n, B_l, S // n, D).transpose(0, 1).reshape(B_l, S, D)
     return y.to(x3d.dtype), _mean_aux(aux, mesh, axis, data_axis)
@@ -350,7 +384,7 @@ def moe_ffn(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh=None, *,
     # reference's global computation routes them; this rank keeps its rows
     x_all = x3d
     for a in reversed(batch_axes(mesh)):  # innermost first: rows in (pod, data) order
-        x_all = collectives.gather_dim(x_all, mesh, a, 0)
+        x_all = collectives.gather_grad(x_all, mesh, a, 0, downstream="partial")
     y, aux = fn(p, x_all.reshape(-1, D), cfg)
     idx, _ = mesh.batch_index()
     return y.reshape(-1, S, D)[idx * B_l:(idx + 1) * B_l], aux
@@ -364,7 +398,11 @@ def moe_ffn(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh=None, *,
 class MoeLM(DenseLM):
     """The moe family's model: ``DenseLM``'s embedding, attention, cache,
     prefill and decode, with each layer's MLP replaced by ``moe_ffn`` on the
-    model's ``mesh``."""
+    model's ``mesh``. Training (``hidden_states``, ``loss``) carries each
+    layer's load-balance aux through the stack beside the residual stream,
+    as the reference's ``moe_layer`` carry ``(x, aux_acc)``: an output of the
+    layer's body, so that a layer recomputed in backward (``cfg.remat``)
+    counts its aux once."""
 
     FAMILY, LAYER = "moe", MoeLayer
 
@@ -372,3 +410,32 @@ class MoeLM(DenseLM):
         y, _aux = moe_ffn(layer.moe, layer.ln2(h), self.cfg, self.mesh,
                           batch_split=batch_split)
         return y
+
+    def _train_moe_layer(self, layer: MoeLayer, carry: tuple, rope: tuple, *,
+                         batch_split: int = 1):
+        """The reference's ``moe_layer``: (x, aux_acc) -> (x', aux_acc + aux)."""
+        x, aux_acc = carry
+        h = self._attn_residual(layer, x, rope)
+        y, aux = moe_ffn(layer.moe, layer.ln2(h), self.cfg, self.mesh, batch_split=batch_split)
+        return h + y, aux_acc + aux
+
+    def hidden_states(self, tokens: torch.Tensor, *, batch_split: int = 1):
+        """tokens (B, S) -> (final hidden states (B, S, D) bfloat16, the
+        layers' summed aux loss): the reference's ``moe.hidden_states``.
+        ``batch_split`` as for :meth:`prefill`: on a mesh, the rank's rows
+        are one of ``batch_split`` blocks of the global batch."""
+        x = self.embed(tokens)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = self._train_stack(
+            (x, zero), tokens.shape[1],
+            lambda layer, c, rope: self._train_moe_layer(layer, c, rope,
+                                                         batch_split=batch_split))
+        return self.final_norm(x), aux
+
+    def loss(self, batch: dict, *, loss_chunk=None, batch_split: int = 1) -> torch.Tensor:
+        """The reference's ``moe.loss_fn``: the LM loss of ``batch``
+        (``tokens``, ``labels``) plus the aux."""
+        self._check_released()
+        with self._head_gathered():
+            h, aux = self.hidden_states(batch["tokens"], batch_split=batch_split)
+            return self._lm_loss(h, batch["labels"], loss_chunk) + aux

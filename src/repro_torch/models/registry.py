@@ -1,18 +1,16 @@
 """Model classes by family, imported lazily: a family's module loads only
-when a config of that family is built. The port serves every family of the
-reference (dense, moe, ssm, hybrid, vlm, audio) and trains the dense and
-hybrid families; ``loss`` and ``batch_specs`` raise for the others and say
-their training is not ported yet.
+when a config of that family is built. The port serves and trains every
+family of the reference (dense, moe, ssm, hybrid, vlm, audio).
 
-``loss(model, batch)`` and ``batch_specs(cfg, shape)`` are the trained
-families' rows of the reference's ``_Family`` table (both take tokens and
-labels). ``serve_batch_specs(cfg, shape)`` is the reference's
-``Model.batch_specs`` for every family: the vlm batch carries ``patches``
-and the audio batch ``frames`` outside decode. ``param_specs(model, sh,
-mesh)`` is the reference's ``Model.param_specs``: the spec of every leaf of
-the model's parameter tree in the reference's layout
-(``stacking.stack_layers`` over the model's ``stacks()``).
-``cache_shapes(cfg, shape)`` is the reference's ``Model.cache_specs``."""
+``loss(model, batch)`` is the reference's ``_Family.loss``: each family's
+model has its own ``loss`` (the vlm batch carries ``patches``, the audio
+batch ``frames``; the moe loss adds the load-balance aux).
+``batch_specs(cfg, shape)`` is the reference's ``Model.batch_specs`` for
+every family. ``param_specs(model, sh, mesh)`` is the reference's
+``Model.param_specs``: the spec of every leaf of the model's parameter tree
+in the reference's layout (``stacking.stack_layers`` over the model's
+``stacks()``). ``cache_shapes(cfg, shape)`` is the reference's
+``Model.cache_specs``."""
 from __future__ import annotations
 
 import importlib
@@ -39,30 +37,14 @@ def model_class(cfg: ModelConfig):
     return getattr(importlib.import_module(module), name)
 
 
-#: the families the port trains
-TRAINED = ("dense", "hybrid")
-
-
-def _trained(cfg: ModelConfig) -> None:
-    if cfg.family not in TRAINED:
-        raise KeyError(f"training the {cfg.family!r} family ({cfg.name}) is not ported yet; "
-                       f"the port trains {TRAINED}")
-
-
-def loss(model, batch: dict) -> torch.Tensor:
-    """The training loss of ``model`` on ``batch``."""
-    _trained(model.cfg)
-    return model.loss(batch)
+def loss(model, batch: dict, *, batch_split: int = 1) -> torch.Tensor:
+    """The training loss of ``model`` on ``batch``. On a mesh, ``batch`` is
+    the rank's rows, one of ``batch_split`` blocks of the global batch (the
+    moe family's dispatch routes the global batch's tokens)."""
+    return model.loss(batch, batch_split=batch_split)
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
-    """:func:`serve_batch_specs` of a trained family: tokens and labels,
-    (B, S) int32, or tokens (B, 1) for decode."""
-    _trained(cfg)
-    return serve_batch_specs(cfg, shape)
-
-
-def serve_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     """name -> (shape, dtype) of the reference's batch of ``shape`` for any
     family: tokens (B, 1) for decode; else tokens and labels (B, S) int32,
     with ``patches`` (B, P, E) bfloat16 for vlm and ``frames``

@@ -68,13 +68,14 @@ def group_size(num_layers: int, remat_group: int) -> int:
     return 1
 
 
-def apply_stack(layers: Sequence[torch.nn.Module], x: torch.Tensor, body: Callable, *,
+def apply_stack(layers: Sequence[torch.nn.Module], x, body: Callable, *,
                 remat_policy: str = "full", remat_group: int = 1,
                 static: Optional[Callable[[int], dict]] = None,
-                gathered: Optional[Callable[[int], ContextManager]] = None) -> torch.Tensor:
+                gathered: Optional[Callable[[int], ContextManager]] = None):
     """``x`` through ``body(layer, x, **static(i))`` for each layer ``i`` in
     turn (``static``: the keywords of the reference's segment that holds
-    layer ``i``). Each run of ``group_size(len(layers), remat_group)``
+    layer ``i``). ``x`` is the carry: a tensor, or a tuple of them (the moe
+    family carries its summed aux loss beside the residual stream). Each run of ``group_size(len(layers), remat_group)``
     layers is one ``remat`` unit: backward keeps its input and recomputes
     its layers, each once. A sharded model passes ``gathered(i)``, under
     which layer ``i``'s parameters read as their full tensors: they are

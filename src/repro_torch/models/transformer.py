@@ -1,9 +1,10 @@
 """Dense GQA transformer LM (llama / qwen / mistral / granite), and the vlm
-family (phi-3-vision) that serves through it.
+family (phi-3-vision) that serves and trains through it.
 
 The counterpart of ``src/repro/models/transformer.py``. Training:
-``DenseLM.hidden_states(tokens)`` and ``DenseLM.loss(batch)`` (the
-reference's ``loss_fn``), on a model whose serving copies are released
+``DenseLM.hidden_states(tokens, patches=None)`` and ``DenseLM.loss(batch)``
+(the reference's ``loss_fn``, the vlm batch's ``patches`` over the first
+positions), on a model whose serving copies are released
 (:meth:`DenseLM.release`) so that every weight is cast inside the autograd
 graph; each layer, or each run of ``cfg.remat_group`` layers, is recomputed
 in backward under ``cfg.remat`` (``stacking.remat``).
@@ -36,7 +37,7 @@ reference's, or a branch of ``comm.kvshard`` over this rank's shard of it.
 """
 from __future__ import annotations
 
-from contextlib import ExitStack, nullcontext
+from contextlib import ExitStack, contextmanager, nullcontext
 from typing import Optional
 
 import torch
@@ -196,63 +197,95 @@ class DenseLM(nn.Module):
         stack takes none overrides this)."""
         return self.cfg.remat_group if self.cfg.scan_layers else 1
 
-    def _train_layer(self, layer: DecoderLayer, x: torch.Tensor, rope: tuple) -> torch.Tensor:
+    def _attn_residual(self, layer: nn.Module, x: torch.Tensor, rope: tuple) -> torch.Tensor:
+        """The training layer's residual stream after its attention block."""
         cfg = self.cfg
         B, S, _ = x.shape
         q, k, v = layer.attn.qkv(layer.ln1(x), rope)
         o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                            window=cfg.sliding_window, chunk=cfg.attn_chunk)
-        h = x + layer.attn.wo(o.reshape(B, S, -1))
+        return x + layer.attn.wo(o.reshape(B, S, -1))
+
+    def _train_layer(self, layer: DecoderLayer, x: torch.Tensor, rope: tuple) -> torch.Tensor:
+        h = self._attn_residual(layer, x, rope)
         return h + layer.mlp(layer.ln2(h))
 
-    def _check_trained(self) -> None:
-        """Raise unless the port trains this model's family: the serving-only
-        families inherit this training forward but not its layer body."""
-        from repro_torch.models.registry import TRAINED
-
-        if self.FAMILY not in TRAINED:
-            raise NotImplementedError(
-                f"training the {self.FAMILY!r} family is not ported (ROADMAP §A item 7b); "
-                f"the port trains {TRAINED}")
-
-    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> final hidden states (B, S, D), bfloat16. A sharded
-        model gathers each layer's parameters for its body; the caller
-        gathers the embedding and the final norm (``loss`` does)."""
-        self._check_trained()
+    def _train_stack(self, carry, S: int, body):
+        """``carry`` (the residual stream, or a tuple that starts with it)
+        through every layer by ``body(layer, carry, rope, **static)``, as the
+        reference's ``apply_stack``: each layer's parameters gathered for its
+        body on a sharded model, checkpointed under ``cfg.remat``."""
         cfg = self.cfg
-        x = self.embed(tokens)
-        rope = rope_cos_sin(torch.arange(tokens.shape[1], device=x.device), cfg.head_dim_,
-                            cfg.rope_theta)
+        rope = rope_cos_sin(torch.arange(S, device=self.device), cfg.head_dim_, cfg.rope_theta)
         gathered = (None if self.layout is None
                     else lambda i: self._gathered(self.layers[i], f"layers.{i}."))
-        x = apply_stack(self.layers, x,
-                        lambda layer, h, **kw: self._train_layer(layer, h, rope, **kw),
-                        remat_policy=cfg.remat, remat_group=self._remat_group(),
-                        static=self._layer_static, gathered=gathered)
+        return apply_stack(self.layers, carry,
+                           lambda layer, c, **kw: body(layer, c, rope, **kw),
+                           remat_policy=cfg.remat, remat_group=self._remat_group(),
+                           static=self._layer_static, gathered=gathered)
+
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The token embeddings (B, S, D), the first P replaced by ``patches``
+        (B, P, D) where given (the reference's ``extra_embeds``). P must not
+        exceed S: the reference's ``x[:, P:]`` would give a sequence of P
+        positions against S labels (its rope then fails to broadcast)."""
+        x = self.embed(tokens)
+        if patches is None:
+            return x
+        P, S = patches.shape[1], tokens.shape[1]
+        if P > S:
+            raise ValueError(f"{P} patch positions do not fit a sequence of {S}: the "
+                             f"patches replace the first P of the S token positions")
+        return torch.cat([patches.to(x.dtype), x[:, P:]], dim=1)
+
+    def hidden_states(self, tokens: torch.Tensor,
+                      patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (B, S), and the vlm family's ``patches`` (B, P, D) over the
+        first P positions -> final hidden states (B, S, D), bfloat16. A
+        sharded model gathers each layer's parameters for its body; the
+        caller gathers the embedding and the final norm (``loss`` does)."""
+        x = self._train_stack(self._embed_inputs(tokens, patches), tokens.shape[1],
+                              self._train_layer)
         return self.final_norm(x)
 
     def head_weight(self) -> torch.Tensor:
         """(D, vocab_padded) float32: the tied table's transpose or the head."""
         return self.embed.table.T if self.lm_head is None else self.lm_head.w
 
-    def loss(self, batch: dict, *, loss_chunk: Optional[int] = None) -> torch.Tensor:
-        """The mean next-token cross-entropy of ``batch`` (``tokens``,
-        ``labels``: (B, S) integers)."""
-        self._check_trained()
-        cfg = self.cfg
+    #: the top-level parameters ``loss`` gathers once for the whole loss
+    HEAD = ("embed", "final_norm", "lm_head")
+
+    def _check_released(self) -> None:
         if self.embed.table16 is not None:
             raise RuntimeError("the model holds its serving copies; release() it to train")
-        # a sharded model gathers the embedding, the final norm and an untied
-        # head once for the whole loss
+
+    @contextmanager
+    def _head_gathered(self):
+        """Within it, a sharded model's ``HEAD`` parameters read as their
+        full tensors."""
         with ExitStack() as stack:
-            for name in ("embed", "final_norm", "lm_head"):
+            for name in self.HEAD:
                 if getattr(self, name) is not None:
                     stack.enter_context(self._gathered(getattr(self, name), f"{name}."))
-            h = self.hidden_states(batch["tokens"])
-            chunk = loss_chunk if loss_chunk is not None else cfg.loss_chunk
-            return chunked_lm_loss(h, self.head_weight(), batch["labels"], chunk=chunk,
-                                   real_vocab=cfg.vocab_size)
+            yield
+
+    def _lm_loss(self, h: torch.Tensor, labels: torch.Tensor,
+                 loss_chunk: Optional[int]) -> torch.Tensor:
+        chunk = loss_chunk if loss_chunk is not None else self.cfg.loss_chunk
+        return chunked_lm_loss(h, self.head_weight(), labels, chunk=chunk,
+                               real_vocab=self.cfg.vocab_size)
+
+    def loss(self, batch: dict, *, loss_chunk: Optional[int] = None,
+             batch_split: int = 1) -> torch.Tensor:
+        """The mean next-token cross-entropy of ``batch`` (``tokens``,
+        ``labels``: (B, S) integers; ``patches`` (B, P, D) for vlm). A
+        row-local family ignores ``batch_split`` (the moe family's dispatch
+        reads it)."""
+        self._check_released()
+        with self._head_gathered():
+            h = self.hidden_states(batch["tokens"], batch.get("patches"))
+            return self._lm_loss(h, batch["labels"], loss_chunk)
 
     @property
     def device(self) -> torch.device:
@@ -291,9 +324,7 @@ class DenseLM(nn.Module):
         batch, the other layers are row-local."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embed(tokens)
-        if patches is not None:
-            x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
+        x = self._embed_inputs(tokens, patches)
         rope = rope_cos_sin(torch.arange(S, device=x.device), cfg.head_dim_, cfg.rope_theta)
         ks, vs = [], []
         for layer in self.layers:
@@ -351,8 +382,9 @@ def grow_cache(cache: dict, extra: int) -> dict:
 
 
 class VlmLM(DenseLM):
-    """The vlm family's model (phi-3-vision): the dense model, served with
-    the frontend's patch embeddings (``prefill(tokens, patches)``); decode is
-    the dense decode."""
+    """The vlm family's model (phi-3-vision): the dense model, served and
+    trained with the frontend's patch embeddings over the first P positions
+    (``prefill(tokens, patches)``, ``loss`` of a batch with ``patches``,
+    which needs S >= P); decode is the dense decode."""
 
     FAMILY = "vlm"

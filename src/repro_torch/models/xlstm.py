@@ -1,6 +1,9 @@
-"""xLSTM LM (sLSTM + mLSTM blocks, arXiv:2405.04517): the serving path.
+"""xLSTM LM (sLSTM + mLSTM blocks, arXiv:2405.04517).
 
-The counterpart of ``src/repro/models/xlstm.py`` (family ``ssm``).
+The counterpart of ``src/repro/models/xlstm.py`` (family ``ssm``). Serving:
+``prefill`` and ``decode_step`` over the recurrent state. Training:
+``XlstmLM.loss(batch)`` (the reference's ``loss_fn``), the same ``forward``
+with autograd on; no layer is rematerialised, as in the reference.
 
 mLSTM: a matrix-memory cell, chunkwise parallel (the gated linear attention
 form):
@@ -235,15 +238,34 @@ class XlstmLM(DenseLM):
 
     def forward(self, tokens: torch.Tensor, state: Optional[dict] = None):
         """tokens ``(B, S)`` from ``state`` (the zero state where None) ->
-        (the final hidden states ``(B, S, D)``, each layer's new state)."""
+        (the final hidden states ``(B, S, D)``, each layer's new state). A
+        sharded model gathers each layer's parameters for its block."""
         x = self.embed(tokens)
         states = []
         for idx, layer in enumerate(self.layers):
             st = state["layers"][idx] if state is not None else None
             apply = slstm_apply if is_slstm(idx, self.cfg) else mlstm_apply
-            x, st = apply(layer, x, self.cfg, st)
+            with self._gathered(layer, f"layers.{idx}."):
+                x, st = apply(layer, x, self.cfg, st)
             states.append(st)
         return self.final_norm(x), states
+
+    # -- training ----------------------------------------------------------
+
+    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens ``(B, S)`` -> the final hidden states ``(B, S, D)`` from the
+        zero state: the reference's ``forward``, whose layers take no remat.
+        The sLSTM's loop over time is differentiated as it runs."""
+        return self(tokens)[0]
+
+    def loss(self, batch: dict, *, loss_chunk=None, batch_split: int = 1) -> torch.Tensor:
+        """The reference's ``xlstm.loss_fn``: the mean next-token
+        cross-entropy of ``batch`` (``tokens``, ``labels``) through the
+        untied ``lm_head``."""
+        self._check_released()
+        with self._head_gathered():
+            return self._lm_loss(self.hidden_states(batch["tokens"]), batch["labels"],
+                                 loss_chunk)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):

@@ -87,9 +87,14 @@ def global_norm(tree, shards=None) -> torch.Tensor:
 
 
 def clip_by_global_norm(tree, max_norm: float, shards=None):
+    """``tree`` scaled to a global norm of at most ``max_norm``, in place
+    (the same products as scaled copies, without a second gradient in
+    memory), and its norm before."""
     norm = global_norm(tree, shards)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return T.map(lambda g: g * scale, tree), norm
+    for g in T.leaves(tree):
+        g.mul_(scale)
+    return tree, norm
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -97,7 +102,8 @@ def _f32(x: float) -> torch.Tensor:
 
 
 def update(grads, state: AdamWState, params, lr: float, cfg: TrainConfig, shards=None):
-    """One AdamW step, in place. Returns (params, new_state, metrics).
+    """One AdamW step, in place (the gradients are clipped in place too).
+    Returns (params, new_state, metrics).
     ``shards``: a tree of :class:`LeafShard` (or None) of ``params``'
     structure, for a sharded state."""
     grads = T.map(lambda g: g.to(torch.float32), grads)
@@ -113,17 +119,25 @@ def update(grads, state: AdamWState, params, lr: float, cfg: TrainConfig, shards
     with torch.no_grad():
         for p, g, m, v, sh in zip(T.leaves(params), T.leaves(grads), T.leaves(state.m),
                                   T.leaves(state.v), leaf_shards):
-            pv, g = _zero1_view(p, sh), _zero1_view(g, sh)
-            m.copy_(b1 * m.to(torch.float32) + (1 - b1) * g)
-            v.copy_(b2 * v.to(torch.float32) + (1 - b2) * g * g)
-            mm, vv = m.to(torch.float32), v.to(torch.float32)
-            step = (mm / c1) / (torch.sqrt(vv / c2) + cfg.eps)
-            pf = pv.to(torch.float32)
-            pv.copy_(pf - lr * (step + cfg.weight_decay * pf))
+            pv = _zero1_view(p, sh)
+            _leaf_update(pv, _zero1_view(g, sh), m, v, lr, c1, c2, cfg)
             if pv is not p:  # ZeRO-1: every pod rank's block into the parameter
                 p.copy_(collectives.gather_dim(pv.contiguous(), sh.mesh, "pod", sh.zero1_dim,
                                                op="zero1_gather"))
     return params, AdamWState(m=state.m, v=state.v, count=count), {"grad_norm": gnorm}
+
+
+def _leaf_update(pv, g, m, v, lr: float, c1: float, c2: float, cfg: TrainConfig) -> None:
+    """One leaf's moments and parameter, in place. A function of its own, so
+    that the leaf's float32 temporaries are freed before the next leaf's
+    (a bank of experts is a few GiB of them)."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    m.copy_(b1 * m.to(torch.float32) + (1 - b1) * g)
+    v.copy_(b2 * v.to(torch.float32) + (1 - b2) * g * g)
+    mm, vv = m.to(torch.float32), v.to(torch.float32)
+    step = (mm / c1) / (torch.sqrt(vv / c2) + cfg.eps)
+    pf = pv.to(torch.float32)
+    pv.copy_(pf - lr * (step + cfg.weight_decay * pf))
 
 
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:

@@ -279,9 +279,10 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
     shards = adam_shards(state_sh)
     comm_sh = state_sh.comm if state_sh is not None else None
 
-    def grads_of(batch) -> torch.Tensor:
+    def grads_of(batch, batch_split: int) -> torch.Tensor:
         """Backward of the local batch's mean loss into the parameters'
-        ``.grad``, over ``n_mb`` microbatches; returns the loss."""
+        ``.grad``, over ``n_mb`` microbatches; returns the loss. The local
+        rows are one of ``batch_split`` blocks of the global batch."""
         rows = batch["tokens"].shape[0]
         if rows % n_mb:
             raise ValueError(f"{rows} local rows do not split into {n_mb} microbatches")
@@ -289,7 +290,7 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
         total = torch.zeros((), dtype=torch.float32, device=mesh.device)
         for i in range(n_mb):
             mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            loss = registry.loss(model, mb)
+            loss = registry.loss(model, mb, batch_split=batch_split)
             (loss / n_mb).backward()
             total = total + loss.detach() / n_mb
         return total
@@ -298,7 +299,7 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
         local = local_rows(batch, mesh)
         for p in state.params.values():
             p.grad = None
-        loss = grads_of(local)
+        loss = grads_of(local, batch["tokens"].shape[0] // local["tokens"].shape[0])
         grads = {n: p.grad for n, p in state.params.items()}
         for a in auto:  # what the reference's partitioner averages
             grads = _mean_auto(grads, mesh, a, layout)

@@ -177,8 +177,11 @@ class ReconfigurableTrainer:
         self.hosts = list(hosts or [HostSpec(0, [transport])])
         self.transport_name = self._agree(self._negotiate_transport(), "the negotiated transport")
         # parameters are drawn by init_state (full, then cut to this rank's
-        # blocks); the serving copies are never made
+        # blocks); the serving copies are never made. The model knows its
+        # mesh, as the reference's ``build(cfg, mesh=mesh)``: the moe family
+        # dispatches over it
         self.model = model_class(cfg)(cfg, device=self.device)
+        self.model.mesh = mesh
         self.state_sh: Optional[step_mod.StateShardings] = None
         self.ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
         self.step_times: List[float] = []

@@ -13,7 +13,9 @@ reference's (``repro.analysis``).
   ``comm.collectives.SENT`` from four gloo ranks running the same steps:
   a sharded train step on (data 2, model 2) and a compressed one on (pod 2,
   model 2); a prefill and a decode step under heads and under sequence
-  partition, and the MoE dispatches, on (data 2, model 2).
+  partition, and the MoE dispatches, on (data 2, model 2); a sharded moe
+  train step with each dispatch (``alltoall``, ``allgather``, ``grouped``),
+  its backward's collectives under their own names, on (data 2, model 2).
 """
 import math
 from collections import Counter
@@ -166,6 +168,9 @@ RUNS = {
     "serve sequence": ((2, 2), ("data", "model"), ("serve", ARCH, "sequence")),
     "serve moe alltoall": ((2, 2), ("data", "model"), ("serve", MOE, "alltoall")),
     "serve moe allgather": ((2, 2), ("data", "model"), ("serve", MOE, "allgather")),
+    "train moe alltoall": ((2, 2), ("data", "model"), ("train", MOE, "xla", "alltoall")),
+    "train moe allgather": ((2, 2), ("data", "model"), ("train", MOE, "xla", "allgather")),
+    "train moe grouped": ((2, 2), ("data", "model"), ("train", MOE, "xla", "grouped")),
 }
 
 
@@ -176,8 +181,10 @@ def _measured(mesh, what) -> dict:
     from repro_torch.serving import steps as S
     from repro_torch.train.trainer import HostSpec, ReconfigurableTrainer
 
-    kind, arch, option = what
+    kind, arch, option, *dispatch = what
     cfg = get_smoke_config(arch)
+    if dispatch:
+        cfg = configure(cfg, dispatch[0])
     out = {}
     if kind == "train":
         tr = ReconfigurableTrainer(cfg, TRAIN, mesh, tcfg=TCFG, transport=option,
@@ -235,9 +242,11 @@ def four_ranks():
 
 
 def _predicted(name: str, rank: int) -> dict:
-    shape, axes, (kind, arch, option) = RUNS[name]
+    shape, axes, (kind, arch, option, *dispatch) = RUNS[name]
     mesh = AbstractMesh(dict(zip(axes, shape)), rank=rank)
     cfg = get_smoke_config(arch)
+    if dispatch:
+        cfg = configure(cfg, dispatch[0])
     if kind == "train":
         return {"train": roofline.step_collectives(cfg, TRAIN, mesh, transport=option,
                                                    tcfg=TCFG)}

@@ -118,7 +118,7 @@ def test_launcher_batch_is_the_references(arch, jax):
     """The launcher's prefill inputs have the names, shapes and dtypes of the
     reference's batch specs (``Model.batch_specs`` of a prefill shape, whose
     vlm batch carries ``patches`` and audio batch ``frames``), at the
-    published config; ``serve_batch_specs`` is that table for every shape
+    published config; ``batch_specs`` is that table for every shape
     kind."""
     from repro.configs import get_config as ref_config
     from repro.configs.base import ShapeConfig as RefShape
@@ -127,11 +127,11 @@ def test_launcher_batch_is_the_references(arch, jax):
     ref_model, cfg = ref_build(ref_config(arch)), get_config(arch)
     for kind in ("prefill", "train", "decode"):
         want = ref_model.batch_specs(RefShape("s", 64, 2, kind))
-        got = registry.serve_batch_specs(cfg, ShapeConfig("s", 64, 2, kind))
+        got = registry.batch_specs(cfg, ShapeConfig("s", 64, 2, kind))
         assert {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()} == {
             k: (shp, str(dt).removeprefix("torch.")) for k, (shp, dt) in got.items()}
     tokens, extra = serve.serve_batch(cfg, 2, 64, torch.device("cpu"))
-    want = registry.serve_batch_specs(cfg, ShapeConfig("s", 64, 2, "prefill"))
+    want = registry.batch_specs(cfg, ShapeConfig("s", 64, 2, "prefill"))
     assert tokens.shape == want["tokens"][0]
     assert {k: (tuple(t.shape), t.dtype) for k, t in extra.items()} == {
         k: v for k, v in want.items() if k not in ("tokens", "labels")}
@@ -139,27 +139,27 @@ def test_launcher_batch_is_the_references(arch, jax):
 
 @pytest.mark.parametrize("arch", OTHERS)
 def test_other_families_build_but_do_not_train(arch):
-    """``registry.build`` builds every family; the loss and the training
-    batch of the four serving-only families raise until their training is
-    ported (ROADMAP §A item 7b), and so do the training forward they inherit
-    from ``DenseLM`` (``loss``, ``hidden_states``) when called directly."""
+    """``registry.build`` builds every family, and every family trains: the
+    loss of a training batch of ``registry.batch_specs`` (tokens and labels,
+    with ``patches`` for vlm and ``frames`` for audio) is finite and reaches
+    every parameter. (The name is from before these families trained, when
+    their loss raised.)"""
     cfg = get_smoke_config(arch)
     model = build(cfg, device="cpu", seed=0)
     assert type(model).FAMILY == cfg.family
-    tokens = torch.zeros(2, 8, dtype=torch.long)
-    batch = {"tokens": tokens, "labels": tokens}
-    if cfg.family == "vlm":
-        batch["patches"] = torch.zeros(2, cfg.frontend.num_positions, cfg.frontend.embed_dim)
-    with pytest.raises(KeyError, match="not ported"):
+    specs = registry.batch_specs(cfg, ShapeConfig("s", 16, 2, "train"))
+    assert set(specs) == {"tokens", "labels"} | (
+        {"patches"} if cfg.family == "vlm" else {"frames"} if cfg.family == "audio" else set())
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: (torch.randint(0, cfg.vocab_size, shp, generator=gen) if not dt.is_floating_point
+                 else torch.randn(shp, generator=gen).to(dt)) for k, (shp, dt) in specs.items()}
+    with pytest.raises(RuntimeError, match="release"):
         registry.loss(model, batch)
-    model.release()
-    with pytest.raises(NotImplementedError, match="7b"):
-        model.loss(batch)
-    with pytest.raises(NotImplementedError, match="7b"):
-        model.hidden_states(tokens)
-    with pytest.raises(KeyError, match="not ported"):
-        registry.batch_specs(cfg, ShapeConfig("s", 8, 2, "train"))
-    assert cfg.family not in registry.TRAINED
+    loss = registry.loss(model.release(), batch)
+    assert torch.isfinite(loss)
+    loss.backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(p.grad.abs().max() > 0), name
 
 
 def test_launcher_is_deterministic():

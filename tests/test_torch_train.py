@@ -395,22 +395,24 @@ def test_transport_state_has_the_reference_layout(transport):
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_batch_specs_match_reference(kind):
-    """The dense and hybrid families' batch shapes and dtypes, as the
-    reference's ``Model.batch_specs``; a family the port does not train
-    raises."""
+    """Every family's batch shapes and dtypes, as the reference's
+    ``Model.batch_specs`` (the vlm batch's ``patches`` and the audio batch's
+    ``frames`` outside decode)."""
     pytest.importorskip("jax")
     from repro.configs import get_smoke_config as ref_config
     from repro.models.registry import build as ref_build
     from repro_torch.models import registry
 
     shape = ShapeConfig("s", 32, 4, kind)
-    for arch in (ARCH, "hymba-1.5b"):
+    archs = (ARCH, "hymba-1.5b", "phi-3-vision-4.2b", "qwen3-moe-235b-a22b", "xlstm-125m",
+             "seamless-m4t-medium")
+    assert {get_smoke_config(a).family for a in archs} == {
+        "dense", "hybrid", "vlm", "moe", "ssm", "audio"}
+    for arch in archs:
         want = ref_build(ref_config(arch)).batch_specs(shape)
         got = registry.batch_specs(get_smoke_config(arch), shape)
         assert {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()} == {
             k: (shp, str(dt).removeprefix("torch.")) for k, (shp, dt) in got.items()}
-    with pytest.raises(KeyError, match="not ported"):
-        registry.batch_specs(get_smoke_config(ARCH).replace(family="moe"), shape)
 
 
 @pytest.mark.parametrize("host", [(0, 1), (0, 2), (1, 2), (3, 4)])
