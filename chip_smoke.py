@@ -274,6 +274,8 @@ SSM_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:57"
 #: SSM scan widths (d_in = 2 x 1600, state 16), and the prefill's scan chunk
 HYMBA_HEADS, HYMBA_KV, HYMBA_WINDOW = 25, 5, 1024
 SSM_D_IN, SSM_N, SSM_CHUNK = 3200, 16, 256
+#: B4's case at a rank's channels of hymba split over model 2 (d_in / 2)
+SSM_LOCAL = "hymba local channels d_in/2 (model 2)"
 #: scan kernel against its plain version: the reference's own atol = rtol
 #: (tests/test_kernels.py::TestSsmScanKernel)
 SSM_TOL = 1e-5
@@ -286,21 +288,26 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 #: error 1e-5, summation order. Both tighter than the reference's own 2e-2 /
 #: 2e-3 (tests/test_kernels.py)
 FLASH_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
-#: this slice's prefill attention shapes, each checked and timed at batch 4:
-#: (label, (Sq, Skv or None for Sq, hd, (H, KH), keywords), dtypes checked).
-#: phi-3-vision-4.2b: 32 heads of 96, MHA, causal; qwen3-moe-235b-a22b: 64
-#: heads over 4 KV heads of 128, causal; seamless-m4t-medium: 16 heads of 64,
-#: its encoder over S / 4 frames and its cross attention non-causal
+#: the later slices' prefill attention shapes, each checked and timed:
+#: (label, (batch, Sq, Skv or None for Sq, hd, (H, KH), keywords), dtypes
+#: checked). phi-3-vision-4.2b: 32 heads of 96, MHA, causal; qwen3-moe-235b-a22b:
+#: 64 heads over 4 KV heads of 128, causal; seamless-m4t-medium: 16 heads of
+#: 64, its encoder over S / 4 frames and its cross attention non-causal; and
+#: llama3.2-1b split over model 2 on (data 2, model 2): a rank's 2 rows and
+#: its 16 query heads over its 4 KV heads (the compute split, heads mode)
 NEW_FLASH_CASES = [
-    ("phi-3-vision hd96", (SERVE_PROMPT, None, 96, (32, 32), dict(causal=True)),
+    ("phi-3-vision hd96", (SERVE_BATCH, SERVE_PROMPT, None, 96, (32, 32), dict(causal=True)),
      ("bfloat16", "float32")),
-    ("qwen3-moe GQA 64/4 hd128", (SERVE_PROMPT, None, 128, (64, 4), dict(causal=True)),
-     ("bfloat16",)),
-    ("seamless encoder", (SERVE_PROMPT // 4, None, 64, (16, 16), dict(causal=False)),
-     ("bfloat16",)),
-    ("seamless decoder self", (SERVE_PROMPT, None, 64, (16, 16), dict(causal=True)),
-     ("bfloat16",)),
-    ("seamless cross", (SERVE_PROMPT, SERVE_PROMPT // 4, 64, (16, 16), dict(causal=False)),
+    ("qwen3-moe GQA 64/4 hd128", (SERVE_BATCH, SERVE_PROMPT, None, 128, (64, 4),
+                                  dict(causal=True)), ("bfloat16",)),
+    ("seamless encoder", (SERVE_BATCH, SERVE_PROMPT // 4, None, 64, (16, 16),
+                          dict(causal=False)), ("bfloat16",)),
+    ("seamless decoder self", (SERVE_BATCH, SERVE_PROMPT, None, 64, (16, 16),
+                               dict(causal=True)), ("bfloat16",)),
+    ("seamless cross", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT // 4, 64, (16, 16),
+                        dict(causal=False)), ("bfloat16",)),
+    ("llama local heads 16/4 (model 2)", (SERVE_BATCH // 2, SERVE_PROMPT, None, HEAD_DIM,
+                                          (N_HEADS // 2, N_KV // 2), dict(causal=True)),
      ("bfloat16",)),
 ]
 #: the mangled name's stem of the tensor-core kernel, in ptxas's log
@@ -617,9 +624,9 @@ def phase_flash(torch) -> dict:
              ("hymba GQA 5, window 1024", (B, S, HEAD_DIM, bf16), hymba, None,
               dict(causal=True, window=HYMBA_WINDOW)),
              ("hymba GQA 5, global", (B, S, HEAD_DIM, bf16), hymba, None, dict(causal=True))]
-    cases += [(label if dt == "bfloat16" else f"{label} {dt}", (B, sq, hd, getattr(torch, dt)),
+    cases += [(label if dt == "bfloat16" else f"{label} {dt}", (b, sq, hd, getattr(torch, dt)),
                heads, skv, kw)
-              for label, (sq, skv, hd, heads, kw), dtypes in NEW_FLASH_CASES for dt in dtypes]
+              for label, (b, sq, skv, hd, heads, kw), dtypes in NEW_FLASH_CASES for dt in dtypes]
     errs, checked = {}, set()
     for label, (B_, S_, hd, dtype), heads, skv, kw in cases:
         q, k, v = qkv(B_, S_, hd, dtype, heads, skv)
@@ -648,16 +655,17 @@ def phase_flash(torch) -> dict:
 
     # hymba's two prefill shapes (29 layers with the window, 3 without), head
     # dim 128 (mistral-nemo's width) at llama's batch, length and heads, then
-    # this slice's: phi-3-vision's hd 96, qwen3-moe's GQA 64/4 at hd 128, and
-    # seamless's encoder, decoder self and cross attention
-    timed = [("hymba window 1024", (HYMBA_HEADS, HYMBA_KV), HEAD_DIM, S, None, HYMBA_WINDOW,
+    # the later slices': phi-3-vision's hd 96, qwen3-moe's GQA 64/4 at hd 128,
+    # seamless's encoder, decoder self and cross attention, and a llama rank's
+    # heads under the compute split over model 2
+    timed = [("hymba window 1024", B, (HYMBA_HEADS, HYMBA_KV), HEAD_DIM, S, None, HYMBA_WINDOW,
               True),
-             ("hymba global", (HYMBA_HEADS, HYMBA_KV), HEAD_DIM, S, None, None, True),
-             ("hd128", (N_HEADS, N_KV), 128, S, None, None, True)]
-    timed += [(label, heads, hd, sq, skv, None, kw["causal"])
-              for label, (sq, skv, hd, heads, kw), _ in NEW_FLASH_CASES]
-    for label, heads, hd, sq, skv, window, causal in timed:
-        q, k, v = qkv(B, sq, hd, bf16, heads, skv)
+             ("hymba global", B, (HYMBA_HEADS, HYMBA_KV), HEAD_DIM, S, None, None, True),
+             ("hd128", B, (N_HEADS, N_KV), 128, S, None, None, True)]
+    timed += [(label, b, heads, hd, sq, skv, None, kw["causal"])
+              for label, (b, sq, skv, hd, heads, kw), _ in NEW_FLASH_CASES]
+    for label, b_, heads, hd, sq, skv, window, causal in timed:
+        q, k, v = qkv(b_, sq, hd, bf16, heads, skv)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=causal, window=window))
         plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=causal,
@@ -1036,9 +1044,12 @@ def phase_ssm_scan(torch) -> dict:
 
     B = SERVE_BATCH
     prefill, decode = inputs(B, SSM_CHUNK, SSM_D_IN), inputs(B, 1, SSM_D_IN)
+    # hymba split over model 2: a rank scans its d_in / 2 channels
+    local = inputs(B, SSM_CHUNK, SSM_D_IN // 2)
     errs = []
     for label, (a, bx, h0) in (("prefill chunk", prefill), ("decode step", decode),
-                               ("d_in 300", inputs(3, 8, 300))):
+                               ("d_in 300", inputs(3, 8, 300)),
+                               (SSM_LOCAL, local)):
         n0 = ssm_scan_chunk.launches
         got = ssm_scan_chunk(a, bx, h0)
         check(ssm_scan_chunk.launches == n0 + 1, "ssm_scan_chunk: one launch per call")
@@ -1081,6 +1092,19 @@ def phase_ssm_scan(torch) -> dict:
           f"{plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms by {res['bound_by']}: {io} bytes, "
           f"{flops} flops; {io / ms / 1e6:.1f} GB/s); decode step {tuple(decode[0].shape)}: "
           f"{decode_ms:.4f} ms (plain {decode_plain_ms:.4f} ms)")
+    a, bx, h0 = local
+    ms = time_ms(torch, lambda: ssm_scan_chunk(a, bx, h0))
+    plain_ms = time_ms(torch, lambda: ssm_scan_chunk_ref(a, bx, h0), reps=5, group=2)
+    io, flops = 4 * (3 * a.numel() + 2 * h0.numel()), 2 * a.numel()
+    bytes_ms, ops_ms = io / hw("hbm_bw") * 1e3, flops / hw("peak_flops_f32") * 1e3
+    case = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "max_abs_err": errs[3],
+            "bytes": io, "flops": flops, "shape": list(a.shape)}
+    res["cases"] = {SSM_LOCAL: case}
+    print(f"time ssm_scan_chunk {SSM_LOCAL} {tuple(a.shape)}: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms by {case['bound_by']}: {io} "
+          f"bytes, {flops} flops; {io / ms / 1e6:.1f} GB/s, {case['bound_ms'] / ms:.1%} of the "
+          "bound)")
     return res
 
 
@@ -1539,6 +1563,7 @@ def phase_serve_sharded(torch, checked: set) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn
     from repro_torch.models import moe
+    from repro_torch.models.pshard import SPLIT_FAMILIES
     from repro_torch.serving.steps import capacity_for
 
     check(capacity_for(SERVE_PROMPT, SERVE_GEN) == SHARDED_CAPACITY,
@@ -1616,7 +1641,14 @@ def phase_serve_sharded(torch, checked: set) -> dict:
                       + f"), argmax agree {agree_pre}")
                 print(f"{label}: rank {rank} bytes sent by op@axis (gloo through the host, not "
                       f"NCCL): prefill {json.dumps(rec['sent_prefill'])}, check step and "
-                      f"{SERVE_GEN} steps {json.dumps(rec['sent_decode'])}")
+                      f"{SERVE_GEN} steps {json.dumps(rec['sent_decode'])}; compute split "
+                      f"{rec['split']}, working copies {rec['working_bytes']} bytes "
+                      f"({rec['working_bytes'] / 2**30:.2f} GiB)")
+                if cfg.family in SPLIT_FAMILIES:  # the split ran: its sums, no gathers
+                    sent = rec["sent_decode"]
+                    check("sum_partials@model" in sent and "gather_cache@model" not in sent
+                          and (rec["mode"] != "heads" or "all_gather@model" not in sent),
+                          f"{label} rank {rank}: the split's decode sent {sent}")
                 check(gap <= tol, f"{label} rank {rank}: first decode step differs from the "
                       f"one-rank port by {gap}")
                 check(cfg.family == "moe" or gap_pre <= tol,
@@ -2246,6 +2278,9 @@ def phase_train_sharded(torch) -> dict:
                     check(rec["routes"][name] == {"vector b256": want[name]},
                           f"rank {rank} step {rec['step']}: {name} routes {rec['routes'][name]}")
             check(math.isfinite(rec["loss"]), f"rank {rank} step {rec['step']}: loss {rec['loss']}")
+            # the compute split over model ran: the row products' sums
+            check(rec["sent"].get("sum_partials@model", 0) > 0,
+                  f"rank {rank} step {rec['step']}: no row product summed over model")
             for name in total:
                 total[name] += rec["launches"][name]
         print(f"train sharded (b), rank {rank} at {r['coords_b']}: restored step "
@@ -2803,10 +2838,17 @@ def main() -> int:
                     "launches": sum(n["flash_attention"] for n in serve_paths),
                     **{k: flash[k] for k in keys}, "launches_by_path": by_path["flash_attention"],
                     "cases": flash["cases"]})
+    # B4's case at a rank's channels: the launches of the hymba mesh path,
+    # every one of them on its d_in / 2 channels
+    scan["cases"][SSM_LOCAL]["launches"] = sum(
+        n["ssm_scan_chunk"] for path, n in paths.items()
+        if path.startswith("serve sharded hymba-1.5b"))
+    check(scan["cases"][SSM_LOCAL]["launches"] > 0, "the hymba mesh path launched no scan")
     kernels.append({"name": "ssm_scan_chunk", "route": "cuda", "source": SSM_SOURCE,
                     "replaces": SSM_REPLACES,
                     "launches": sum(n["ssm_scan_chunk"] for n in serve_paths),
-                    **{k: scan[k] for k in keys}, "launches_by_path": by_path["ssm_scan_chunk"]})
+                    **{k: scan[k] for k in keys}, "launches_by_path": by_path["ssm_scan_chunk"],
+                    "cases": scan["cases"]})
     check(not THREAD_ERRORS, f"exceptions in threads: {THREAD_ERRORS}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

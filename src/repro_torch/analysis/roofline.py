@@ -205,7 +205,16 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
 
     - the forward's parameter gathers (``gather_param``, each layer's twice
       under remat: the backward recomputes it) and their backward over a
-      batch axis (``grad_reduce_scatter``), per microbatch;
+      batch axis (``grad_reduce_scatter``), per microbatch; under the
+      compute split over ``model`` (``models.pshard``: dense, vlm, hybrid) a
+      leaf it reads as its block is gathered over the batch axes only, one
+      it reads as a shared part (``in_proj``, ``x_proj``, KV heads that
+      |model| does not divide) also over ``model``, with a reduce-scatter
+      backward there, and a replicated leaf read in part (``conv_b``,
+      ``dt_bias``, ``D``) sums its gradient over ``model``;
+    - the split's activations (:func:`_split_layer_train`): the row
+      products' sums (``sum_partials``) and the "f" conjugates' backward
+      (``grad_all_reduce``), per layer and microbatch;
     - the moe family's dispatches, forward and backward, per layer and
       microbatch (:func:`_moe_layer_train`);
     - the mean over the batch axes the transport leaves automatic
@@ -217,7 +226,9 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
     from repro_torch import tree as T
     from repro_torch.comm.chunnels import stack_manual_axes
     from repro_torch.models import registry
+    from repro_torch.models.pshard import model_split
     from repro_torch.models.sharding import Layout, NamedSharding, per_layer
+    from repro_torch.models.stacking import group_size
     from repro_torch.train.step import _zero1_pod
 
     cfg = model.cfg
@@ -231,24 +242,42 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
     out = _Sent()
     n_mb = max(tcfg.microbatches, 1)
 
-    # forward gathers, and the backward's reduce-scatter over a batch axis
-    for name in shapes:
-        passes = 2 if cfg.remat != "none" and name.split(".", 1)[0] in stacks else 1
-        cur = local[name]
-        for _dim, axis in layout._gather_order[name]:
-            n = mesh.shape[axis]
-            for _ in range(passes * n_mb):
-                out.all_gather("gather_param", axis, n, cur * F32)
-            if axis in BATCH_AXES:
-                out.sends("grad_reduce_scatter", axis, (n - 1) * n_mb, cur * F32)
-            cur *= n
-
-    if cfg.family == "moe":
-        if shape is None:
-            raise ValueError("the moe family's dispatch bytes need the batch's shape")
+    split = model_split(cfg, mesh)
+    if (split is not None or cfg.family == "moe") and shape is None:
+        raise ValueError("the compute split's and the moe dispatch's bytes need the "
+                         "batch's shape")
+    if shape is not None:  # this rank's rows
         n_rows = math.prod(mesh.shape[a] for a in BATCH_AXES if a in mesh.axis_names)
         rows = shape.global_batch // n_rows if shape.global_batch % n_rows == 0 \
             else shape.global_batch
+    if split is not None:
+        g = group_size(cfg.num_layers, model._remat_group())
+        for i in range(cfg.num_layers):
+            for _ in range(n_mb):  # under remat, all but a unit's last sum run again
+                _split_layer_train(out, cfg, split, rows // n_mb, shape.seq_len,
+                                   cfg.remat != "none", last=(i + 1) % g == 0)
+
+    # forward gathers, and the backward's reduce-scatter over a batch axis
+    # (and over model for a leaf the split reads as a shared part)
+    for name in shapes:
+        passes = 2 if cfg.remat != "none" and name.split(".", 1)[0] in stacks else 1
+        cur = local[name]
+        read = split.read_of(name) if split is not None else None
+        how = read.how if read is not None else "whole"
+        for _dim, axis in layout._gather_order[name]:
+            n = mesh.shape[axis]
+            if axis == "model" and how == "block":
+                continue
+            for _ in range(passes * n_mb):
+                out.all_gather("gather_param", axis, n, cur * F32)
+            if axis in BATCH_AXES or how == "shared":
+                out.sends("grad_reduce_scatter", axis, (n - 1) * n_mb, cur * F32)
+            cur *= n
+        if how == "shared" and "model" not in layout.axes(name):
+            for _ in range(n_mb):  # enters through ``replicated``
+                out.all_reduce("grad_all_reduce", "model", mesh.shape["model"], cur * F32)
+
+    if cfg.family == "moe":
         for _ in range(cfg.num_layers * n_mb):
             _moe_layer_train(out, cfg, mesh, rows // n_mb, shape.seq_len,
                              shape.global_batch // rows)
@@ -379,20 +408,74 @@ def _moe_layer_train(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int,
             cur *= mesh.shape[a]
 
 
+def _split_layer(out: _Sent, cfg: ModelConfig, split, rows: int, S: int,
+                 runs: int = 1, last_runs: int = 1) -> None:
+    """The row products' sums (``sum_partials``, float32) of one split layer
+    on ``rows`` rows of ``S`` positions, each run ``runs`` times but the
+    layer's last (the MLP's), run ``last_runs`` times: dense and vlm sum
+    ``wo`` (heads) and ``down`` (d_ff); the hybrid sums ``x_proj`` (d_in),
+    its two branches side by side (those that split), and ``down``."""
+    from repro_torch.models.ssm import dt_rank
+
+    m, D = split.mesh.shape["model"], cfg.d_model
+    tokens = rows * S * F32
+    if cfg.family == "hybrid":
+        width = D * ((split.heads is not None) + (split.d_in is not None))
+        if split.d_in is not None:
+            proj = dt_rank(D, cfg.ssm) + 2 * cfg.ssm.state_dim
+            for _ in range(runs):
+                out.all_reduce("sum_partials", "model", m, tokens * proj)
+    else:
+        width = D if split.heads is not None else 0
+    for _ in range(runs if width else 0):
+        out.all_reduce("sum_partials", "model", m, tokens * width)
+    for _ in range(last_runs if split.d_ff is not None else 0):
+        out.all_reduce("sum_partials", "model", m, tokens * D)
+
+
+def _split_layer_train(out: _Sent, cfg: ModelConfig, split, rows: int, S: int,
+                       remat: bool, last: bool) -> None:
+    """One split layer in training: its sums (:func:`_split_layer`), each
+    run again where remat recomputes it (the recomputation stops at the
+    last saved activation, so the layer's final sum, ``down``'s, runs once
+    in the last layer of a checkpointed unit), and the backward's sums of
+    the "f" conjugates' cotangents (``grad_all_reduce``, float32): one
+    before the attention (and the hybrid's SSM branch, which share it), one
+    before the MLP, and the hybrid's ``x_proj`` output, which every
+    channel reads."""
+    from repro_torch.models.ssm import dt_rank
+
+    m, D = split.mesh.shape["model"], cfg.d_model
+    twice = 2 if remat else 1
+    _split_layer(out, cfg, split, rows, S, runs=twice, last_runs=1 if last else twice)
+    tokens = rows * S * F32
+    if split.heads is not None or split.d_in is not None:
+        out.all_reduce("grad_all_reduce", "model", m, tokens * D)
+    if cfg.family == "hybrid" and split.d_in is not None:
+        proj = dt_rank(D, cfg.ssm) + 2 * cfg.ssm.state_dim
+        out.all_reduce("grad_all_reduce", "model", m, tokens * proj)
+    if split.d_ff is not None:
+        out.all_reduce("grad_all_reduce", "model", m, tokens * D)
+
+
 def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
                       sh: ShardingConfig = ShardingConfig()) -> Counter:
     """Bytes one rank sends in one ``serving.steps.ServeSteps`` step at a
     ``shape`` of kind ``"prefill"`` (the prompt of ``shape.seq_len``
     positions) or ``"decode"`` (one token against a cache of
     ``shape.seq_len``), by ``op@axis``. The layout's one-time gathers of the
-    working copies (``lay_out``) are not a step's. A prefill sends only the
-    MoE dispatches'; a decode step gathers the cache leaves the port does
-    not compute split (``gather_cache``), runs each attended layer's
-    KV-partition slot (heads: the output's ``all_gather``; sequence: the
-    flash-decode combine's ``all_reduce_max`` and ``all_reduce``) and the
-    MoE dispatches."""
+    working copies (``lay_out``) are not a step's. Both kinds run the compute
+    split's sums (``sum_partials``, :func:`_split_layer`) and the MoE
+    dispatches; a decode step also gathers the cache leaves that a family
+    computing whole over ``model`` holds split (``gather_cache``), and runs
+    the KV-partition slot of each layer that attends through it (heads: a
+    whole-compute family's ``all_gather`` of the output, nothing for a split
+    model's heads; sequence: the flash-decode combine's ``all_reduce_max``
+    and ``all_reduce``, also for the hybrid's rings where their slots are
+    split)."""
     from repro_torch import tree as T
     from repro_torch.models import registry
+    from repro_torch.models.pshard import model_split
     from repro_torch.models.sharding import NamedSharding, batch_axes, kv_partition_mode
     from repro_torch.serving.steps import KV_LEAVES, cache_shardings
 
@@ -401,27 +484,36 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
     n_rows = math.prod(mesh.shape[a] for a in b_axes)
     dealt = shape.global_batch % n_rows == 0
     rows = shape.global_batch // n_rows if dealt else shape.global_batch
-    split = n_rows if dealt and cfg.family == "moe" else 1
+    batch_split = n_rows if dealt and cfg.family == "moe" else 1
     m = mesh.shape.get("model", 1)
-    if shape.kind == "prefill":
-        if cfg.family == "moe":
-            for _ in range(cfg.num_layers):
-                _moe_layer(out, cfg, mesh, rows, shape.seq_len, split)
-        return out
-    if shape.kind != "decode":
+    mode = kv_partition_mode(cfg, mesh, sh) if cfg.family != "ssm" else None
+    split = model_split(cfg, mesh, mode)
+    if shape.kind not in ("prefill", "decode"):
         raise ValueError(f"serve_collectives takes prefill or decode, not {shape.kind!r}")
+    S = shape.seq_len if shape.kind == "prefill" else 1
+    for _ in range(cfg.num_layers if split is not None else 0):
+        _split_layer(out, cfg, split, rows, S)
+    if cfg.family == "moe":
+        for _ in range(cfg.num_layers):
+            _moe_layer(out, cfg, mesh, rows, S, batch_split)
+    if shape.kind == "prefill":
+        return out
     cache = registry.cache_shapes(cfg, shape)
     specs = cache_shardings(cache, cfg, mesh, sh)
     slot_layers = 0
     for (path, leaf), spec in zip(T.flatten_with_paths(cache), T.leaves(specs)):
         if not hasattr(leaf, "shape"):
             continue
+        sharding = NamedSharding(mesh, spec)
         behind_slot = (cfg.family != "ssm" and path[-1] in KV_LEAVES
-                       and (cfg.family != "hybrid" or int(path[1]) in cfg.global_layers))
+                       and (cfg.family != "hybrid" or int(path[1]) in cfg.global_layers
+                            or (split is not None
+                                and any(a == "model" for _, a in sharding.splits(4)))))
         if behind_slot:
             slot_layers += (leaf.shape[0] if leaf.dim() == 5 else 1) if path[-1] == "k" else 0
             continue
-        sharding = NamedSharding(mesh, spec)
+        if split is not None:  # a split model's leaves stay its slices
+            continue
         cur = local_numel(sharding, tuple(leaf.shape)) * leaf.element_size()
         for _dim, axis in reversed(sharding.splits(leaf.dim())):
             if axis not in BATCH_AXES:
@@ -430,14 +522,11 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
     if cfg.family != "ssm" and m > 1:
         H, hd = cfg.num_heads, cfg.head_dim_
         for _ in range(slot_layers):
-            if kv_partition_mode(cfg, mesh, sh) == "heads":
-                out.all_gather("all_gather", "model", m, rows * H // m * hd * BF16)
-            else:
+            if mode == "sequence":
                 out.all_reduce("all_reduce_max", "model", m, rows * H * F32)
                 out.all_reduce("all_reduce", "model", m, rows * H * (hd + 1) * F32)
-    if cfg.family == "moe":
-        for _ in range(cfg.num_layers):
-            _moe_layer(out, cfg, mesh, rows, 1, split)
+            elif split is None:
+                out.all_gather("all_gather", "model", m, rows * H // m * hd * BF16)
     return out
 
 

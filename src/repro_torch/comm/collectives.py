@@ -42,13 +42,20 @@ over a batch axis is a reduce-scatter, ``grad_reduce_scatter@<axis>``.
 The MoE dispatches train through differentiable all-to-all, gather and
 sum (:func:`all_to_all_grad`, :func:`gather_grad`, :func:`all_reduce_grad`,
 :func:`replicated`, :func:`replicated_block`), whose backwards count as
-``grad_<op>@<axis>``.
+``grad_<op>@<axis>``. The compute split over ``model``
+(``models.pshard``) runs on two of them: :func:`replicated`, Megatron's "f"
+(its backward sums a bfloat16 cotangent in float32), and
+:func:`sum_partials`, its "g": the row products' bfloat16 partial outputs
+summed in float32 and rounded once, counted as ``sum_partials@<axis>``.
+A parameter that the ranks of ``model`` each use a part of is gathered by
+``gather_param(..., downstream="partial")``: its backward is a
+reduce-scatter sum over ``model`` too.
 """
 from __future__ import annotations
 
 import threading
 from collections import Counter
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -234,7 +241,8 @@ def _own_block(full: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return full.narrow(dim, mesh.coords[axis] * per, per)
 
 
-def gather_param(shard: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+def gather_param(shard: torch.Tensor, mesh, axis: str, dim: int, *,
+                 downstream: Optional[str] = None) -> torch.Tensor:
     """The parameter block ``shard``, split over ``axis`` on ``dim``, joined
     with every other rank's along ``axis``; differentiable. The backward
     depends on the axis: over an axis the batch is dealt out on (``pod``,
@@ -242,10 +250,14 @@ def gather_param(shard: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor
     reduce-scatter sum; over an axis the batch is replicated on (``model``),
     every rank computed the same gradient, so it is the rank's own block
     with no sum (a sum would multiply it by the axis size): :func:`gather_grad`
-    with the downstream of each."""
+    with the downstream of each. ``downstream="partial"`` over ``model``: the
+    ranks each use a part of the whole (the compute split's ``in_proj``),
+    so their gradients are parts of a sum."""
     if mesh.shape[axis] == 1:
         return shard
-    downstream = "partial" if axis in BATCH_AXES else "replicated"
+    if downstream is None:
+        downstream = "partial" if axis in BATCH_AXES else "replicated"
+    _check_downstream(downstream)
     return _Gather.apply(shard, mesh, axis, dim, downstream, "gather_param")
 
 
@@ -328,18 +340,20 @@ def gather_grad(shard: torch.Tensor, mesh, axis: str, dim: int, *,
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, downstream):
+    def forward(ctx, x, mesh, axis, downstream, op):
         ctx.mesh, ctx.axis, ctx.downstream = mesh, axis, downstream
-        return all_reduce_sum(x.detach(), mesh, axis)
+        return all_reduce_sum(x.detach(), mesh, axis, op=op)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.downstream == "replicated":
-            return g, None, None, None
-        return all_reduce_sum(g, ctx.mesh, ctx.axis, op="grad_all_reduce"), None, None, None
+            return g, None, None, None, None
+        return (all_reduce_sum(g, ctx.mesh, ctx.axis, op="grad_all_reduce"),
+                None, None, None, None)
 
 
-def all_reduce_grad(x: torch.Tensor, mesh, axis: str, *, downstream: str) -> torch.Tensor:
+def all_reduce_grad(x: torch.Tensor, mesh, axis: str, *, downstream: str,
+                    op: str = "all_reduce") -> torch.Tensor:
     """:func:`all_reduce_sum`, differentiable. Its backward passes the
     cotangent unchanged where the sum feeds a replicated computation (each
     rank's part enters the one sum once), and sums the cotangents over the
@@ -347,7 +361,18 @@ def all_reduce_grad(x: torch.Tensor, mesh, axis: str, *, downstream: str) -> tor
     _check_downstream(downstream)
     if mesh.shape[axis] == 1:
         return x
-    return _AllReduce.apply(x, mesh, axis, downstream)
+    return _AllReduce.apply(x, mesh, axis, downstream, op)
+
+
+def sum_partials(x: torch.Tensor, mesh, axis: str, dtype: torch.dtype) -> torch.Tensor:
+    """The sum over ``axis`` of ``x``, each rank's partial output of a row
+    product (Megatron's "g"), in float32, rounded once to ``dtype``
+    (``sum_partials``); the backward passes the cotangent unchanged, as the
+    sum feeds a computation every rank of the axis repeats."""
+    if mesh.shape[axis] == 1:
+        return x.to(dtype)
+    return all_reduce_grad(x.float(), mesh, axis, downstream="replicated",
+                           op="sum_partials").to(dtype)
 
 
 class _Replicated(torch.autograd.Function):
@@ -358,15 +383,19 @@ class _Replicated(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_sum(g, ctx.mesh, ctx.axis, op="grad_all_reduce"), None, None
+        # a bfloat16 cotangent (the split's activations) is summed in float32
+        # and rounded once
+        total = all_reduce_sum(g.float(), ctx.mesh, ctx.axis, op="grad_all_reduce")
+        return total.to(g.dtype), None, None
 
 
 def replicated(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``x``, an input that enters a computation split over ``axis`` whole on
-    every rank of it (the router weight of a dispatch): the identity, whose
-    backward sums the ranks' cotangents over ``axis`` (``grad_all_reduce``),
-    as ``shard_map``'s transpose sums an input's cotangent over the manual
-    axes its spec does not name."""
+    every rank of it (the router weight of a dispatch, Megatron's "f" before
+    the compute split's column products): the identity, whose backward sums
+    the ranks' cotangents over ``axis`` (``grad_all_reduce``), as
+    ``shard_map``'s transpose sums an input's cotangent over the manual axes
+    its spec does not name."""
     if mesh.shape[axis] == 1:
         return x
     return _Replicated.apply(x, mesh, axis)

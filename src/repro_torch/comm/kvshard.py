@@ -6,15 +6,31 @@ The counterpart of ``src/repro/comm/kvshard.py``, on ``torch.distributed``:
               llama (8), phi-3 (32), seamless (16)). The reference's branch is
               layout-only (the partitioner splits the attention by heads);
               here the split compute is explicit: a rank holds KV heads
-              ``[r·KH/m, (r+1)·KH/m)``, writes those heads of the new K/V,
-              attends the query heads they serve, ``[r·H/m, (r+1)·H/m)``
-              (GQA: query head h reads KV head h // group), and all-gathers
-              the output over 'model' along the heads.
+              ``[r·KH/m, (r+1)·KH/m)`` and attends the query heads they
+              serve, ``[r·H/m, (r+1)·H/m)`` (GQA: query head h reads KV head
+              h // group). A model whose compute is split over 'model'
+              (``models.pshard``: dense, vlm, hybrid) computes only those
+              heads of q and of the new K/V, and the slot returns the rank's
+              heads of the output (``local_heads``): ``wo``'s row product
+              and its sum over 'model' take the place of a gather. A family
+              that computes every head (moe, audio) hands the slot all of
+              them; it writes its heads of the new K/V and all-gathers the
+              output over 'model' along the heads.
   sequence  — cache SEQUENCE sharded over 'model' (granite kv=1, hymba kv=5,
               qwen/mistral/dbrx kv∤16): flash-decoding — each rank computes
               partial (m, l, o) over its sequence shard, combined with a
               max all-reduce and a sum all-reduce across 'model'. Only the
               rank that owns position ``pos`` writes it.
+
+Hazard (sequence mode and the compute split). The cache's positions are
+cut over 'model' but every head is held, so a rank cannot attend its own
+heads only: it would need the other ranks' heads of its positions. In
+sequence mode a split model keeps its attention block whole (every rank
+computes every head of q, k and v, and the flash-decode combine runs over
+them); only its MLP and its SSM channels split. hymba's rings, cut by slots
+in sequence mode, attend through this branch too: the owner of slot
+``pos % cap`` writes it, and the rank attends its slots by count
+(``kv_len = min(pos + 1, cap)``, no window mask).
 
 Each branch is a decode slot (``models.attention.LocalDecode``): called as
 ``attn_fn(q, k_cache, v_cache, kv_len, window)`` on this rank's shard of the
@@ -100,17 +116,24 @@ class SeqShardedDecode(LocalDecode):
 
 class HeadShardedDecode(LocalDecode):
     """The heads branch's slot on this rank: it holds KV heads
-    ``[index·KH_loc, (index+1)·KH_loc)`` of every position."""
+    ``[index·KH_loc, (index+1)·KH_loc)`` of every position. With
+    ``local_heads`` (a split model's) q and the new K/V are the rank's heads
+    already and the output stays the rank's heads; else they are every head,
+    and the output is all-gathered over ``axis``."""
 
-    def __init__(self, mesh, axis: str = "model"):
-        self.mesh, self.axis = mesh, axis
+    def __init__(self, mesh, axis: str = "model", local_heads: bool = False):
+        self.mesh, self.axis, self.local_heads = mesh, axis, local_heads
         self.n, self.index = mesh.shape[axis], mesh.coords[axis]
 
     def write(self, cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+        if self.local_heads:
+            return super().write(cache, new, pos)
         kh = cache.shape[2]
         cache[:, pos] = new[:, 0, self.index * kh:(self.index + 1) * kh].to(cache.dtype)
 
     def __call__(self, q, k_cache, v_cache, kv_len, window=None):
+        if self.local_heads:
+            return decode_attention_local(q, k_cache, v_cache, kv_len, window=window)
         h_loc = q.shape[2] // self.n
         q_loc = q[:, :, self.index * h_loc:(self.index + 1) * h_loc]
         o = decode_attention_local(q_loc, k_cache, v_cache, kv_len, window=window)
@@ -123,10 +146,12 @@ def make_seq_sharded_decode(mesh, axis: str = "model") -> SeqShardedDecode:
     return SeqShardedDecode(mesh, axis)
 
 
-def make_head_sharded_decode(mesh, axis: str = "model") -> HeadShardedDecode:
+def make_head_sharded_decode(mesh, axis: str = "model", *,
+                             local_heads: bool = False) -> HeadShardedDecode:
     """``attn_fn(q, k_loc, v_loc, kv_len, window)`` with the cache's KV heads
-    split over ``axis``."""
-    return HeadShardedDecode(mesh, axis)
+    split over ``axis`` (``local_heads``: q is the rank's heads, and so is
+    the output)."""
+    return HeadShardedDecode(mesh, axis, local_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +170,8 @@ class KVHeadSharded(StepChunnel):
     def capabilities(self):
         return CapabilitySet.compose(f"kvshard:heads@{self.axis}")
 
-    def attn_fn(self, mesh) -> HeadShardedDecode:
-        return make_head_sharded_decode(mesh, self.axis)
+    def attn_fn(self, mesh, *, local_heads: bool = False) -> HeadShardedDecode:
+        return make_head_sharded_decode(mesh, self.axis, local_heads=local_heads)
 
     def apply(self, tree, state, ctx):
         return tree, state  # the cache's layout and the slot carry the branch

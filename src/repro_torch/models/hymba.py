@@ -22,12 +22,27 @@ made by a prompt shorter than the window has ``cap = S`` slots, so decode
 overwrites position 0 although it is still inside the window: a quirk of
 the reference that the port keeps.
 
+On a mesh whose ``model`` axis has more than one rank the layer splits its
+compute over it (``pshard.Split``): the SSM branch on the rank's d_in/|model|
+channels, the MLP on its d_ff/|model|, and the attention on its heads where
+|model| divides H (hymba-1.5b's 25 heads do not: there every rank computes
+every head). The two branches' partial outputs are summed over ``model`` in
+one collective, side by side, before ``fuse`` normalises them; both enter
+through one "f". On a serving mesh the rings are laid out by
+``serving.steps.cache_shardings``: by KV heads in heads mode (the ring
+attends the rank's heads, no collective), by slots in sequence mode (the
+rank holds ring slots ``[r·cap/m, (r+1)·cap/m)``, and ``decode_step``'s
+``ring_fn`` attends them by count with the flash-decode combine over
+``model``, ``comm.kvshard.SeqShardedDecode``).
+
 Two Selects can be switched on a built model: ``attn_impl`` (prefill
 attention, ``pallas`` = the Hopper flash-attention kernel) and ``ssm_impl``
 (each chunk's scan, ``pallas`` = the Hopper SSM-scan kernel, by default;
 ``jnp`` = its plain version).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -36,6 +51,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import COMPUTE, MLP, Norm, rope_cos_sin
+from repro_torch.models.pshard import Split
 from repro_torch.models.transformer import Attention, DenseLM
 
 
@@ -59,11 +75,13 @@ class HymbaLayer(nn.Module):
         self.ssm.init(gen)
         self.mlp.init(gen)
 
-    def fuse(self, x: torch.Tensor, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    def fuse(self, x: torch.Tensor, a: torch.Tensor, s: torch.Tensor,
+             split=None) -> torch.Tensor:
         """The residual stream after the layer, from its input ``x`` and the
-        two branches' outputs: their normalised mean, then the MLP."""
+        two branches' whole outputs: their normalised mean, then the MLP
+        (split by ``split``)."""
         x = x + 0.5 * (self.gn_attn(a) + self.gn_ssm(s))
-        return x + self.mlp(self.ln2(x))
+        return x + self.mlp(self.ln2(x), split)
 
 
 class HymbaLM(DenseLM):
@@ -90,21 +108,56 @@ class HymbaLM(DenseLM):
         ``remat_group``."""
         return 1
 
-    def _train_layer(self, layer: HymbaLayer, x: torch.Tensor, rope: tuple, *,
-                     window) -> torch.Tensor:
+    @staticmethod
+    def _inputs(xn: torch.Tensor, split: Optional[Split]) -> tuple:
+        """The attention's and the SSM branch's input: ``xn``, or under
+        ``split`` one "f" of it for the branches that split."""
+        heads, chans = split is not None and split.heads is not None, \
+            split is not None and split.d_in is not None
+        xin = split.enter(xn) if heads or chans else xn
+        return (xin if heads else xn), (xin if chans else xn)
+
+    @staticmethod
+    def _wo(layer: HymbaLayer, o: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+        """``wo`` of the attention's output (B, S, heads, hd): the float32
+        partial output of the rank's heads under ``split``, for
+        :meth:`_outputs` to sum."""
+        o = o.reshape(o.shape[0], o.shape[1], -1)
+        return layer.attn.wo(o) if split is None or split.heads is None else \
+            layer.attn.wo.partial(o)
+
+    @staticmethod
+    def _outputs(a: torch.Tensor, s: torch.Tensor, split: Optional[Split]) -> tuple:
+        """The branches' whole outputs: under ``split``, the partial ones
+        summed over ``model`` side by side in one collective."""
+        if split is None:
+            return a, s
+        heads, chans = split.heads is not None, split.d_in is not None
+        if not (heads or chans):
+            return a, s
+        if heads and chans:
+            return split.reduce(a, s)
+        return (split.reduce(a), s) if heads else (a, split.reduce(s))
+
+    def _train_layer(self, layer: HymbaLayer, x: torch.Tensor, rope: tuple,
+                     split: Optional[Split] = None, *, window) -> torch.Tensor:
         """The reference's ``hymba_layer``: both branches on the normed input,
         fused. The SSM branch trains through the plain scan (``jnp``), as the
         reference does: the scan kernel has no backward, so ``ssm_impl``
         (serving's Select) never reaches this path."""
         cfg = self.cfg
-        B, S, _ = x.shape
-        xn = layer.ln1(x)
-        q, k, v = layer.attn.qkv(xn, rope)
+        x_attn, x_ssm = self._inputs(layer.ln1(x), split)
+        q, k, v = layer.attn.qkv(x_attn, rope)
         o = attn.attention(q, k, v, impl=self.attn_impl, causal=True, window=window,
                            chunk=cfg.attn_chunk)
-        a = layer.attn.wo(o.reshape(B, S, -1))
-        s, _ = ssm.ssm_apply(layer.ssm, xn, cfg.ssm, impl="jnp")
-        return layer.fuse(x, a, s)
+        a = self._wo(layer, o, split)
+        s, _ = ssm.ssm_apply(layer.ssm, x_ssm, cfg.ssm, impl="jnp", split=self._chans(split))
+        return layer.fuse(x, *self._outputs(a, s, split), split)
+
+    @staticmethod
+    def _chans(split: Optional[Split]) -> Optional[Split]:
+        """``split`` where it splits the SSM's channels, else None."""
+        return split if split is not None and split.d_in is not None else None
 
     def _kv_capacity(self, idx: int, capacity: int) -> int:
         return capacity if self._is_global(idx) else min(self.cfg.sliding_window, capacity)
@@ -140,20 +193,22 @@ class HymbaLM(DenseLM):
         sliding-window layers) and the last position's logits
         ``(B, vocab_padded)``."""
         cfg = self.cfg
-        B, S = tokens.shape
+        S = tokens.shape[1]
         x = self.embed(tokens)
         rope = rope_cos_sin(torch.arange(S, device=x.device), cfg.head_dim_, cfg.rope_theta)
         layers = []
+        split = self.split
         for idx, layer in enumerate(self.layers):
             is_global = self._is_global(idx)
-            xn = layer.ln1(x)
-            q, k, v = layer.attn.qkv(xn, rope)
+            x_attn, x_ssm = self._inputs(layer.ln1(x), split)
+            q, k, v = layer.attn.qkv(x_attn, rope)
             o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                                window=None if is_global else cfg.sliding_window,
                                chunk=cfg.attn_chunk)
-            a = layer.attn.wo(o.reshape(B, S, -1))
-            s, st = ssm.ssm_apply(layer.ssm, xn, cfg.ssm, impl=self.ssm_impl)
-            x = layer.fuse(x, a, s)
+            a = self._wo(layer, o, split)
+            s, st = ssm.ssm_apply(layer.ssm, x_ssm, cfg.ssm, impl=self.ssm_impl,
+                                  split=self._chans(split))
+            x = layer.fuse(x, *self._outputs(a, s, split), split)
             kk, vv = k.to(COMPUTE), v.to(COMPUTE)
             cap = self._kv_capacity(idx, S)
             if not is_global and S > cap:
@@ -166,23 +221,26 @@ class HymbaLM(DenseLM):
         return {"layers": layers, "len": S}, self._logits(self.final_norm(x)[:, -1])
 
     @torch.no_grad()
-    def decode_step(self, cache: dict, tokens: torch.Tensor, attn_fn=None):
+    def decode_step(self, cache: dict, tokens: torch.Tensor, attn_fn=None, ring_fn=None):
         """One token per row, ``tokens`` ``(B, 1)``, against the cache: its K
         and V are written at position ``len`` of a global layer and at slot
         ``len % cap`` of a ring. A global layer attends through the slot
-        ``attn_fn`` (the model's ``decode_attn_fn`` where None). The K/V
-        tensors are updated in place (the reference returns new arrays); the
-        returned cache shares them."""
+        ``attn_fn`` (the model's ``decode_attn_fn`` where None), a ring
+        through ``ring_fn`` (the local attention where None; a ring split over
+        ``model`` passes its partition's slot), by count. The K/V tensors are
+        updated in place (the reference returns new arrays); the returned
+        cache shares them."""
         cfg = self.cfg
         slot = attn.decode_slot(attn_fn if attn_fn is not None else self.decode_attn_fn)
-        B = tokens.shape[0]
+        ring = attn.decode_slot(ring_fn)
+        split = self.split
         pos = int(cache["len"])
         x = self.embed(tokens)
         rope = rope_cos_sin(torch.arange(pos, pos + 1, device=x.device), cfg.head_dim_,
                             cfg.rope_theta)
         layers = []
         for idx, (layer, c) in enumerate(zip(self.layers, cache["layers"])):
-            kv = slot if self._is_global(idx) else attn.LOCAL_DECODE
+            kv = slot if self._is_global(idx) else ring
             cap = kv.capacity(c["k"])
             if self._is_global(idx):
                 if pos >= cap:
@@ -191,15 +249,15 @@ class HymbaLM(DenseLM):
                 write = pos
             else:
                 write = pos % cap  # ring buffer
-            xn = layer.ln1(x)
-            q, k, v = layer.attn.qkv(xn, rope)
+            x_attn, x_ssm = self._inputs(layer.ln1(x), split)
+            q, k, v = layer.attn.qkv(x_attn, rope)
             kv.write(c["k"], k, write)
             kv.write(c["v"], v, write)
             o = kv(q, c["k"], c["v"], min(pos + 1, cap), None)
-            a = layer.attn.wo(o.reshape(B, 1, -1))
-            s, st = ssm.ssm_decode(layer.ssm, xn, cfg.ssm,
+            a = self._wo(layer, o, split)
+            s, st = ssm.ssm_decode(layer.ssm, x_ssm, cfg.ssm,
                                    ssm.SSMState(h=c["ssm_h"], conv=c["ssm_conv"]),
-                                   impl=self.ssm_impl)
-            x = layer.fuse(x, a, s)
+                                   impl=self.ssm_impl, split=self._chans(split))
+            x = layer.fuse(x, *self._outputs(a, s, split), split)
             layers.append({"k": c["k"], "v": c["v"], "ssm_h": st.h, "ssm_conv": st.conv})
         return {"layers": layers, "len": pos + 1}, self._logits(self.final_norm(x)[:, -1])

@@ -82,6 +82,15 @@ class Linear(nn.Module):
         y = x.to(COMPUTE) @ self.w16
         return y if self.b16 is None else y + self.b16
 
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """A row product's partial output under a compute split over
+        ``model`` (``pshard.Split.reduce`` sums it): the products of the
+        bfloat16 operands accumulated in float32 and not rounded, so that
+        the sum over ``model`` rounds once, where one rank's product does.
+        The bias, if any, is the caller's to add once."""
+        w = self.w16 if self.w16 is not None else self.w.to(COMPUTE)
+        return x.to(COMPUTE).float() @ w.float()
+
 
 class Norm(nn.Module):
     """RMSNorm (``scale``) or LayerNorm (``scale`` and ``bias``), computed in
@@ -162,11 +171,20 @@ class MLP(nn.Module):
         self.up.init(gen)
         self.down.init(gen, scale=self.down.w.shape[0] ** -0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, split=None) -> torch.Tensor:
+        """``split`` (a ``pshard.Split`` whose ``d_ff`` is set): ``gate`` and
+        ``up`` are the rank's column blocks and ``down`` its row block, so the
+        GLU runs on d_ff/|model| channels; ``x`` enters through the split's
+        "f" and the partial outputs (``Linear.partial``) are summed by its
+        "g"."""
+        if split is not None and split.d_ff is None:
+            split = None
+        if split is not None:
+            x = split.enter(x)
         u = self.up(x)
-        if self.gate is not None:
-            return self.down(activation(self.gate(x), self.act) * u)
-        return self.down(activation(u, self.act))
+        h = activation(self.gate(x), self.act) * u if self.gate is not None else \
+            activation(u, self.act)
+        return self.down(h) if split is None else split.reduce(self.down.partial(h))
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -428,8 +428,8 @@ class MoeLM(DenseLM):
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         x, aux = self._train_stack(
             (x, zero), tokens.shape[1],
-            lambda layer, c, rope: self._train_moe_layer(layer, c, rope,
-                                                         batch_split=batch_split))
+            lambda layer, c, rope, _split: self._train_moe_layer(layer, c, rope,
+                                                                 batch_split=batch_split))
         return self.final_norm(x), aux
 
     def loss(self, batch: dict, *, loss_chunk=None, batch_split: int = 1) -> torch.Tensor:

@@ -21,7 +21,11 @@ leaf order (``repro_torch.tree``).
 a ``NamedSharding``: each sharded dim is cut into contiguous blocks, one per
 position along its axes; with a tuple of axes the first is the outermost.
 :class:`Layout` holds a model's parameters on a mesh by these specs and
-gathers them for the forward (``comm.collectives.gather_param``).
+gathers them for the forward (``comm.collectives.gather_param``); under the
+compute split over ``model`` (``models.pshard``) it gathers a leaf the split
+consumes over the batch axes only (:meth:`Layout.read`). The specs and
+blocks stay the reference's, so checkpoints and a restore onto another
+sharding do not change.
 """
 from __future__ import annotations
 
@@ -315,26 +319,50 @@ class Layout:
     def gather(self, name: str, shard: torch.Tensor) -> torch.Tensor:
         """The full tensor of ``name`` from this rank's block, differentiable
         (``collectives.gather_param`` over each axis it is split on)."""
-        from repro_torch.comm.collectives import gather_param
+        return self.read(name, shard)
 
+    def read(self, name: str, shard: torch.Tensor, read=None) -> torch.Tensor:
+        """What a forward reads of ``name`` from this rank's block,
+        differentiable. ``read`` (a ``pshard.Read``, the compute split's)
+        None: the full tensor, gathered over each axis it is split on.
+        ``"block"``: its ``model`` block, gathered over the other axes only.
+        ``"shared"``: the full tensor, of which the ranks of ``model`` each
+        use a part, so that its gradient is a sum over ``model``: gathered
+        with a reduce-scatter backward over ``model``, or, where the layout
+        does not split it there, entering through ``collectives.replicated``;
+        then ``read.take`` of it."""
+        from repro_torch.comm.collectives import gather_param, replicated
+
+        how = read.how if read is not None else "whole"
+        if how == "block" and "model" not in self.axes(name):
+            raise ValueError(f"{name}: a split read of its model block, but the layout "
+                             f"does not split it over model ({self.shardings[name].spec})")
         for dim, axis in self._gather_order[name]:
-            shard = gather_param(shard, self.mesh, axis, dim)
-        return shard
+            if axis == "model" and how == "block":
+                continue
+            shard = gather_param(shard, self.mesh, axis, dim,
+                                 downstream="partial" if how == "shared" else None)
+        if how == "shared" and "model" not in self.axes(name):
+            shard = replicated(shard, self.mesh, "model")
+        return read.take(shard) if read is not None and read.take is not None else shard
 
     @contextmanager
-    def gathered(self, module: torch.nn.Module, prefix: str = ""):
+    def gathered(self, module: torch.nn.Module, prefix: str = "", reads=None):
         """Within the block, each split parameter of ``module`` (named
         ``prefix`` + its name in ``module``) reads as its full tensor, gathered
-        now; the blocks are put back after."""
+        now; the blocks are put back after. ``reads``: the compute split's
+        reads (``pshard.Split.reads``) by name in ``module``, for the
+        parameters it reads otherwise (:meth:`read`)."""
         swaps = []
         try:
             for mod_name, mod in module.named_modules():
                 for pname, p in list(mod._parameters.items()):
-                    name = f"{prefix}{mod_name + '.' if mod_name else ''}{pname}"
-                    if p is None or not self.splits.get(name):
+                    local = f"{mod_name + '.' if mod_name else ''}{pname}"
+                    rd = reads.get(local) if reads else None
+                    if p is None or (not self.splits.get(prefix + local) and rd is None):
                         continue
                     swaps.append((mod, pname, p))
-                    mod._parameters[pname] = self.gather(name, p)
+                    mod._parameters[pname] = self.read(prefix + local, p, rd)
             yield
         finally:
             for mod, pname, p in swaps:

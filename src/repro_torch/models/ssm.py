@@ -20,6 +20,16 @@ and the contraction with C are float32. ``SSMState.conv`` starts as float32
 Parameter names follow the reference's tree (``in_proj.w``, ``conv_w``,
 ``conv_b``, ``x_proj.w``, ``dt_proj.w``, ``dt_bias``, ``A_log``, ``D``,
 ``out_proj.w``) so that ``convert.params_from_reference`` fills them by name.
+
+Split over ``model`` (``pshard.shard_model_dim``, the reference's
+``shard_model_dim`` of ``xs``, ``z``, ``a`` and ``bx``): a rank's module
+holds its working tensors of its d_in/|model| channels (``in_proj``'s
+columns of x and of z, ``conv_w``, ``conv_b``, ``x_proj``'s input rows,
+``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and ``out_proj``'s input rows);
+``ssm_apply(..., split=)`` sums ``x_proj``'s partial output over ``model``
+(and, as every rank's channels read the sum, its cotangent too) and returns ``out_proj``'s partial output for the caller to sum. The scan,
+and B4 under ``pallas``, run on (B, chunk, d_in/|model|, N), and the state
+carries (B, d_in/|model|, N) and (B, K-1, d_in/|model|).
 """
 from __future__ import annotations
 
@@ -81,8 +91,10 @@ class SSMState(NamedTuple):
 
 
 def init_state(batch: int, d_model: int, s: SSMConfig, dtype=torch.float32,
-               device=None) -> SSMState:
-    d_in = s.expand * d_model
+               device=None, channels: Optional[int] = None) -> SSMState:
+    """The zero state of ``channels`` channels (d_in by default; a rank's
+    d_in/|model| under a split)."""
+    d_in = channels if channels is not None else s.expand * d_model
     return SSMState(h=torch.zeros((batch, d_in, s.state_dim), dtype=dtype, device=device),
                     conv=torch.zeros((batch, s.conv_dim - 1, d_in), dtype=dtype, device=device))
 
@@ -102,21 +114,30 @@ def _causal_conv(x, w, b, tail):
 
 
 def ssm_apply(p: SSM, x: torch.Tensor, s: SSMConfig, state: Optional[SSMState] = None, *,
-              chunk: int = 256, impl: str = "pallas"):
+              chunk: int = 256, impl: str = "pallas", split=None):
     """x (B, S, D) bfloat16 -> (y (B, S, D), new state). The sequence is
     padded to whole chunks with a = 1 and bx = 0, so the carried state is
-    the one at the last real token."""
+    the one at the last real token. ``split`` (a ``pshard.Split`` of the
+    channels; ``p`` holds the rank's working tensors): ``x_proj``'s partial
+    output is summed over ``model`` and ``y`` is this rank's float32 partial
+    output of ``out_proj`` (``Linear.partial``), for the caller to sum."""
     if impl not in SCANS:
         raise ValueError(f"unknown SSM scan impl {impl!r}; known: {sorted(SCANS)}")
     scan = SCANS[impl]
     B, S, D = x.shape
     N = s.state_dim
-    state = state if state is not None else init_state(B, D, s, device=x.device)
+    if state is None:
+        state = init_state(B, D, s, device=x.device, channels=p.A_log.shape[0])
 
-    xs, z = p.in_proj(x).chunk(2, dim=-1)  # (B, S, d_in) each
+    xs, z = p.in_proj(x).chunk(2, dim=-1)  # (B, S, d_in) each: the rank's channels
     xs, conv_tail = _causal_conv(xs, p.conv_w, p.conv_b, state.conv)
     xs = F.silu(xs)
-    dt_in, Bmat, Cmat = p.x_proj(xs).split([dt_rank(D, s), N, N], dim=-1)
+    if split is None:
+        proj = p.x_proj(xs)
+    else:  # summed over model, then read by the rank's channels: its
+        # cotangent is summed too (the "g", then an "f")
+        proj = split.enter(split.reduce(p.x_proj.partial(xs)))
+    dt_in, Bmat, Cmat = proj.split([dt_rank(D, s), N, N], dim=-1)
     dt = F.softplus(p.dt_proj(dt_in).float() + p.dt_bias)  # (B, S, d_in)
     A = -torch.exp(p.A_log)  # (d_in, N)
     a = (dt[..., None] * A).exp_()  # (B, S, d_in, N)
@@ -138,10 +159,11 @@ def ssm_apply(p: SSM, x: torch.Tensor, s: SSMConfig, state: Optional[SSMState] =
         ys.append(torch.einsum("bcdn,bcn->bcd", h_seq, Cf[:, start:start + chunk]))
     y = torch.cat(ys, dim=1)[:, :S] + p.D * xs.float()
     y = y.to(x.dtype) * F.silu(z)
-    return p.out_proj(y), SSMState(h=h, conv=conv_tail)
+    out = p.out_proj(y) if split is None else p.out_proj.partial(y)
+    return out, SSMState(h=h, conv=conv_tail)
 
 
 def ssm_decode(p: SSM, x: torch.Tensor, s: SSMConfig, state: SSMState, *,
-               impl: str = "pallas"):
+               impl: str = "pallas", split=None):
     """Single-token recurrence. x: (B, 1, D)."""
-    return ssm_apply(p, x, s, state, chunk=1, impl=impl)
+    return ssm_apply(p, x, s, state, chunk=1, impl=impl, split=split)

@@ -9,7 +9,17 @@ outputs of the layer's 2-D products and recomputes the rest, and
 ``remat_group=g`` checkpoints each run of g layers as one unit, with the
 reference's semantics (``remat``, ``apply_stack``). It is also the seam of a
 sharded model (``sharding.Layout``): each layer's parameters are gathered
-from their shards just for that layer's body.
+from their shards just for that layer's body (under the compute split over
+``model``, ``pshard.Split``, the ones it splits keep their ``model`` block:
+the model's ``gathered`` passes the split's reads through).
+
+Hazard: a body recomputed under ``torch.utils.checkpoint`` issues
+collectives (the parameters' gathers; under the split, the row products'
+sums). Every rank runs the same body on the same schedule, so the
+recomputation issues the same collectives in the same order on every rank.
+It stops at the body's last saved activation, so a collective after it (a
+split layer's final sum, ``down``'s) is not issued again;
+``analysis.roofline`` counts what runs, held to ``collectives.SENT``.
 
 ``stack_layers``/``unstack_layers`` move between the port's per-layer
 parameters, named ``<stack>.{i}.<leaf>``, and the reference's tree, where each

@@ -9,8 +9,15 @@ positions), on a model whose serving copies are released
 graph; each layer, or each run of ``cfg.remat_group`` layers, is recomputed
 in backward under ``cfg.remat`` (``stacking.remat``).
 A model sharded over a mesh (:meth:`DenseLM.shard`) holds only its rank's
-block of each parameter and gathers the full tensors for the training
-forward (``sharding.Layout``); its code paths are the full-shape ones.
+block of each parameter and gathers what the training forward reads
+(``sharding.Layout``). On a mesh whose ``model`` axis has more than one rank
+the dense and vlm families split their compute over it (``pshard.Split``):
+a rank computes its query heads and the KV heads they read (where |model|
+divides H), and its d_ff/|model| channels of the MLP; the row products'
+partial outputs (``wo``, ``down``) are summed over ``model``. The split's
+parameters keep their ``model`` block and are gathered over the batch axes
+only. Serving sets the split on the model (``split``, by
+``serving.steps.lay_out``; its attention is whole in sequence mode).
 Serving: ``DenseLM.prefill(tokens, patches=None) -> (cache, logits_last)``
 and ``DenseLM.decode_step(cache, tokens) -> (cache, logits)``, with the
 reference's KV cache ``{"k", "v"}: (L, B, S, KH, hd)`` bfloat16 plus ``"len"``
@@ -56,6 +63,7 @@ from repro_torch.models.layers import (
     rope_cos_sin,
     rotate,
 )
+from repro_torch.models.pshard import Split, model_split
 from repro_torch.models.sharding import Layout
 from repro_torch.models.stacking import apply_stack
 
@@ -78,10 +86,11 @@ class Attention(nn.Module):
         """q, k, v of ``x`` (B, S, D), q and k rotated by ``rope`` (the
         ``rope_cos_sin`` of their positions)."""
         B, S, _ = x.shape
-        cfg, hd = self.cfg, self.cfg.head_dim_
-        q = self.wq(x).reshape(B, S, cfg.num_heads, hd)
-        k = self.wk(x).reshape(B, S, cfg.num_kv_heads, hd)
-        v = self.wv(x).reshape(B, S, cfg.num_kv_heads, hd)
+        hd = self.cfg.head_dim_
+        # every head, or this rank's under a compute split (its weights' blocks)
+        q = self.wq(x).reshape(B, S, -1, hd)
+        k = self.wk(x).reshape(B, S, -1, hd)
+        v = self.wv(x).reshape(B, S, -1, hd)
         return rotate(q, *rope), rotate(k, *rope), v
 
 
@@ -112,6 +121,9 @@ class DenseLM(nn.Module):
     #: the rank's mesh, and the decode slot (``registry.build`` sets both)
     mesh = None
     decode_attn_fn = None
+    #: the serving forward's compute split over ``model`` (``pshard.Split``;
+    #: ``serving.steps.lay_out`` sets it), None for the whole compute
+    split = None
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -197,30 +209,53 @@ class DenseLM(nn.Module):
         stack takes none overrides this)."""
         return self.cfg.remat_group if self.cfg.scan_layers else 1
 
-    def _attn_residual(self, layer: nn.Module, x: torch.Tensor, rope: tuple) -> torch.Tensor:
-        """The training layer's residual stream after its attention block."""
+    def _attn_residual(self, layer: nn.Module, x: torch.Tensor, rope: tuple,
+                       split: Optional[Split] = None) -> torch.Tensor:
+        """The training layer's residual stream after its attention block
+        (on the rank's heads under ``split``)."""
         cfg = self.cfg
-        B, S, _ = x.shape
-        q, k, v = layer.attn.qkv(layer.ln1(x), rope)
+        h = layer.ln1(x)
+        if split is not None and split.heads is not None:
+            h = split.enter(h)
+        q, k, v = layer.attn.qkv(h, rope)
         o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                            window=cfg.sliding_window, chunk=cfg.attn_chunk)
-        return x + layer.attn.wo(o.reshape(B, S, -1))
+        return x + self._attn_out(layer, o, split)
 
-    def _train_layer(self, layer: DecoderLayer, x: torch.Tensor, rope: tuple) -> torch.Tensor:
-        h = self._attn_residual(layer, x, rope)
-        return h + layer.mlp(layer.ln2(h))
+    @staticmethod
+    def _attn_out(layer: nn.Module, o: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+        """``wo`` of the attention's output (B, S, heads, hd): a row product
+        summed over ``model`` when ``o`` holds the rank's heads."""
+        B, S = o.shape[:2]
+        if split is None or split.heads is None:
+            return layer.attn.wo(o.reshape(B, S, -1))
+        return split.reduce(layer.attn.wo.partial(o.reshape(B, S, -1)))
+
+    def _train_layer(self, layer: DecoderLayer, x: torch.Tensor, rope: tuple,
+                     split: Optional[Split] = None) -> torch.Tensor:
+        h = self._attn_residual(layer, x, rope, split)
+        return h + layer.mlp(layer.ln2(h), split)
+
+    def _train_split(self) -> Optional[Split]:
+        """The training forward's compute split: the family's, on the mesh of
+        the model's layout."""
+        return None if self.layout is None else model_split(self.cfg, self.layout.mesh)
 
     def _train_stack(self, carry, S: int, body):
         """``carry`` (the residual stream, or a tuple that starts with it)
-        through every layer by ``body(layer, carry, rope, **static)``, as the
-        reference's ``apply_stack``: each layer's parameters gathered for its
-        body on a sharded model, checkpointed under ``cfg.remat``."""
+        through every layer by ``body(layer, carry, rope, split, **static)``,
+        as the reference's ``apply_stack``: each layer's parameters gathered
+        for its body on a sharded model (under the compute split ``split``,
+        those it splits keep their ``model`` block), checkpointed under
+        ``cfg.remat``."""
         cfg = self.cfg
         rope = rope_cos_sin(torch.arange(S, device=self.device), cfg.head_dim_, cfg.rope_theta)
-        gathered = (None if self.layout is None
-                    else lambda i: self._gathered(self.layers[i], f"layers.{i}."))
+        split = self._train_split()
+        reads = split.reads() if split is not None else None
+        gathered = (None if self.layout is None else
+                    lambda i: self.layout.gathered(self.layers[i], f"layers.{i}.", reads))
         return apply_stack(self.layers, carry,
-                           lambda layer, c, **kw: body(layer, c, rope, **kw),
+                           lambda layer, c, **kw: body(layer, c, rope, split, **kw),
                            remat_policy=cfg.remat, remat_group=self._remat_group(),
                            static=self._layer_static, gathered=gathered)
 
@@ -308,9 +343,9 @@ class DenseLM(nn.Module):
                 "len": 0}
 
     def _ffn(self, layer: nn.Module, h: torch.Tensor, batch_split: int = 1) -> torch.Tensor:
-        """The serving layer's feed-forward branch on the residual ``h``; a
-        row-local one ignores ``batch_split``."""
-        return layer.mlp(layer.ln2(h))
+        """The serving layer's feed-forward branch on the residual ``h``
+        (split by ``split``); a row-local one ignores ``batch_split``."""
+        return layer.mlp(layer.ln2(h), self.split)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None, *,
@@ -323,7 +358,7 @@ class DenseLM(nn.Module):
         sharded serve step's): the moe family's dispatch routes the global
         batch, the other layers are row-local."""
         cfg = self.cfg
-        B, S = tokens.shape
+        S = tokens.shape[1]
         x = self._embed_inputs(tokens, patches)
         rope = rope_cos_sin(torch.arange(S, device=x.device), cfg.head_dim_, cfg.rope_theta)
         ks, vs = [], []
@@ -331,7 +366,7 @@ class DenseLM(nn.Module):
             q, k, v = layer.attn.qkv(layer.ln1(x), rope)
             o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                                window=cfg.sliding_window, chunk=cfg.attn_chunk)
-            x = x + layer.attn.wo(o.reshape(B, S, -1))
+            x = x + self._attn_out(layer, o, self.split)
             x = x + self._ffn(layer, x, batch_split)
             ks.append(k.to(COMPUTE))
             vs.append(v.to(COMPUTE))
@@ -354,7 +389,6 @@ class DenseLM(nn.Module):
         them. ``batch_split`` as for :meth:`prefill`."""
         cfg = self.cfg
         slot = attn.decode_slot(attn_fn if attn_fn is not None else self.decode_attn_fn)
-        B = tokens.shape[0]
         pos = int(cache["len"])
         cap = slot.capacity(cache["k"][0])
         if pos >= cap:
@@ -368,7 +402,7 @@ class DenseLM(nn.Module):
             slot.write(cache["k"][i], k, pos)
             slot.write(cache["v"][i], v, pos)
             o = slot(q, cache["k"][i], cache["v"][i], pos + 1, cfg.sliding_window)
-            x = x + layer.attn.wo(o.reshape(B, 1, -1))
+            x = x + self._attn_out(layer, o, self.split)
             x = x + self._ffn(layer, x, batch_split)
         x = self.final_norm(x)
         return {"k": cache["k"], "v": cache["v"], "len": pos + 1}, self._logits(x[:, -1])

@@ -7,37 +7,49 @@ process of its own and the split is explicit:
 
 - Parameters are laid out by ``registry.param_specs`` (``lay_out``): the
   model keeps this rank's ``Layout`` block of every parameter. The forward
-  reads working copies made once from the blocks, gathered over the mesh:
-  the bfloat16 serving copies of the matrices (``prepare``) and a float32
-  copy of each split leaf the forward reads in float32 (the SSM's conv and
-  ``A_log``, xLSTM's gates, the MoE router). The MoE mesh dispatches run
-  the rank's experts, slices of the whole serving banks that decode's
-  ``grouped`` reads (``models.moe``).
-- Batch rows go by ``data_spec``: each rank runs the whole forward on its
-  rows of the global batch (all of them where the batch does not divide
-  the batch axes); the ranks along ``model`` share their rows. Prefill runs
-  the model's prefill on the rows (its attention through the model's
-  ``attn_impl``, the flash kernel on the card), then cuts the cache to this
-  rank's slices.
+  reads working copies made once from the blocks: the bfloat16 serving
+  copies of the matrices (``prepare``) and a float32 copy of each leaf the
+  forward reads in float32 (the SSM's conv and ``A_log``, xLSTM's gates,
+  the MoE router). The dense, vlm and hybrid families split their compute
+  over ``model`` (``models.pshard``, for the steps' KV mode): the working
+  copy of a leaf the split consumes is the rank's part of it (its ``model``
+  block gathered over the batch axes only; ``in_proj``'s channels of x and
+  z and ``x_proj``'s input rows cut from the gathered whole), so a rank
+  holds about 1/|model| of those layers' weights. Every other leaf's copy is
+  gathered whole. The MoE mesh dispatches run the rank's experts, slices of
+  the whole serving banks that decode's ``grouped`` reads (``models.moe``).
+- Batch rows go by ``data_spec``: each rank runs the forward on its rows of
+  the global batch (all of them where the batch does not divide the batch
+  axes); the ranks along ``model`` share their rows, and under the split
+  each computes its heads and channels and sums the row products over
+  ``model``. Prefill runs the model's prefill on the rows (its attention
+  through the model's ``attn_impl``, the flash kernel on the card, on the
+  rank's heads under the split), then cuts the cache to this rank's slices
+  (a split model's K/V heads and SSM channels are its slices already).
 - Caches are laid out by :func:`cache_shardings` (the reference's rules,
   leaf for leaf), at the capacity of a decode ``ShapeConfig`` (the
   reference's ``Model.cache_specs(shape)``); between steps every cache leaf
   is its spec's local slice.
 - Decode goes through the negotiated KV-partition chunnel
   (``comm.kvshard.pick_kv_chunnel``), passed to the model's decode slot at
-  every step (the model keeps no step's state but its mesh). Heads
-  mode: a rank holds KV heads ``[r·KH/m, (r+1)·KH/m)``, writes those heads
-  of the new K/V, attends the query heads they serve and all-gathers the
-  output over ``model``. Sequence mode: the rank that owns position ``pos``
-  writes it, and attention is the flash-decode combine over ``model``; the
-  cache's capacity must divide by ``|model|`` (the reference's
-  ``cache_spec_for`` replicates the sequence otherwise, and its
-  ``shard_map`` could not run), and :class:`ServeSteps` raises otherwise.
-- Leaves whose spec splits what the port does not compute split — the
-  SSM's channels (``ssm_h``, ``ssm_conv``), the hybrid's ring K/V, xLSTM's
-  state, the encoder-decoder's cross caches — are gathered over ``model``
-  for the step and cut to the slice after, as ``Layout.gathered`` does for
-  parameters. Only the K/V caches behind the slot are computed split.
+  every step (the model keeps no step's state but its mesh and split).
+  Heads mode: a rank holds KV heads ``[r·KH/m, (r+1)·KH/m)``; a split model
+  computes those heads of the new K/V and the query heads they serve, and
+  its ``wo`` sums the output over ``model``; a family that computes every
+  head (moe, audio) attends the rank's heads and all-gathers the output.
+  Sequence mode: the rank that owns position ``pos`` writes it, and
+  attention is the flash-decode combine over ``model`` (a split model's
+  attention block is whole there, ``comm.kvshard``'s hazard); the cache's
+  capacity must divide by ``|model|`` (the reference's ``cache_spec_for``
+  replicates the sequence otherwise, and its ``shard_map`` could not run),
+  and :class:`ServeSteps` raises otherwise. The hybrid's rings are attended
+  by the same partition (``HymbaLM.decode_step``'s ``ring_fn``): by heads,
+  or by slots with the combine.
+- A split model's cache leaves stay its slices between steps: its K/V, and
+  the SSM state of its channels (``ssm_h``, ``ssm_conv``). The leaves of a
+  family that computes whole over ``model`` and whose spec splits them —
+  xLSTM's state, the encoder-decoder's cross caches — are gathered over
+  ``model`` for the step and cut to the slice after (``gather_cache``).
 
 ``serve_rank`` and ``serve_sharded`` serve one arch on a spawned mesh
 (``launch.mesh.spawn``): the serve launcher's ``--world``. Entry points take
@@ -58,6 +70,7 @@ from repro_torch.comm.kvshard import pick_kv_chunnel
 from repro_torch.configs.base import ModelConfig, ShapeConfig, ShardingConfig
 from repro_torch.launch.mesh import BATCH_AXES
 from repro_torch.models import registry
+from repro_torch.models.pshard import Split, model_split
 from repro_torch.models.sharding import (
     P,
     Layout,
@@ -68,8 +81,9 @@ from repro_torch.models.sharding import (
     per_layer,
 )
 
-#: the cache leaves of K/V behind the decode slot, by name
+#: the cache leaves of K/V behind the decode slot, and of the SSM state, by name
 KV_LEAVES = ("k", "v")
+SSM_LEAVES = ("ssm_h", "ssm_conv")
 
 
 def cache_shardings(cache: Any, cfg: ModelConfig, mesh, sh: ShardingConfig):
@@ -111,48 +125,68 @@ def cache_shardings(cache: Any, cfg: ModelConfig, mesh, sh: ShardingConfig):
 # ---------------------------------------------------------------------------
 
 
-def _full(layout: Layout, name: str, block: torch.Tensor) -> torch.Tensor:
-    return layout.shardings[name].full(block, op="gather_param")
-
-
 def _layout(model, mesh, sh: ShardingConfig) -> Layout:
     specs = per_layer(registry.param_specs(model, sh, mesh), model.stacks())
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     return Layout(mesh, specs, shapes)
 
 
-def lay_out(model, mesh, sh: ShardingConfig) -> Layout:
+def serve_split(cfg: ModelConfig, mesh, sh: ShardingConfig) -> Optional[Split]:
+    """The compute split of a model of ``cfg`` served on ``mesh`` in the KV
+    mode that ``sh`` gives (sequence mode keeps the attention whole)."""
+    mode = kv_partition_mode(cfg, mesh, sh) if cfg.family != "ssm" else None
+    return model_split(cfg, mesh, mode)
+
+
+def _same_split(a: Optional[Split], b: Optional[Split]) -> bool:
+    key = lambda s: None if s is None else (s.heads, s.d_ff, s.d_in)  # noqa: E731
+    return key(a) == key(b)
+
+
+@torch.no_grad()
+def lay_out(model, mesh, sh: ShardingConfig, split: Optional[Split] = None) -> Layout:
     """Keep this rank's block of every parameter of ``model`` by the
     reference's ``param_specs`` (unless it holds its blocks already:
     ``build_sharded``), and make the forward's working copies from the
     blocks: bfloat16 serving copies gathered in bfloat16, and a float32
     copy of each split parameter the forward reads in float32 (every split
     parameter of a module with no serving copies, and a ``Linear`` with
-    ``reads_f32``), which takes the block's place in the module. The blocks
-    stay in ``model.blocks``. Returns the layout."""
+    ``reads_f32``), which takes the block's place in the module. A leaf the
+    compute ``split`` consumes is read as the split reads it
+    (``Layout.read``): the rank's part, not the whole. The blocks stay in
+    ``model.blocks``; a model laid out before is laid out again from them.
+    Sets ``model.split``. Returns the layout."""
     if model.layout is None:
         model.release()
         model.shard(_layout(model, mesh, sh))
     layout = model.layout
+    if getattr(model, "blocks", None) is not None:  # back to the blocks
+        for name, block in model.blocks.items():
+            mod_name, _, pn = name.rpartition(".")
+            model.get_submodule(mod_name)._parameters[pn] = block
     model.blocks = dict(model.named_parameters())
+    read_of = split.read_of if split is not None else (lambda name: None)
     for mod_name, mod in model.named_modules():
         if mod is model:
             continue
         prefix = f"{mod_name}." if mod_name else ""
-        split = [pn for pn, p in mod._parameters.items()
-                 if p is not None and layout.splits.get(prefix + pn)]
+        reads = {pn: read_of(prefix + pn) for pn in mod._parameters}
+        names = [pn for pn, p in mod._parameters.items()
+                 if p is not None and (layout.splits.get(prefix + pn) or reads[pn])]
         if hasattr(mod, "prepare"):
             blocks = dict(mod._parameters)
-            for pn in split:
-                mod._parameters[pn] = _full(layout, prefix + pn,
-                                            blocks[pn].detach().to(torch.bfloat16))
+            for pn in names:
+                mod._parameters[pn] = layout.read(prefix + pn,
+                                                  blocks[pn].detach().to(torch.bfloat16),
+                                                  reads[pn])
             mod.prepare()
             mod._parameters.update(blocks)
             if not getattr(mod, "reads_f32", False):
                 continue
-        for pn in split:
-            full = _full(layout, prefix + pn, mod._parameters[pn].detach())
-            mod._parameters[pn] = torch.nn.Parameter(full, requires_grad=False)
+        for pn in names:
+            work = layout.read(prefix + pn, mod._parameters[pn].detach(), reads[pn])
+            mod._parameters[pn] = torch.nn.Parameter(work.contiguous(), requires_grad=False)
+    model.split = split
     return layout
 
 
@@ -246,22 +280,37 @@ class ServeSteps:
         n_rows = math.prod(mesh.shape[a] for a in batch_axes(mesh))
         self.dealt = shape.global_batch % n_rows == 0
         self.rows_per_rank = shape.global_batch // n_rows if self.dealt else shape.global_batch
-        if getattr(model, "blocks", None) is None:  # laid out once, by the first steps
-            lay_out(model, mesh, sh)
+        self.split = serve_split(cfg, mesh, sh)
+        if getattr(model, "blocks", None) is None or not _same_split(model.split, self.split):
+            lay_out(model, mesh, sh, self.split)  # once for each split the steps take
         model.mesh = mesh
-        # what the model's forward is given at each call: the decode slot,
-        # and for the moe family (whose dispatch crosses rows) the blocks
-        # the global batch's rows are dealt into
-        self._decode_kw = {"attn_fn": self.kv.attn_fn(mesh)} if has_kv else {}
-        self._rows_kw = ({"batch_split": n_rows if self.dealt else 1}
-                         if cfg.family == "moe" else {})
-        self._like = registry.cache_shapes(cfg, ShapeConfig(shape.name, shape.seq_len,
-                                                            self.rows_per_rank, "decode"))
+        heads = self.split is not None and self.split.heads is not None
         global_shapes = registry.cache_shapes(cfg, shape)
         self.cache_sh = T.map(lambda s: NamedSharding(mesh, s),
                               cache_shardings(global_shapes, cfg, mesh, sh))
-        self._kv_paths = {path for path, _ in T.flatten_with_paths(global_shapes)
-                          if has_kv and path[-1] in KV_LEAVES and self._behind_slot(path)}
+        paths = [path for path, leaf in T.flatten_with_paths(global_shapes) if torch.is_tensor(leaf)]
+        # the leaves the split model computes as its slices (its heads of K/V,
+        # its channels of the SSM state), and those that stay its slices
+        # between steps: a split model's every leaf, else the K/V behind the slot
+        self._computed = {p for p in paths if self.split is not None and (
+            (p[-1] in KV_LEAVES and heads) or (p[-1] in SSM_LEAVES and self.split.d_in))}
+        self._kept = {p for p in paths if has_kv and (
+            self.split is not None or (p[-1] in KV_LEAVES and self._behind_slot(p)))}
+        # what the model's forward is given at each call: the decode slots,
+        # and for the moe family (whose dispatch crosses rows) the blocks
+        # the global batch's rows are dealt into
+        self._decode_kw = {}
+        if has_kv:
+            slot = self.kv.attn_fn(mesh, local_heads=True) if heads else self.kv.attn_fn(mesh)
+            self._decode_kw["attn_fn"] = slot
+            if cfg.family == "hybrid" and self.split is not None:
+                self._decode_kw["ring_fn"] = slot if self._rings_split() else None
+        self._rows_kw = ({"batch_split": n_rows if self.dealt else 1}
+                         if cfg.family == "moe" else {})
+        like = registry.cache_shapes(cfg, ShapeConfig(shape.name, shape.seq_len,
+                                                      self.rows_per_rank, "decode"))
+        self._like = self._map(lambda path, x, s: _own(x, s) if path in self._computed else x,
+                               like)
 
     def _behind_slot(self, path) -> bool:
         """Whether the K/V leaf at ``path`` is attended through the slot: every
@@ -269,6 +318,14 @@ class ServeSteps:
         if self.model.cfg.family == "hybrid":
             return int(path[1]) in self.model.cfg.global_layers
         return True
+
+    def _rings_split(self) -> bool:
+        """Whether the hybrid's rings are split over ``model`` (by heads, or
+        by slots in sequence mode), and so attended through the slot."""
+        for path, s in T.flatten_with_paths(self.cache_sh):
+            if path[-1] == "k" and not self._behind_slot(path):
+                return any(a == "model" for _, a in s.splits(4))
+        return False
 
     def rows(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global batch tensor (``data_spec``)."""
@@ -294,17 +351,19 @@ class ServeSteps:
         extra = {k: self.rows(v) for k, v in batch.items() if k not in ("tokens", "labels")}
         cache, logits = self.model.prefill(self.rows(tokens), **extra, **self._rows_kw)
         cache = fit_cache(cache, self._like)
-        return self._map(lambda path, x, s: _own(x, s), cache), logits
+        return self._map(lambda path, x, s: x if path in self._computed else _own(x, s),
+                         cache), logits
 
     @torch.no_grad()
     def decode(self, cache, tokens: torch.Tensor):
         """One token per row of this rank, ``tokens`` ``(B_rank, 1)``,
         against this rank's cache -> (its new cache, its rows' logits). The
-        K/V behind the slot are written in place; every other leaf is
-        gathered over ``model`` for the step and cut to its slice after."""
-        step = self._map(lambda path, x, s: x if path in self._kv_paths else _lift(x, s), cache)
+        K/V behind the slots are written in place; a split model's leaves
+        stay its slices; every other leaf is gathered over ``model`` for the
+        step and cut to its slice after."""
+        step = self._map(lambda path, x, s: x if path in self._kept else _lift(x, s), cache)
         new, logits = self.model.decode_step(step, tokens, **self._decode_kw, **self._rows_kw)
-        return self._map(lambda path, x, s: x if path in self._kv_paths else _own(x, s),
+        return self._map(lambda path, x, s: x if path in self._kept else _own(x, s),
                          new), logits
 
 
@@ -327,6 +386,15 @@ def mesh_axes(world: int, data: int, model: int) -> tuple:
     return (world // (data * model), data, model), ("pod", "data", "model")
 
 
+def working_bytes(model) -> int:
+    """The bytes of a laid-out model's working copies: its buffers and the
+    parameters that are not its blocks."""
+    blocks = {id(p) for p in model.blocks.values()}
+    return (sum(b.numel() * b.element_size() for b in model.buffers())
+            + sum(p.numel() * p.element_size() for p in model.parameters()
+                  if id(p) not in blocks))
+
+
 def _sent_since(before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in collectives.SENT.items() if v - before.get(k, 0)}
 
@@ -342,9 +410,11 @@ def serve_rank(spec: dict, observe=None) -> dict:
     ``observe(run, phase)``, where given, is called before each run's
     prefill (``"start"``) and after each of its phases (``"prefill"``,
     ``"check"``, ``"decode"``), outside the timed spans. Returns the
-    layout's time and bytes, and by run its tokens, logits, times, peak
-    memory and the bytes it sent by ``op@axis`` (``sent_prefill``, and
-    ``sent_decode`` for the check step and the greedy steps)."""
+    layout's time and bytes, and by run its compute split, working copies'
+    bytes (laid out again where the run's KV mode splits otherwise), tokens,
+    logits, times, peak memory and the bytes it sent by ``op@axis``
+    (``sent_prefill``, and ``sent_decode`` for the check step and the
+    greedy steps)."""
     from repro_torch.comm.moe_dispatch import configure
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.mesh import make_mesh, rank_device
@@ -365,20 +435,17 @@ def serve_rank(spec: dict, observe=None) -> dict:
 
     sent0 = dict(collectives.SENT)
     t0 = time.perf_counter()
+    runs = spec.get("runs") or [(spec["kv_partition"], spec.get("moe_dispatch"))]
     model = build_sharded(cfg, mesh, ShardingConfig(), seed=SEED)
-    lay_out(model, mesh, ShardingConfig())
+    lay_out(model, mesh, ShardingConfig(),
+            serve_split(cfg, mesh, ShardingConfig(kv_partition=runs[0][0])))
     sync()
-    block_ids = {id(p) for p in model.blocks.values()}
     out = {"rank": mesh.rank, "coords": dict(mesh.coords), "arch": cfg.name,
            "layout_s": time.perf_counter() - t0, "layout_sent": _sent_since(sent0),
            "block_bytes": sum(p.numel() * p.element_size() for p in model.blocks.values()),
-           "working_bytes": (sum(b.numel() * b.element_size() for b in model.buffers())
-                             + sum(p.numel() * p.element_size() for p in model.parameters()
-                                   if id(p) not in block_ids)),
-           "runs": []}
+           "working_bytes": working_bytes(model), "runs": []}
     tokens, extra = serve_batch(cfg, B, S, dev)
     check = spec.get("check_tokens")
-    runs = spec.get("runs") or [(spec["kv_partition"], spec.get("moe_dispatch"))]
     for i, (kv, dispatch) in enumerate(runs):
         model.cfg = configure(cfg, dispatch) if dispatch and cfg.moe is not None else cfg
         steps = ServeSteps(model, mesh, ShardingConfig(kv_partition=kv), shape)
@@ -387,7 +454,8 @@ def serve_rank(spec: dict, observe=None) -> dict:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         rec = {"kv_partition": kv, "moe_dispatch": dispatch, "mode": steps.mode,
-               "kv": steps.kv.name if steps.kv is not None else None}
+               "kv": steps.kv.name if steps.kv is not None else None,
+               "split": repr(steps.split), "working_bytes": working_bytes(model)}
         observe(i, "start")
         s0 = dict(collectives.SENT)
         t0 = time.perf_counter()

@@ -17,7 +17,11 @@ block of every parameter, moment and chunnel-state leaf that the reference's
 ``pod``), error-feedback residuals by the parameters' specs. The model
 gathers each layer's parameters for its forward (``sharding.Layout``); the
 backward leaves each rank its block of the gradient, summed over ``data``
-where the parameter is split on it.
+where the parameter is split on it. Under the compute split over ``model``
+(``models.pshard``: the dense, vlm and hybrid families) a leaf the split
+consumes is gathered over the batch axes only and yields its block's
+gradient directly; a leaf it reads as a shared part yields its block of
+the gradient's sum over ``model`` (its gather's reduce-scatter).
 
 The reference's partitioner averages the gradient over every batch axis that
 the stack leaves automatic; the port has none, so the step does it itself:
@@ -254,7 +258,11 @@ def _agree_over(grads: dict, mesh, axis: str, layout) -> dict:
     rank computed each gradient from the same rows and parameters, but not
     bit for bit alike (a library's kernels round by the alignment of their
     operands): each leaf not split over the axis is averaged over it, so
-    that its update, and the parameter, stay equal on every rank of it."""
+    that its update, and the parameter, stay equal on every rank of it.
+    Under the compute split over ``model`` those leaves' gradients are
+    equal up to rounding too: the "f" conjugates sum their inputs'
+    cotangents over ``model``, and a replicated leaf that the ranks read in
+    parts (the SSM's ``conv_b``, ``dt_bias``, ``D``) sums its own."""
     rep = {k: g for k, g in grads.items() if layout is None or axis not in layout.axes(k)}
     if not rep:
         return grads

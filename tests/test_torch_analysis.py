@@ -15,7 +15,12 @@ reference's (``repro.analysis``).
   model 2); a prefill and a decode step under heads and under sequence
   partition, and the MoE dispatches, on (data 2, model 2); a sharded moe
   train step with each dispatch (``alltoall``, ``allgather``, ``grouped``),
-  its backward's collectives under their own names, on (data 2, model 2).
+  its backward's collectives under their own names, on (data 2, model 2);
+  and the compute split over ``model`` of the dense and hybrid families
+  (``models.pshard``): llama's steps above, and hymba's train step and its
+  heads and sequence serve steps, whose row products' sums
+  (``sum_partials``), "f" conjugates' backward (``grad_all_reduce``) and
+  shared parameter reads (``in_proj``, ``x_proj``) are counted.
 """
 import math
 from collections import Counter
@@ -155,7 +160,7 @@ def test_roofline_terms_price_the_h100():
 
 # -- step_collectives against SENT from a gloo run ----------------------------------
 
-ARCH, MOE = "llama3.2-1b", "qwen3-moe-235b-a22b"
+ARCH, MOE, HYBRID = "llama3.2-1b", "qwen3-moe-235b-a22b", "hymba-1.5b"
 TRAIN = ShapeConfig("t", 64, 4, "train")
 TCFG = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=50)
 PROMPT, CAPACITY, ROWS = 24, 64, 4
@@ -171,6 +176,10 @@ RUNS = {
     "train moe alltoall": ((2, 2), ("data", "model"), ("train", MOE, "xla", "alltoall")),
     "train moe allgather": ((2, 2), ("data", "model"), ("train", MOE, "xla", "allgather")),
     "train moe grouped": ((2, 2), ("data", "model"), ("train", MOE, "xla", "grouped")),
+    # the compute split over model of the hybrid family: heads, channels, d_ff
+    "train hymba data2 model2 xla": ((2, 2), ("data", "model"), ("train", HYBRID, "xla")),
+    "serve hymba heads": ((2, 2), ("data", "model"), ("serve", HYBRID, "heads")),
+    "serve hymba sequence": ((2, 2), ("data", "model"), ("serve", HYBRID, "sequence")),
 }
 
 

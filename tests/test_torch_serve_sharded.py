@@ -374,7 +374,10 @@ def test_capacity_for_rounds_to_a_multiple_of_64():
 def test_launcher_world_serves_the_one_rank_tokens(arch, kv, dispatch):
     """``python -m repro_torch.launch.serve --world 4 --data 2 --model 2``:
     four spawned ranks generate, row for row, the one-rank launcher's
-    greedy tokens from the same seed, and send what their chunnel sends."""
+    greedy tokens from the same seed, and send what their chunnel sends:
+    the heads branch of a model that splits its compute over ``model``
+    (llama) sums its row products (``sum_partials``) where a whole-compute
+    family (qwen3-moe) all-gathers the attention's output."""
     from repro_torch.launch import serve
 
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "4", "--prompt-len", "24",
@@ -390,6 +393,9 @@ def test_launcher_world_serves_the_one_rank_tokens(arch, kv, dispatch):
         np.testing.assert_array_equal(run["tokens"], one[rows])
         assert run["kv"] == {"heads": "KVHeadSharded", "sequence": "KVSeqSharded"}[kv]
         want = "all_gather@model" if kv == "heads" else "all_reduce_max@model"
+        if kv == "heads" and dispatch is None:  # the split: wo's sum, no gather
+            assert "all_gather@model" not in run["sent_decode"]
+            want = "sum_partials@model"
         assert want in run["sent_decode"]
 
 
