@@ -1550,6 +1550,23 @@ def _check_sharded_flash(torch, arch, cfg, shapes, checked: set) -> None:
             del q, k, v
 
 
+def _roofline_serve(cfg, rank: int, n_data: int, n_model: int, kv: str) -> tuple:
+    """``analysis.roofline``'s bytes by ``op@axis`` of the rank's prefill and
+    of its decode steps (the check step and the greedy ones) in a sharded
+    serve case."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs.base import ShapeConfig, ShardingConfig
+    from repro_torch.launch.mesh import AbstractMesh
+
+    mesh = AbstractMesh({"pod": 1, "data": n_data, "model": n_model}, rank=rank)
+    sh = ShardingConfig(kv_partition=kv)
+    pre = roofline.step_collectives(cfg, ShapeConfig("p", SERVE_PROMPT, SERVE_BATCH, "prefill"),
+                                    mesh, sh=sh)
+    dec = roofline.step_collectives(cfg, ShapeConfig("d", SHARDED_CAPACITY, SERVE_BATCH,
+                                                     "decode"), mesh, sh=sh)
+    return dict(pre), {k: v * (SERVE_GEN + 1) for k, v in dec.items()}
+
+
 def phase_serve_sharded(torch, checked: set) -> dict:
     """Serving on a mesh of gloo ranks that share the card (NCCL refuses two
     ranks on one device), through the serve launcher's rank target
@@ -1649,6 +1666,23 @@ def phase_serve_sharded(torch, checked: set) -> dict:
                     check("sum_partials@model" in sent and "gather_cache@model" not in sent
                           and (rec["mode"] != "heads" or "all_gather@model" not in sent),
                           f"{label} rank {rank}: the split's decode sent {sent}")
+                    # the sequence-parallel residual and the vocabulary split:
+                    # no whole-activation sums in prefill (but hymba's x_proj
+                    # sum, which the SSM's recurrence reads at every
+                    # position), bytes as counted
+                    pre = rec["sent_prefill"]
+                    check((cfg.family == "hybrid" or "sum_partials@model" not in pre)
+                          and pre.get("gather_seq@model", 0) > 0
+                          and pre.get("scatter_embed@model", 0) > 0
+                          and pre.get("gather_logits@model", 0) > 0,
+                          f"{label} rank {rank}: the split prefill sent {pre}")
+                    want_p, want_d = _roofline_serve(cfg, rank, n_data, n_model, kv)
+                    print(f"{label}: rank {rank} bytes against analysis.roofline's count: "
+                          f"prefill equal {pre == want_p} (total {sum(pre.values())}, "
+                          f"counted {sum(want_p.values())}), decode equal {sent == want_d} "
+                          f"(total {sum(sent.values())}, counted {sum(want_d.values())})")
+                    check(pre == want_p and sent == want_d, f"{label} rank {rank}: bytes "
+                          f"{pre} + {sent}, the roofline counts {want_p} + {want_d}")
                 check(gap <= tol, f"{label} rank {rank}: first decode step differs from the "
                       f"one-rank port by {gap}")
                 check(cfg.family == "moe" or gap_pre <= tol,
@@ -2128,6 +2162,7 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
     import torch.distributed as dist
 
     from repro_torch import tree as T
+    from repro_torch.analysis import roofline
     from repro_torch.checkpoint.ckpt import Checkpointer
     from repro_torch.comm import collectives
     from repro_torch.configs import get_config
@@ -2135,7 +2170,7 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
     from repro_torch.data.synthetic import batches_for
     from repro_torch.kernels.quantize.quantize import (quantize_pack, unpack_dequant,
                                                        unpack_dequant_sum)
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import AbstractMesh, make_mesh
     from repro_torch.train.trainer import HostSpec, ReconfigurableTrainer
 
     errors: list = []
@@ -2152,6 +2187,10 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
         for w in wrappers.values():
             w.launches = 0
             w.route_launches.clear()
+        mesh = tr.mesh
+        counted = dict(roofline.step_collectives(
+            cfg, shape, AbstractMesh(dict(mesh.shape), rank=mesh.rank), sh=tr.sharding,
+            transport=tr.transport_name, tcfg=tcfg))
         sent0 = dict(collectives.SENT)
         state, hist = tr.run(state, gen, 1)
         sent = {k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
@@ -2159,7 +2198,7 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
         records.append({
             "label": label, "transport": tr.transport_name, "step": state.step,
             "loss": hist[0]["loss"], "ms": tr.step_times[-1] * 1e3,
-            "sent_by_axis": collectives.sent_by_axis(sent), "sent": sent,
+            "sent_by_axis": collectives.sent_by_axis(sent), "sent": sent, "counted": counted,
             "launches": {n: w.launches for n, w in wrappers.items()},
             "routes": {n: {f"{r} b{b}": c for (r, b), c in w.route_launches.items()}
                        for n, w in wrappers.items()},
@@ -2278,9 +2317,15 @@ def phase_train_sharded(torch) -> dict:
                     check(rec["routes"][name] == {"vector b256": want[name]},
                           f"rank {rank} step {rec['step']}: {name} routes {rec['routes'][name]}")
             check(math.isfinite(rec["loss"]), f"rank {rank} step {rec['step']}: loss {rec['loss']}")
-            # the compute split over model ran: the row products' sums
-            check(rec["sent"].get("sum_partials@model", 0) > 0,
-                  f"rank {rank} step {rec['step']}: no row product summed over model")
+            # the compute split over model ran on the sequence-parallel
+            # residual: its gathers and reduce-scatters over S, no sums of
+            # whole activations, the bytes the roofline counts
+            sent = rec["sent"]
+            check(sent.get("scatter_seq@model", 0) > 0 and sent.get("gather_seq@model", 0) > 0
+                  and "sum_partials@model" not in sent,
+                  f"rank {rank} step {rec['step']}: the split sent {sent}")
+            check(sent == rec["counted"], f"rank {rank} step {rec['step']} ({rec['label']}): "
+                  f"sent {sent}, analysis.roofline counts {rec['counted']}")
             for name in total:
                 total[name] += rec["launches"][name]
         print(f"train sharded (b), rank {rank} at {r['coords_b']}: restored step "
@@ -2304,7 +2349,8 @@ def phase_train_sharded(torch) -> dict:
         print(f"train sharded: step {rec['step']} {rec['label']}: loss {rec['loss']:.6f}, "
               f"{rec['ms']:.3f} ms (rank 0; ranks 1-3 {[round(m, 3) for m in others]}), bytes "
               f"sent by rank 0 by axis {json.dumps(rec['sent_by_axis'])} "
-              f"({json.dumps(rec['sent'])}), launches {json.dumps(rec['launches'])}")
+              f"({json.dumps(rec['sent'])}; equal to analysis.roofline's count), launches "
+              f"{json.dumps(rec['launches'])}")
     print(f"train sharded (a): losses {[rec['loss'] for rec in r0['records_a']]} against one "
           f"rank's {one_rank} (tolerance {SHARDED_RTOL} relative)")
     for label in ("a xla", "b psum", "b compressed_int8"):

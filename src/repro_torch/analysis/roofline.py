@@ -212,9 +212,17 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
       |model| does not divide) also over ``model``, with a reduce-scatter
       backward there, and a replicated leaf read in part (``conv_b``,
       ``dt_bias``, ``D``) sums its gradient over ``model``;
-    - the split's activations (:func:`_split_layer_train`): the row
-      products' sums (``sum_partials``) and the "f" conjugates' backward
-      (``grad_all_reduce``), per layer and microbatch;
+    - the split's activations (:func:`_split_layer_train`), per layer and
+      microbatch: on the sequence-parallel residual (|model| divides S) the
+      gathers and reduce-scatters over S (``gather_seq``, ``scatter_seq``)
+      and their backwards (``grad_scatter_seq``, ``grad_gather_seq``), else
+      the row products' sums (``sum_partials``) and the "f" conjugates'
+      backward (``grad_all_reduce``); a leaf that the rank reads whole on
+      its own positions (the norms' scales) sums its gradient over
+      ``model``;
+    - the vocabulary split's (:func:`_vocab_ops`), per microbatch: the
+      embedding's sum, the head's input gathered over S, the loss's three
+      sums a chunk;
     - the moe family's dispatches, forward and backward, per layer and
       microbatch (:func:`_moe_layer_train`);
     - the mean over the batch axes the transport leaves automatic
@@ -251,11 +259,18 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
         rows = shape.global_batch // n_rows if shape.global_batch % n_rows == 0 \
             else shape.global_batch
     if split is not None:
+        split = split.at(shape.seq_len)
         g = group_size(cfg.num_layers, model._remat_group())
         for i in range(cfg.num_layers):
-            for _ in range(n_mb):  # under remat, all but a unit's last sum run again
+            for _ in range(n_mb):  # under remat, all but a unit's last "g" run again
                 _split_layer_train(out, cfg, split, rows // n_mb, shape.seq_len,
                                    cfg.remat != "none", last=(i + 1) % g == 0)
+        if split.vocab is not None:
+            for _ in range(n_mb):
+                for fwd, bwd in _vocab_ops(cfg, split, rows // n_mb, shape.seq_len, train=True,
+                                           loss_chunk=cfg.loss_chunk):
+                    _issue(out, fwd, mesh.shape["model"])
+                    _issue(out, bwd, mesh.shape["model"])
 
     # forward gathers, and the backward's reduce-scatter over a batch axis
     # (and over model for a leaf the split reads as a shared part)
@@ -408,54 +423,127 @@ def _moe_layer_train(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int,
             cur *= mesh.shape[a]
 
 
-def _split_layer(out: _Sent, cfg: ModelConfig, split, rows: int, S: int,
-                 runs: int = 1, last_runs: int = 1) -> None:
-    """The row products' sums (``sum_partials``, float32) of one split layer
-    on ``rows`` rows of ``S`` positions, each run ``runs`` times but the
-    layer's last (the MLP's), run ``last_runs`` times: dense and vlm sum
-    ``wo`` (heads) and ``down`` (d_ff); the hybrid sums ``x_proj`` (d_in),
-    its two branches side by side (those that split), and ``down``."""
+def _split_ops(cfg: ModelConfig, split, rows: int, S: int) -> list:
+    """The collectives of one split layer on ``rows`` rows of ``S``
+    positions, in the forward's order: each a pair (forward, backward) of
+    ``(kind, op, nbytes)`` (kind a ``_Sent`` method; None where there is
+    none). With the residual whole (``split.seq`` None) the "f" is the
+    identity, its backward a float32 sum (``grad_all_reduce``), and the "g"
+    a float32 sum (``sum_partials``); under ``seq`` the "f" (and a whole
+    block's input) is ``gather_seq`` of the rank's positions in bfloat16,
+    its backward the float32 reduce-scatter ``grad_scatter_seq``, and the
+    "g" the float32 reduce-scatter ``scatter_seq``, its backward
+    ``grad_gather_seq`` of the bfloat16 cotangent. Dense and vlm: the
+    attention's (heads, or its input gathered when whole) and the MLP's
+    (d_ff). The hybrid: one input for both branches, the SSM's ``x_proj``
+    sum over every position (d_in), the split branches' outputs side by
+    side, the MLP's."""
     from repro_torch.models.ssm import dt_rank
 
     m, D = split.mesh.shape["model"], cfg.d_model
-    tokens = rows * S * F32
+    full = rows * S
+    own = rows * S // m
+
+    def f(width):
+        if split.seq is not None:
+            return (("all_gather", "gather_seq", own * width * BF16),
+                    ("sends", "grad_scatter_seq", own * width * F32))
+        return (None, ("all_reduce", "grad_all_reduce", full * width * F32))
+
+    def g(width):
+        if split.seq is not None:
+            return (("sends", "scatter_seq", own * width * F32),
+                    ("all_gather", "grad_gather_seq", own * width * BF16))
+        return (("all_reduce", "sum_partials", full * width * F32), None)
+
+    heads, d_in = split.heads is not None, split.d_in is not None
+    ops = []
     if cfg.family == "hybrid":
-        width = D * ((split.heads is not None) + (split.d_in is not None))
-        if split.d_in is not None:
+        if split.seq is not None or heads or d_in:
+            ops.append(f(D))
+        if d_in:
             proj = dt_rank(D, cfg.ssm) + 2 * cfg.ssm.state_dim
-            for _ in range(runs):
-                out.all_reduce("sum_partials", "model", m, tokens * proj)
+            ops += [(("all_reduce", "sum_partials", full * proj * F32), None),
+                    (None, ("all_reduce", "grad_all_reduce", full * proj * F32))]
+        if heads or d_in:
+            ops.append(g(D * (heads + d_in)))
+    elif heads:
+        ops += [f(D), g(D)]
+    elif split.seq is not None:  # the whole attention reads every position
+        ops.append(f(D))
+    if split.d_ff is not None:
+        ops += [f(D), g(D)]
+    return ops
+
+
+def _issue(out: _Sent, op, m: int) -> None:
+    if op is None:
+        return
+    kind, name, nbytes = op
+    if kind == "sends":  # a reduce-scatter: m - 1 ring steps of the rank's block
+        out.sends(name, "model", m - 1, nbytes)
     else:
-        width = D if split.heads is not None else 0
-    for _ in range(runs if width else 0):
-        out.all_reduce("sum_partials", "model", m, tokens * width)
-    for _ in range(last_runs if split.d_ff is not None else 0):
-        out.all_reduce("sum_partials", "model", m, tokens * D)
+        getattr(out, kind)(name, "model", m, nbytes)
+
+
+def _split_layer(out: _Sent, cfg: ModelConfig, split, rows: int, S: int) -> None:
+    """One split layer's forward collectives (:func:`_split_ops`), once."""
+    for fwd, _bwd in _split_ops(cfg, split, rows, S):
+        _issue(out, fwd, split.mesh.shape["model"])
 
 
 def _split_layer_train(out: _Sent, cfg: ModelConfig, split, rows: int, S: int,
                        remat: bool, last: bool) -> None:
-    """One split layer in training: its sums (:func:`_split_layer`), each
-    run again where remat recomputes it (the recomputation stops at the
-    last saved activation, so the layer's final sum, ``down``'s, runs once
-    in the last layer of a checkpointed unit), and the backward's sums of
-    the "f" conjugates' cotangents (``grad_all_reduce``, float32): one
-    before the attention (and the hybrid's SSM branch, which share it), one
-    before the MLP, and the hybrid's ``x_proj`` output, which every
-    channel reads."""
-    from repro_torch.models.ssm import dt_rank
+    """One split layer in training: its forward's collectives, each run
+    again where remat recomputes it (the recomputation stops at the last
+    saved activation, so the layer's final "g", the MLP's, runs once in the
+    last layer of a checkpointed unit), and the backward's."""
+    m = split.mesh.shape["model"]
+    ops = _split_ops(cfg, split, rows, S)
+    for i, (fwd, bwd) in enumerate(ops):
+        trailing = split.d_ff is not None and i == len(ops) - 1
+        for _ in range(2 if remat and not (trailing and last) else 1):
+            _issue(out, fwd, m)
+        _issue(out, bwd, m)
 
+
+def _vocab_ops(cfg: ModelConfig, split, rows: int, S: int, *, train: bool,
+               loss_chunk: int | None = None) -> list:
+    """The vocabulary split's collectives outside the layers, as
+    :func:`_split_ops` gives them: the embedding's sum (``scatter_embed`` to
+    the rank's positions under ``seq``, its backward ``grad_gather_seq``;
+    else ``embed_sum``, bfloat16). Training: the final norm's output into
+    the head (``gather_seq``, its backward ``grad_scatter_seq``, float32;
+    with the residual whole, ``grad_all_reduce``), and the loss's three
+    float32 sums a chunk (``loss_max``, ``loss_gold``, ``loss_sumexp``),
+    each twice where the chunk is recomputed. Serving: the last position's
+    row from the last rank of ``model`` (``last_row``, sent by it alone)
+    and the logits' gather (``gather_logits``)."""
     m, D = split.mesh.shape["model"], cfg.d_model
-    twice = 2 if remat else 1
-    _split_layer(out, cfg, split, rows, S, runs=twice, last_runs=1 if last else twice)
-    tokens = rows * S * F32
-    if split.heads is not None or split.d_in is not None:
-        out.all_reduce("grad_all_reduce", "model", m, tokens * D)
-    if cfg.family == "hybrid" and split.d_in is not None:
-        proj = dt_rank(D, cfg.ssm) + 2 * cfg.ssm.state_dim
-        out.all_reduce("grad_all_reduce", "model", m, tokens * proj)
-    if split.d_ff is not None:
-        out.all_reduce("grad_all_reduce", "model", m, tokens * D)
+    Vl = cfg.vocab_padded // m
+    own = rows * S // m
+    if split.seq is not None:
+        ops = [(("sends", "scatter_embed", own * D * BF16),
+                ("all_gather", "grad_gather_seq", own * D * BF16) if train else None)]
+    else:
+        ops = [(("all_reduce", "embed_sum", rows * S * D * BF16), None)]
+    if train:
+        if split.seq is not None:
+            ops.append((("all_gather", "gather_seq", own * D * BF16),
+                        ("sends", "grad_scatter_seq", own * D * F32)))
+        else:
+            ops.append((None, ("all_reduce", "grad_all_reduce", rows * S * D * F32)))
+        chunked = loss_chunk is not None and loss_chunk < S
+        c = loss_chunk if chunked else S
+        for _ in range(S // c):
+            for _ in range(2 if chunked else 1):
+                ops += [(("all_reduce", name, rows * c * F32), None)
+                        for name in ("loss_max", "loss_gold", "loss_sumexp")]
+        return ops
+    if split.seq is not None and split.mesh.coords.get("model", 0) == m - 1:
+        ops.append((("all_gather", "last_row", rows * D * BF16), None))
+    ops.append((("all_gather", "gather_logits", rows * Vl * BF16), None))
+    return ops
 
 
 def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -465,9 +553,13 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
     positions) or ``"decode"`` (one token against a cache of
     ``shape.seq_len``), by ``op@axis``. The layout's one-time gathers of the
     working copies (``lay_out``) are not a step's. Both kinds run the compute
-    split's sums (``sum_partials``, :func:`_split_layer`) and the MoE
-    dispatches; a decode step also gathers the cache leaves that a family
-    computing whole over ``model`` holds split (``gather_cache``), and runs
+    split's collectives (:func:`_split_layer`: a prefill whose S |model|
+    divides on the sequence-parallel residual, ``gather_seq`` and
+    ``scatter_seq``; decode's sums, ``sum_partials``), the vocabulary
+    split's (:func:`_vocab_ops`: the embedding's sum, a prefill's last row,
+    the logits' gather) and the MoE dispatches; a decode step also gathers
+    the cache leaves that a family computing whole over ``model`` holds
+    split (``gather_cache``), and runs
     the KV-partition slot of each layer that attends through it (heads: a
     whole-compute family's ``all_gather`` of the output, nothing for a split
     model's heads; sequence: the flash-decode combine's ``all_reduce_max``
@@ -491,8 +583,13 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
     if shape.kind not in ("prefill", "decode"):
         raise ValueError(f"serve_collectives takes prefill or decode, not {shape.kind!r}")
     S = shape.seq_len if shape.kind == "prefill" else 1
-    for _ in range(cfg.num_layers if split is not None else 0):
-        _split_layer(out, cfg, split, rows, S)
+    if split is not None:
+        split = split.at(S)
+        for _ in range(cfg.num_layers):
+            _split_layer(out, cfg, split, rows, S)
+        if split.vocab is not None:
+            for fwd, _bwd in _vocab_ops(cfg, split, rows, S, train=False):
+                _issue(out, fwd, m)
     if cfg.family == "moe":
         for _ in range(cfg.num_layers):
             _moe_layer(out, cfg, mesh, rows, S, batch_split)

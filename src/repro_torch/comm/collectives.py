@@ -50,6 +50,23 @@ summed in float32 and rounded once, counted as ``sum_partials@<axis>``.
 A parameter that the ranks of ``model`` each use a part of is gathered by
 ``gather_param(..., downstream="partial")``: its backward is a
 reduce-scatter sum over ``model`` too.
+
+The sequence-parallel residual (``models.pshard``'s ``seq``) runs on two
+conjugates over the sequence dim (dim 1) instead: :func:`gather_seq`
+(``gather_seq``), the all-gather of the rank's positions before the column
+products, whose backward is the float32 reduce-scatter sum of the ranks'
+cotangents (``grad_scatter_seq``), and :func:`scatter_seq`
+(``scatter_seq``), the float32 reduce-scatter of the row products'
+partials, rounded once, whose backward all-gathers the cotangent
+(``grad_gather_seq``). The vocabulary-parallel embedding scatters its
+bfloat16 lookups the same way (``scatter_embed``; a token's row is on one
+rank, so the sum is exact) or, on a residual that stays whole, sums them
+(``embed_sum``); serving's prefill takes the last position from the rank
+that holds it (:func:`broadcast`, ``last_row``) and gathers the ranks'
+logits (``gather_logits``); the vocabulary-parallel loss sums its row
+maxima, gold logits and sums of exponentials over ``model`` (``loss_max``,
+``loss_gold``, ``loss_sumexp``). A broadcast counts (n-1)·B on its source
+and nothing elsewhere.
 """
 from __future__ import annotations
 
@@ -202,6 +219,21 @@ def _exchange(mesh, axis: str, send: torch.Tensor, recv: torch.Tensor,
     _count(op, axis, send.numel() * send.element_size())
 
 
+def broadcast(x: torch.Tensor, mesh, axis: str, src: int, *,
+              op: str = "broadcast") -> torch.Tensor:
+    """The ``x`` of the rank at index ``src`` along ``axis``, on every rank
+    of it (a new tensor; the other ranks' ``x`` gives only the shape)."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x.clone()
+    buf = _staged(mesh, x.contiguous())
+    buf = buf.clone() if buf is x else buf
+    dist.broadcast(buf, src=mesh.members(axis)[src], group=mesh.group(axis))
+    if mesh.coords[axis] == src:
+        _count(op, axis, (n - 1) * buf.numel() * buf.element_size())
+    return buf.to(x.device)
+
+
 def reduce_scatter(x2d: torch.Tensor, mesh, axis: str, *,
                    op: str = "reduce_scatter") -> torch.Tensor:
     """Row ``i`` of the sum over ``axis`` of ``x2d`` (n, m), for the rank at
@@ -215,7 +247,8 @@ def reduce_scatter(x2d: torch.Tensor, mesh, axis: str, *,
         dist.reduce_scatter_tensor(out, x2d.contiguous(), group=mesh.group(axis))
         _count(op, axis, (n - 1) * out.numel() * out.element_size())
         return out
-    acc = _staged(mesh, x2d).clone()
+    acc = _staged(mesh, x2d)
+    acc = acc.clone() if acc is x2d else acc  # the host copy is new already
     r = mesh.coords[axis]
     buf = torch.empty_like(acc[0])
     for s in range(n - 1):
@@ -230,10 +263,25 @@ def gather_dim(shard: torch.Tensor, mesh, axis: str, dim: int, *,
     index: the full tensor of a leaf split over ``axis`` on ``dim``."""
     if mesh.shape[axis] == 1:
         return shard
+    dim = dim % shard.dim()
     parts = all_gather(shard, mesh, axis, op=op)  # (n, *shard.shape)
     full = list(shard.shape)
     full[dim] *= parts.shape[0]
     return parts.movedim(0, dim).reshape(full)
+
+
+def scatter_dim(x: torch.Tensor, mesh, axis: str, dim: int, *,
+                op: str = "reduce_scatter") -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``axis`` of ``x``
+    (:func:`reduce_scatter` of ``x`` cut into ``|axis|`` blocks on ``dim``):
+    :func:`gather_dim`'s conjugate."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    blocks = x.movedim(dim, 0)
+    rows = blocks.reshape((n, blocks.shape[0] // n) + tuple(blocks.shape[1:]))
+    own = reduce_scatter(rows.reshape(n, -1), mesh, axis, op=op)
+    return own.reshape(rows.shape[1:]).movedim(0, dim).contiguous()
 
 
 def _own_block(full: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
@@ -317,11 +365,7 @@ class _Gather(torch.autograd.Function):
         mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
         if ctx.downstream == "replicated":
             return _own_block(g, mesh, axis, dim).contiguous(), None, None, None, None, None
-        n = mesh.shape[axis]
-        blocks = g.movedim(dim, 0)
-        rows = blocks.reshape((n, blocks.shape[0] // n) + tuple(blocks.shape[1:]))
-        own = reduce_scatter(rows.reshape(n, -1), mesh, axis, op="grad_reduce_scatter")
-        return (own.reshape(rows.shape[1:]).movedim(0, dim).contiguous(),
+        return (scatter_dim(g, mesh, axis, dim, op="grad_reduce_scatter"),
                 None, None, None, None, None)
 
 
@@ -373,6 +417,65 @@ def sum_partials(x: torch.Tensor, mesh, axis: str, dtype: torch.dtype) -> torch.
         return x.to(dtype)
     return all_reduce_grad(x.float(), mesh, axis, downstream="replicated",
                            op="sum_partials").to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# The sequence-parallel residual's conjugates (dim 1, the sequence)
+# ---------------------------------------------------------------------------
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dtype):
+        ctx.mesh, ctx.axis, ctx.dtype = mesh, axis, x.dtype
+        return gather_dim(x.detach(), mesh, axis, 1, op="gather_seq").to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the ranks' cotangents are parts of a sum: summed in float32, rounded once
+        own = scatter_dim(g.float(), ctx.mesh, ctx.axis, 1, op="grad_scatter_seq")
+        return own.to(ctx.dtype), None, None, None
+
+
+def gather_seq(x: torch.Tensor, mesh, axis: str,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Every rank's positions of ``x`` (B, S/n, ...) along ``axis``, joined on
+    the sequence dim by axis index (B, S, ...), as ``dtype`` (``x``'s where
+    None; sent as ``x``'s): the all-gather before a block that reads every
+    position (``gather_seq``). Each rank uses the whole for its own part
+    (its heads, its channels, its own positions' outputs), so the backward
+    is the reduce-scatter sum of the ranks' cotangents, in float32 rounded
+    once to ``x``'s dtype (``grad_scatter_seq``): a float32 ``dtype`` keeps
+    the ranks' partial cotangents unrounded until that sum."""
+    dtype = x.dtype if dtype is None else dtype
+    if mesh.shape[axis] == 1:
+        return x.to(dtype)
+    return _GatherSeq.apply(x, mesh, axis, dtype)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dtype, op):
+        ctx.mesh, ctx.axis, ctx.dtype = mesh, axis, x.dtype
+        return scatter_dim(x.detach(), mesh, axis, 1, op=op).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = gather_dim(g.contiguous(), ctx.mesh, ctx.axis, 1, op="grad_gather_seq")
+        return full.to(ctx.dtype), None, None, None, None
+
+
+def scatter_seq(x: torch.Tensor, mesh, axis: str, dtype: torch.dtype, *,
+                op: str = "scatter_seq") -> torch.Tensor:
+    """This rank's positions (B, S/n, ...) of the sum over ``axis`` of ``x``
+    (B, S, ...), rounded once to ``dtype``: the reduce-scatter after the row
+    products (their float32 partials, ``scatter_seq``), or of the
+    vocabulary-parallel embedding's lookups (``op="scatter_embed"``). Its
+    backward all-gathers the cotangent over the sequence
+    (``grad_gather_seq``)."""
+    if mesh.shape[axis] == 1:
+        return x.to(dtype)
+    return _ScatterSeq.apply(x, mesh, axis, dtype, op)
 
 
 class _Replicated(torch.autograd.Function):

@@ -20,7 +20,10 @@ GPUs, which then share one, else ``nccl``; the choice is printed). One rank
 transport chunnel is built, as in the reference's ``--mesh none``. The state
 is laid out by the reference's sharding rules (FSDP over ``data`` unless
 ``--no-fsdp``, tensor parallelism over ``model``, ZeRO-1 moments over
-``pod``); rank 0 prints the layout on start. It trains on ``--device`` (``cuda`` by default, which raises without a GPU) from
+``pod``); rank 0 prints the layout on start, and after the run the bytes it
+sent a step by ``op@axis`` (the compute split's gathers and reduce-scatters
+over S, the vocabulary split's sums). It trains on ``--device`` (``cuda`` by
+default, which raises without a GPU) from
 parameters drawn from seed 0; ``--layers N`` keeps the first N layers of the
 published config (a cut of depth). ``main(argv)`` returns the run's losses and
 step times (rank 0's).
@@ -38,6 +41,7 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.comm import collectives
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch import tree as T
 from repro_torch.configs.base import ShapeConfig, ShardingConfig, TrainConfig
@@ -62,6 +66,9 @@ class TrainRun:
     reconfig_log: List[dict] = field(default_factory=list)
     peak_memory_bytes: Optional[int] = None  # on the GPU; None on the CPU
     n_params: Optional[int] = None  # the model's, whole
+    #: the bytes the rank sent a step by ``op@axis`` (``collectives.SENT``),
+    #: the run's mean
+    sent_per_step: dict = field(default_factory=dict)
 
     @property
     def first_ms(self) -> float:
@@ -155,7 +162,10 @@ def train(args: argparse.Namespace, mesh) -> TrainRun:
     dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    sent0 = dict(collectives.SENT)
     state, hist = tr.run(state, gen, args.steps, ckpt_every=args.ckpt_every)
+    sent = {k: (v - sent0.get(k, 0)) / max(len(hist), 1) for k, v in collectives.SENT.items()
+            if v - sent0.get(k, 0)}
     losses = [h["loss"] for h in hist]
     if not all(math.isfinite(l) for l in losses):
         raise RuntimeError(f"non-finite loss: {losses}")
@@ -163,7 +173,7 @@ def train(args: argparse.Namespace, mesh) -> TrainRun:
                     tr.shape.tokens, losses, tr.step_times[-len(hist):],
                     list(tr.reconfig_log),
                     torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
-                    sum(math.prod(s) for s in tr.state_sh.shapes.values()))
+                    sum(math.prod(s) for s in tr.state_sh.shapes.values()), sent)
 
 
 def _rank(argv: List[str], backend: str) -> dict:
@@ -200,6 +210,8 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
           f"backend={run.backend} steps={len(run.losses)} "
           f"loss {run.losses[0]:.3f} -> {run.losses[-1]:.3f} "
           f"({run.warm_ms:.0f} ms/step warm, {dt:.1f} s in all)")
+    if run.sent_per_step:
+        print(f"rank 0 sent a step by op@axis: {run.sent_per_step}")
     if run.reconfig_log:
         print("reconfigurations:", run.reconfig_log)
     return run

@@ -28,7 +28,15 @@ channels, the MLP on its d_ff/|model|, and the attention on its heads where
 |model| divides H (hymba-1.5b's 25 heads do not: there every rank computes
 every head). The two branches' partial outputs are summed over ``model`` in
 one collective, side by side, before ``fuse`` normalises them; both enter
-through one "f". On a serving mesh the rings are laid out by
+through one "f". Where |model| divides S the residual is sequence-parallel
+(``Split.seq``): the norms (``ln1``, the fusion norms ``gn_attn`` and
+``gn_ssm``, ``ln2``) and the residual run on the rank's positions, one
+gather over S feeds both branches (the SSM's time recurrence reads every
+position: its ``x_proj`` sum stays the plain one over all S), the split
+branches' partials are reduce-scattered to the rank's positions side by
+side, and a branch computed whole (hymba-1.5b's 25 heads in training, the
+attention in serving's sequence mode) keeps its own positions. On a serving
+mesh the rings are laid out by
 ``serving.steps.cache_shardings``: by KV heads in heads mode (the ring
 attends the rank's heads, no collective), by slots in sequence mode (the
 rank holds ring slots ``[r·cap/m, (r+1)·cap/m)``, and ``decode_step``'s
@@ -111,9 +119,14 @@ class HymbaLM(DenseLM):
     @staticmethod
     def _inputs(xn: torch.Tensor, split: Optional[Split]) -> tuple:
         """The attention's and the SSM branch's input: ``xn``, or under
-        ``split`` one "f" of it for the branches that split."""
-        heads, chans = split is not None and split.heads is not None, \
-            split is not None and split.d_in is not None
+        ``split`` one "f" of it for the branches that split; under its
+        ``seq``, one gather over S for both (each reads every position)."""
+        if split is None:
+            return xn, xn
+        if split.seq is not None:
+            xg = split.enter(xn)
+            return xg, xg
+        heads, chans = split.heads is not None, split.d_in is not None
         xin = split.enter(xn) if heads or chans else xn
         return (xin if heads else xn), (xin if chans else xn)
 
@@ -121,23 +134,27 @@ class HymbaLM(DenseLM):
     def _wo(layer: HymbaLayer, o: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
         """``wo`` of the attention's output (B, S, heads, hd): the float32
         partial output of the rank's heads under ``split``, for
-        :meth:`_outputs` to sum."""
-        o = o.reshape(o.shape[0], o.shape[1], -1)
-        return layer.attn.wo(o) if split is None or split.heads is None else \
-            layer.attn.wo.partial(o)
+        :meth:`_outputs` to sum; of a whole attention's own positions under
+        a sequence split."""
+        if split is not None and split.heads is not None:
+            return layer.attn.wo.partial(o.reshape(o.shape[0], o.shape[1], -1))
+        o = o if split is None else split.own(o)
+        return layer.attn.wo(o.reshape(o.shape[0], o.shape[1], -1))
 
     @staticmethod
     def _outputs(a: torch.Tensor, s: torch.Tensor, split: Optional[Split]) -> tuple:
-        """The branches' whole outputs: under ``split``, the partial ones
-        summed over ``model`` side by side in one collective."""
+        """The branches' outputs on the residual's positions: under ``split``,
+        the partial ones summed over ``model`` side by side in one collective
+        (reduce-scattered under its ``seq``, where a whole SSM branch keeps
+        its own positions)."""
         if split is None:
             return a, s
         heads, chans = split.heads is not None, split.d_in is not None
-        if not (heads or chans):
-            return a, s
+        if not chans:
+            s = split.own(s)
         if heads and chans:
             return split.reduce(a, s)
-        return (split.reduce(a), s) if heads else (a, split.reduce(s))
+        return (split.reduce(a) if heads else a), (split.reduce(s) if chans else s)
 
     def _train_layer(self, layer: HymbaLayer, x: torch.Tensor, rope: tuple,
                      split: Optional[Split] = None, *, window) -> torch.Tensor:
@@ -156,8 +173,9 @@ class HymbaLM(DenseLM):
 
     @staticmethod
     def _chans(split: Optional[Split]) -> Optional[Split]:
-        """``split`` where it splits the SSM's channels, else None."""
-        return split if split is not None and split.d_in is not None else None
+        """``split`` where it splits the SSM's channels, else None; with the
+        residual whole, for the ``x_proj`` sum over every position."""
+        return split.whole_seq() if split is not None and split.d_in is not None else None
 
     def _kv_capacity(self, idx: int, capacity: int) -> int:
         return capacity if self._is_global(idx) else min(self.cfg.sliding_window, capacity)
@@ -194,10 +212,10 @@ class HymbaLM(DenseLM):
         ``(B, vocab_padded)``."""
         cfg = self.cfg
         S = tokens.shape[1]
-        x = self.embed(tokens)
+        split = self.split.at(S) if self.split is not None else None
+        x = self._embed_inputs(tokens, None, split)
         rope = rope_cos_sin(torch.arange(S, device=x.device), cfg.head_dim_, cfg.rope_theta)
         layers = []
-        split = self.split
         for idx, layer in enumerate(self.layers):
             is_global = self._is_global(idx)
             x_attn, x_ssm = self._inputs(layer.ln1(x), split)
@@ -218,7 +236,7 @@ class HymbaLM(DenseLM):
                 kk = torch.roll(kk[:, S - cap:], roll, dims=1)
                 vv = torch.roll(vv[:, S - cap:], roll, dims=1)
             layers.append({"k": kk, "v": vv, "ssm_h": st.h, "ssm_conv": st.conv})
-        return {"layers": layers, "len": S}, self._logits(self.final_norm(x)[:, -1])
+        return {"layers": layers, "len": S}, self._last_logits(x, split)
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor, attn_fn=None, ring_fn=None):
@@ -235,7 +253,7 @@ class HymbaLM(DenseLM):
         ring = attn.decode_slot(ring_fn)
         split = self.split
         pos = int(cache["len"])
-        x = self.embed(tokens)
+        x = self._embed_inputs(tokens, None, split)
         rope = rope_cos_sin(torch.arange(pos, pos + 1, device=x.device), cfg.head_dim_,
                             cfg.rope_theta)
         layers = []
@@ -260,4 +278,4 @@ class HymbaLM(DenseLM):
                                    impl=self.ssm_impl, split=self._chans(split))
             x = layer.fuse(x, *self._outputs(a, s, split), split)
             layers.append({"k": c["k"], "v": c["v"], "ssm_h": st.h, "ssm_conv": st.conv})
-        return {"layers": layers, "len": pos + 1}, self._logits(self.final_norm(x)[:, -1])
+        return {"layers": layers, "len": pos + 1}, self._last_logits(x, split)

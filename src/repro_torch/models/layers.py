@@ -16,7 +16,9 @@ every call, inside the autograd graph, as the reference does, so that the
 gradient reaches the float32 weight.
 
 The losses (``softmax_cross_entropy``, ``chunked_lm_loss``) are the
-reference's, the chunked one recomputing each chunk's logits in backward.
+reference's, the chunked one recomputing each chunk's logits in backward;
+``vocab_parallel_lm_loss`` is the chunked one on the rank's columns of the
+vocabulary (``models.pshard``'s vocabulary split).
 """
 from __future__ import annotations
 
@@ -143,10 +145,17 @@ class Embedding(nn.Module):
     def release(self) -> None:
         self.table16 = None
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        if self.table16 is None:  # training: cast inside the graph
-            return self.table.to(COMPUTE)[tokens]
-        return self.table16[tokens]
+    def forward(self, tokens: torch.Tensor, rows: Optional[slice] = None) -> torch.Tensor:
+        """The rows of ``tokens``. ``rows``: the vocabulary's rows that the
+        table holds (the vocabulary split's block): a token outside them
+        looks up zeros, for the split's sum over ``model``."""
+        table = self.table.to(COMPUTE) if self.table16 is None else self.table16
+        if rows is None:
+            return table[tokens]
+        local = tokens - rows.start
+        hit = (local >= 0) & (local < table.shape[0])
+        out = table[local.clamp(0, table.shape[0] - 1)]
+        return out.masked_fill(~hit[..., None], 0)
 
 
 def activation(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -264,4 +273,79 @@ def chunked_lm_loss(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
     for c in range(0, S, chunk):
         total = total + checkpoint(_chunk_loss_sum, h[:, c:c + chunk], head16,
                                    labels[:, c:c + chunk], real_vocab, use_reentrant=False)
+    return total / (B * S)
+
+
+class _HeadColumns(torch.autograd.Function):
+    """``h @ w16`` of bfloat16 operands (``h`` float32 of bfloat16 values),
+    rounded to bfloat16 as the whole head's product is, for the rank's
+    columns of a head split over the vocabulary: the backward gives ``h``'s
+    cotangent in float32, unrounded (the rank's part of a sum over the
+    vocabulary, which the caller's "f" sums and rounds once, as the whole
+    product rounds once), and ``w16``'s in bfloat16 as the whole head's."""
+
+    @staticmethod
+    def forward(ctx, h, w16):
+        h16 = h.to(COMPUTE)
+        ctx.save_for_backward(h16, w16)
+        return h16 @ w16
+
+    @staticmethod
+    def backward(ctx, g):
+        h16, w16 = ctx.saved_tensors
+        dw = h16.reshape(-1, h16.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return g.float() @ w16.float().T, dw
+
+
+def _vocab_chunk_loss_sum(hc: torch.Tensor, head16: torch.Tensor, lc: torch.Tensor,
+                          first: int, real_vocab: Optional[int], mesh, axis: str) -> torch.Tensor:
+    """``_chunk_loss_sum`` on the rank's columns ``[first, first + V/n)``:
+    the row max, the gold logit and the sum of exponentials summed over
+    ``axis``. The sums' backward passes the cotangent on: every rank
+    computes the same loss from them."""
+    from repro_torch.comm import collectives
+
+    logits = _HeadColumns.apply(hc, head16).float()
+    V = logits.shape[-1]
+    if real_vocab is not None and first + V > real_vocab:  # the padded columns
+        cols = torch.arange(first, first + V, device=logits.device)
+        logits = logits.masked_fill(cols >= real_vocab, -1e30)
+    top = collectives.all_reduce_max(logits.detach().amax(dim=-1), mesh, axis, op="loss_max")
+    local = lc.long() - first
+    hit = (local >= 0) & (local < V)
+    gold = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    gold = collectives.all_reduce_grad(gold.masked_fill(~hit, 0), mesh, axis,
+                                       downstream="replicated", op="loss_gold")
+    sumexp = (logits - top[..., None]).exp().sum(dim=-1)
+    sumexp = collectives.all_reduce_grad(sumexp, mesh, axis, downstream="replicated",
+                                         op="loss_sumexp")
+    return (top + sumexp.log() - gold).sum()
+
+
+def vocab_parallel_lm_loss(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                           vocab: slice, mesh, axis: str = "model", *,
+                           chunk: Optional[int] = None,
+                           real_vocab: Optional[int] = None) -> torch.Tensor:
+    """:func:`chunked_lm_loss` with the vocabulary split over ``axis``: ``h``
+    (B, S, D) whole on every rank of it, ``head_w`` (D, V/n) float32 the
+    rank's columns ``vocab`` of the head. Each chunk (under
+    ``torch.utils.checkpoint`` as there) takes three all-reduces over
+    ``axis``: the row max (``loss_max``), the gold logit from the rank that
+    holds the label (``loss_gold``) and the sum of exponentials
+    (``loss_sumexp``); the padded columns are masked by their global index.
+    A recomputed chunk issues them again in backward, in the same order on
+    every rank. The mean is over all B·S tokens; the cotangent of ``h`` is
+    this rank's columns' part of the sum over ``axis``."""
+    B, S, _ = h.shape
+    head16 = head_w.to(COMPUTE)
+    if chunk is None or chunk >= S:
+        return _vocab_chunk_loss_sum(h, head16, labels, vocab.start, real_vocab, mesh,
+                                     axis) / (B * S)
+    if S % chunk:
+        raise ValueError(f"loss chunk {chunk} does not divide the sequence {S}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S, chunk):
+        total = total + checkpoint(_vocab_chunk_loss_sum, h[:, c:c + chunk], head16,
+                                   labels[:, c:c + chunk], vocab.start, real_vocab, mesh, axis,
+                                   use_reentrant=False)
     return total / (B * S)

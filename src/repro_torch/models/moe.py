@@ -406,7 +406,8 @@ class MoeLM(DenseLM):
 
     FAMILY, LAYER = "moe", MoeLayer
 
-    def _ffn(self, layer: MoeLayer, h: torch.Tensor, batch_split: int = 1) -> torch.Tensor:
+    def _ffn(self, layer: MoeLayer, h: torch.Tensor, batch_split: int = 1,
+             split=None) -> torch.Tensor:
         y, _aux = moe_ffn(layer.moe, layer.ln2(h), self.cfg, self.mesh,
                           batch_split=batch_split)
         return y

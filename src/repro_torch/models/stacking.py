@@ -15,10 +15,11 @@ the model's ``gathered`` passes the split's reads through).
 
 Hazard: a body recomputed under ``torch.utils.checkpoint`` issues
 collectives (the parameters' gathers; under the split, the row products'
-sums). Every rank runs the same body on the same schedule, so the
+sums, or on the sequence-parallel residual the gathers and reduce-scatters
+over S). Every rank runs the same body on the same schedule, so the
 recomputation issues the same collectives in the same order on every rank.
 It stops at the body's last saved activation, so a collective after it (a
-split layer's final sum, ``down``'s) is not issued again;
+split layer's final "g", ``down``'s) is not issued again;
 ``analysis.roofline`` counts what runs, held to ``collectives.SENT``.
 
 ``stack_layers``/``unstack_layers`` move between the port's per-layer

@@ -16,8 +16,15 @@ a rank computes its query heads and the KV heads they read (where |model|
 divides H), and its d_ff/|model| channels of the MLP; the row products'
 partial outputs (``wo``, ``down``) are summed over ``model``. The split's
 parameters keep their ``model`` block and are gathered over the batch axes
-only. Serving sets the split on the model (``split``, by
-``serving.steps.lay_out``; its attention is whole in sequence mode).
+only. Where |model| divides S the residual stream is sequence-parallel
+(``Split.seq``): each rank holds its S/|model| positions, the norms run on
+them, the blocks gather their input over S and reduce-scatter their
+outputs; and where it divides ``vocab_padded`` the embedding and the head
+are vocabulary-parallel (``Split.vocab``: the rank's rows of the table and
+columns of the head, the loss ``layers.vocab_parallel_lm_loss``). Serving
+sets the split on the model (``split``, by ``serving.steps.lay_out``; its
+attention is whole in sequence mode); a prefill's last position comes from
+the rank that holds it, and the ranks' logits are gathered.
 Serving: ``DenseLM.prefill(tokens, patches=None) -> (cache, logits_last)``
 and ``DenseLM.decode_step(cache, tokens) -> (cache, logits)``, with the
 reference's KV cache ``{"k", "v"}: (L, B, S, KH, hd)`` bfloat16 plus ``"len"``
@@ -62,6 +69,7 @@ from repro_torch.models.layers import (
     mask_padded_vocab,
     rope_cos_sin,
     rotate,
+    vocab_parallel_lm_loss,
 )
 from repro_torch.models.pshard import Split, model_split
 from repro_torch.models.sharding import Layout
@@ -195,8 +203,9 @@ class DenseLM(nn.Module):
         self.layout = layout
         return self
 
-    def _gathered(self, module: nn.Module, prefix: str):
-        return self.layout.gathered(module, prefix) if self.layout is not None else nullcontext()
+    def _gathered(self, module: nn.Module, prefix: str, reads=None):
+        return (self.layout.gathered(module, prefix, reads) if self.layout is not None
+                else nullcontext())
 
     def _layer_static(self, idx: int) -> dict:
         """The body's keywords for layer ``idx`` (a family with segments
@@ -214,21 +223,29 @@ class DenseLM(nn.Module):
         """The training layer's residual stream after its attention block
         (on the rank's heads under ``split``)."""
         cfg = self.cfg
-        h = layer.ln1(x)
-        if split is not None and split.heads is not None:
-            h = split.enter(h)
-        q, k, v = layer.attn.qkv(h, rope)
+        q, k, v = layer.attn.qkv(self._attn_in(layer.ln1(x), split), rope)
         o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                            window=cfg.sliding_window, chunk=cfg.attn_chunk)
         return x + self._attn_out(layer, o, split)
 
     @staticmethod
+    def _attn_in(h: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+        """The attention's input from the normed residual ``h``: under
+        ``split``, through its "f" for the rank's heads, or gathered over S
+        for an attention computed whole."""
+        if split is None:
+            return h
+        return split.enter(h) if split.heads is not None else split.gather(h)
+
+    @staticmethod
     def _attn_out(layer: nn.Module, o: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
         """``wo`` of the attention's output (B, S, heads, hd): a row product
-        summed over ``model`` when ``o`` holds the rank's heads."""
-        B, S = o.shape[:2]
+        summed over ``model`` when ``o`` holds the rank's heads; of the
+        rank's positions of a whole attention under a sequence split."""
         if split is None or split.heads is None:
-            return layer.attn.wo(o.reshape(B, S, -1))
+            o = o if split is None else split.own(o)
+            return layer.attn.wo(o.reshape(o.shape[0], o.shape[1], -1))
+        B, S = o.shape[:2]
         return split.reduce(layer.attn.wo.partial(o.reshape(B, S, -1)))
 
     def _train_layer(self, layer: DecoderLayer, x: torch.Tensor, rope: tuple,
@@ -236,21 +253,22 @@ class DenseLM(nn.Module):
         h = self._attn_residual(layer, x, rope, split)
         return h + layer.mlp(layer.ln2(h), split)
 
-    def _train_split(self) -> Optional[Split]:
-        """The training forward's compute split: the family's, on the mesh of
-        the model's layout."""
-        return None if self.layout is None else model_split(self.cfg, self.layout.mesh)
+    def _train_split(self, S: int) -> Optional[Split]:
+        """The training forward's compute split on ``S`` positions: the
+        family's, on the mesh of the model's layout."""
+        split = None if self.layout is None else model_split(self.cfg, self.layout.mesh)
+        return None if split is None else split.at(S)
 
-    def _train_stack(self, carry, S: int, body):
+    def _train_stack(self, carry, S: int, body, split: Optional[Split] = None):
         """``carry`` (the residual stream, or a tuple that starts with it)
         through every layer by ``body(layer, carry, rope, split, **static)``,
         as the reference's ``apply_stack``: each layer's parameters gathered
         for its body on a sharded model (under the compute split ``split``,
         those it splits keep their ``model`` block), checkpointed under
-        ``cfg.remat``."""
+        ``cfg.remat``. The rotation covers all S positions: a block that
+        reads them gathers its input over S first."""
         cfg = self.cfg
         rope = rope_cos_sin(torch.arange(S, device=self.device), cfg.head_dim_, cfg.rope_theta)
-        split = self._train_split()
         reads = split.reads() if split is not None else None
         gathered = (None if self.layout is None else
                     lambda i: self.layout.gathered(self.layers[i], f"layers.{i}.", reads))
@@ -259,29 +277,40 @@ class DenseLM(nn.Module):
                            remat_policy=cfg.remat, remat_group=self._remat_group(),
                            static=self._layer_static, gathered=gathered)
 
-    def _embed_inputs(self, tokens: torch.Tensor,
-                      patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _embed_inputs(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None,
+                      split: Optional[Split] = None) -> torch.Tensor:
         """The token embeddings (B, S, D), the first P replaced by ``patches``
         (B, P, D) where given (the reference's ``extra_embeds``). P must not
         exceed S: the reference's ``x[:, P:]`` would give a sequence of P
-        positions against S labels (its rope then fails to broadcast)."""
-        x = self.embed(tokens)
+        positions against S labels (its rope then fails to broadcast). Under
+        ``split``'s vocabulary split, the rank's rows' lookups summed over
+        ``model`` (``Split.embed``): under its ``seq``, the rank's positions
+        (B, S/|model|, D), the patches joined at the positions they replace."""
+        S = tokens.shape[1]
+        if patches is not None and patches.shape[1] > S:
+            raise ValueError(f"{patches.shape[1]} patch positions do not fit a sequence of "
+                             f"{S}: the patches replace the first P of the S token positions")
+        if split is None or split.vocab is None:
+            x, first = self.embed(tokens), 0
+        else:
+            x = split.embed(self.embed(tokens, split.vocab))
+            first = 0 if split.seq is None else split.seq.start
         if patches is None:
             return x
-        P, S = patches.shape[1], tokens.shape[1]
-        if P > S:
-            raise ValueError(f"{P} patch positions do not fit a sequence of {S}: the "
-                             f"patches replace the first P of the S token positions")
-        return torch.cat([patches.to(x.dtype), x[:, P:]], dim=1)
+        k = min(max(patches.shape[1] - first, 0), x.shape[1])  # own positions < P
+        if k == 0:
+            return x
+        return torch.cat([patches[:, first:first + k].to(x.dtype), x[:, k:]], dim=1)
 
-    def hidden_states(self, tokens: torch.Tensor,
-                      patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def hidden_states(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None,
+                      split: Optional[Split] = None) -> torch.Tensor:
         """tokens (B, S), and the vlm family's ``patches`` (B, P, D) over the
-        first P positions -> final hidden states (B, S, D), bfloat16. A
-        sharded model gathers each layer's parameters for its body; the
-        caller gathers the embedding and the final norm (``loss`` does)."""
-        x = self._train_stack(self._embed_inputs(tokens, patches), tokens.shape[1],
-                              self._train_layer)
+        first P positions -> final hidden states (B, S, D), bfloat16 (under
+        ``split``'s ``seq``, the rank's positions). A sharded model gathers
+        each layer's parameters for its body; the caller gathers the
+        embedding and the final norm (``loss`` does)."""
+        x = self._train_stack(self._embed_inputs(tokens, patches, split), tokens.shape[1],
+                              self._train_layer, split)
         return self.final_norm(x)
 
     def head_weight(self) -> torch.Tensor:
@@ -296,20 +325,29 @@ class DenseLM(nn.Module):
             raise RuntimeError("the model holds its serving copies; release() it to train")
 
     @contextmanager
-    def _head_gathered(self):
+    def _head_gathered(self, split: Optional[Split] = None):
         """Within it, a sharded model's ``HEAD`` parameters read as their
-        full tensors."""
+        full tensors (under ``split``, as it reads them: the rank's rows of
+        the table and columns of the head, the final norm as a shared part)."""
         with ExitStack() as stack:
             for name in self.HEAD:
                 if getattr(self, name) is not None:
-                    stack.enter_context(self._gathered(getattr(self, name), f"{name}."))
+                    reads = split.reads(f"{name}.") if split is not None else None
+                    stack.enter_context(self._gathered(getattr(self, name), f"{name}.", reads))
             yield
 
-    def _lm_loss(self, h: torch.Tensor, labels: torch.Tensor,
-                 loss_chunk: Optional[int]) -> torch.Tensor:
+    def _lm_loss(self, h: torch.Tensor, labels: torch.Tensor, loss_chunk: Optional[int],
+                 split: Optional[Split] = None) -> torch.Tensor:
+        """The loss of the final hidden states ``h``; under ``split``'s
+        vocabulary split, of the rank's columns of the logits, ``h`` entering
+        through its "f" (gathered over S under its ``seq``)."""
         chunk = loss_chunk if loss_chunk is not None else self.cfg.loss_chunk
-        return chunked_lm_loss(h, self.head_weight(), labels, chunk=chunk,
-                               real_vocab=self.cfg.vocab_size)
+        if split is None or split.vocab is None:
+            return chunked_lm_loss(h, self.head_weight(), labels, chunk=chunk,
+                                   real_vocab=self.cfg.vocab_size)
+        return vocab_parallel_lm_loss(split.enter(h, torch.float32), self.head_weight(), labels,
+                                      split.vocab, split.mesh, chunk=chunk,
+                                      real_vocab=self.cfg.vocab_size)
 
     def loss(self, batch: dict, *, loss_chunk: Optional[int] = None,
              batch_split: int = 1) -> torch.Tensor:
@@ -318,21 +356,25 @@ class DenseLM(nn.Module):
         row-local family ignores ``batch_split`` (the moe family's dispatch
         reads it)."""
         self._check_released()
-        with self._head_gathered():
-            h = self.hidden_states(batch["tokens"], batch.get("patches"))
-            return self._lm_loss(h, batch["labels"], loss_chunk)
+        split = self._train_split(batch["tokens"].shape[1])
+        with self._head_gathered(split):
+            h = self.hidden_states(batch["tokens"], batch.get("patches"), split)
+            return self._lm_loss(h, batch["labels"], loss_chunk, split)
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
 
-    def _logits(self, x_last: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x_last: torch.Tensor, split: Optional[Split] = None) -> torch.Tensor:
         """(B, D) bfloat16 -> (B, vocab_padded) bfloat16 logits, the padded
-        columns at -1e30."""
+        columns at -1e30; under ``split``'s vocabulary split, the rank's
+        columns gathered over ``model``."""
         if self.lm_head is None:
             logits = x_last @ self.embed.table16.T
         else:
             logits = x_last @ self.lm_head.w16
+        if split is not None and split.vocab is not None:
+            logits = split.logits(logits)
         return mask_padded_vocab(logits, self.cfg.vocab_size)
 
     def init_cache(self, batch: int, capacity: int) -> dict:
@@ -342,10 +384,12 @@ class DenseLM(nn.Module):
                 "v": torch.zeros(shape, dtype=COMPUTE, device=self.device),
                 "len": 0}
 
-    def _ffn(self, layer: nn.Module, h: torch.Tensor, batch_split: int = 1) -> torch.Tensor:
+    def _ffn(self, layer: nn.Module, h: torch.Tensor, batch_split: int = 1,
+             split: Optional[Split] = None) -> torch.Tensor:
         """The serving layer's feed-forward branch on the residual ``h``
-        (split by ``split``); a row-local one ignores ``batch_split``."""
-        return layer.mlp(layer.ln2(h), self.split)
+        (split by ``split``, the call's); a row-local one ignores
+        ``batch_split``."""
+        return layer.mlp(layer.ln2(h), split)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None, *,
@@ -359,20 +403,26 @@ class DenseLM(nn.Module):
         batch, the other layers are row-local."""
         cfg = self.cfg
         S = tokens.shape[1]
-        x = self._embed_inputs(tokens, patches)
+        split = self.split.at(S) if self.split is not None else None
+        x = self._embed_inputs(tokens, patches, split)
         rope = rope_cos_sin(torch.arange(S, device=x.device), cfg.head_dim_, cfg.rope_theta)
         ks, vs = [], []
         for layer in self.layers:
-            q, k, v = layer.attn.qkv(layer.ln1(x), rope)
+            q, k, v = layer.attn.qkv(self._attn_in(layer.ln1(x), split), rope)
             o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                                window=cfg.sliding_window, chunk=cfg.attn_chunk)
-            x = x + self._attn_out(layer, o, self.split)
-            x = x + self._ffn(layer, x, batch_split)
+            x = x + self._attn_out(layer, o, split)
+            x = x + self._ffn(layer, x, batch_split, split)
             ks.append(k.to(COMPUTE))
             vs.append(v.to(COMPUTE))
-        x = self.final_norm(x)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": S}
-        return cache, self._logits(x[:, -1])
+        return cache, self._last_logits(x, split)
+
+    def _last_logits(self, x: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+        """The logits of the last position of the residual ``x`` (under
+        ``split``'s ``seq``, taken from the rank that holds it)."""
+        row = x[:, -1] if split is None else split.last_row(x)
+        return self._logits(self.final_norm(row), split)
 
     def grow_cache(self, cache: dict, extra: int) -> dict:
         """The cache with ``extra`` more (zero) positions, for generation."""
@@ -394,7 +444,8 @@ class DenseLM(nn.Module):
         if pos >= cap:
             raise ValueError(f"the cache holds {cap} positions, all used; "
                              "grow it before decoding")
-        x = self.embed(tokens)
+        split = self.split
+        x = self._embed_inputs(tokens, None, split)
         rope = rope_cos_sin(torch.arange(pos, pos + 1, device=x.device), cfg.head_dim_,
                             cfg.rope_theta)
         for i, layer in enumerate(self.layers):
@@ -402,10 +453,9 @@ class DenseLM(nn.Module):
             slot.write(cache["k"][i], k, pos)
             slot.write(cache["v"][i], v, pos)
             o = slot(q, cache["k"][i], cache["v"][i], pos + 1, cfg.sliding_window)
-            x = x + self._attn_out(layer, o, self.split)
-            x = x + self._ffn(layer, x, batch_split)
-        x = self.final_norm(x)
-        return {"k": cache["k"], "v": cache["v"], "len": pos + 1}, self._logits(x[:, -1])
+            x = x + self._attn_out(layer, o, split)
+            x = x + self._ffn(layer, x, batch_split, split)
+        return {"k": cache["k"], "v": cache["v"], "len": pos + 1}, self._last_logits(x, split)
 
 
 def grow_cache(cache: dict, extra: int) -> dict:

@@ -15,14 +15,18 @@ process of its own and the split is explicit:
   copy of a leaf the split consumes is the rank's part of it (its ``model``
   block gathered over the batch axes only; ``in_proj``'s channels of x and
   z and ``x_proj``'s input rows cut from the gathered whole), so a rank
-  holds about 1/|model| of those layers' weights. Every other leaf's copy is
-  gathered whole. The MoE mesh dispatches run the rank's experts, slices of
+  holds about 1/|model| of those layers' weights; where |model| divides
+  ``vocab_padded`` the table's and the head's copies are the rank's rows
+  and columns of the vocabulary (the tied llama table halves on |model|
+  2). Every other leaf's copy is gathered whole. The MoE mesh dispatches run the rank's experts, slices of
   the whole serving banks that decode's ``grouped`` reads (``models.moe``).
 - Batch rows go by ``data_spec``: each rank runs the forward on its rows of
   the global batch (all of them where the batch does not divide the batch
   axes); the ranks along ``model`` share their rows, and under the split
   each computes its heads and channels and sums the row products over
-  ``model``. Prefill runs the model's prefill on the rows (its attention
+  ``model`` (in a prefill whose S |model| divides, on the rank's positions
+  of a sequence-parallel residual, ``models.pshard``; the last position's
+  row comes from the last rank of ``model``). Prefill runs the model's prefill on the rows (its attention
   through the model's ``attn_impl``, the flash kernel on the card, on the
   rank's heads under the split), then cuts the cache to this rank's slices
   (a split model's K/V heads and SSM channels are its slices already).
@@ -139,7 +143,7 @@ def serve_split(cfg: ModelConfig, mesh, sh: ShardingConfig) -> Optional[Split]:
 
 
 def _same_split(a: Optional[Split], b: Optional[Split]) -> bool:
-    key = lambda s: None if s is None else (s.heads, s.d_ff, s.d_in)  # noqa: E731
+    key = lambda s: None if s is None else (s.heads, s.d_ff, s.d_in, s.vocab)  # noqa: E731
     return key(a) == key(b)
 
 

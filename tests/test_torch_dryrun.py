@@ -99,13 +99,17 @@ class TestOneCellPriced:
         assert rec["memory"]["temp_bytes"] is None and rec["null_reasons"]["memory.temp_bytes"]
         assert rec["cost_analysis"]["bytes accessed"] is None
         assert rec["cost_analysis"]["flops"] > 0 and rec["count"]["rows"] == 8
-        layers, rows, heads, hd, d = 16, 8, 32, 64, 2048
+        layers, rows, heads, hd, d, vocab = 16, 8, 32, 64, 2048, 128256
         assert rec["collectives"] == {  # each layer's combine: max, then the sum
             "all_reduce_max@model": layers * int(2 * 15 / 16 * rows * heads * 4),
             "all_reduce@model": layers * int(2 * 15 / 16 * rows * heads * (hd + 1) * 4),
             # and the MLP's row product summed over model (the compute split;
             # sequence mode keeps the attention whole)
-            "sum_partials@model": layers * int(2 * 15 / 16 * rows * d * 4)}
+            "sum_partials@model": layers * int(2 * 15 / 16 * rows * d * 4),
+            # the vocabulary split: the rank's rows of the table looked up and
+            # summed (bfloat16), the rank's columns of the logits gathered
+            "embed_sum@model": int(2 * 15 / 16 * rows * d * 2),
+            "gather_logits@model": 15 * rows * (vocab // 16) * 2}
 
     def test_prefill_count_near_the_analytic_share(self):
         """FlopCounterMode's count of one rank's llama prefill_32k (its 2 of
