@@ -294,7 +294,9 @@ FLASH_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 #: 64 heads over 4 KV heads of 128, causal; seamless-m4t-medium: 16 heads of
 #: 64, its encoder over S / 4 frames and its cross attention non-causal; and
 #: llama3.2-1b split over model 2 on (data 2, model 2): a rank's 2 rows and
-#: its 16 query heads over its 4 KV heads (the compute split, heads mode)
+#: its 16 query heads over its 4 KV heads (the compute split, heads mode);
+#: then qwen3-moe's and seamless's at a rank's heads on (data 2, model 2)
+#: (their families split too): a rank's 2 rows, half the heads
 NEW_FLASH_CASES = [
     ("phi-3-vision hd96", (SERVE_BATCH, SERVE_PROMPT, None, 96, (32, 32), dict(causal=True)),
      ("bfloat16", "float32")),
@@ -309,6 +311,14 @@ NEW_FLASH_CASES = [
     ("llama local heads 16/4 (model 2)", (SERVE_BATCH // 2, SERVE_PROMPT, None, HEAD_DIM,
                                           (N_HEADS // 2, N_KV // 2), dict(causal=True)),
      ("bfloat16",)),
+    ("qwen3-moe local heads 32/2 (model 2)", (SERVE_BATCH // 2, SERVE_PROMPT, None, 128,
+                                              (32, 2), dict(causal=True)), ("bfloat16",)),
+    ("seamless local encoder 8/8 (model 2)", (SERVE_BATCH // 2, SERVE_PROMPT // 4, None, 64,
+                                              (8, 8), dict(causal=False)), ("bfloat16",)),
+    ("seamless local decoder self 8/8 (model 2)", (SERVE_BATCH // 2, SERVE_PROMPT, None, 64,
+                                                   (8, 8), dict(causal=True)), ("bfloat16",)),
+    ("seamless local cross 8/8 (model 2)", (SERVE_BATCH // 2, SERVE_PROMPT, SERVE_PROMPT // 4,
+                                            64, (8, 8), dict(causal=False)), ("bfloat16",)),
 ]
 #: the mangled name's stem of the tensor-core kernel, in ptxas's log
 FLASH_TC_KERNEL = "flash_attention_tc_kernel"
@@ -389,6 +399,12 @@ XLSTM_PSUM_STEPS = XLSTM_COMPRESSED_STEPS = 2
 MOE_ARCH = "qwen3-moe-235b-a22b"
 MOE_MESH_DISPATCHES = ("alltoall", "allgather")
 MOE_MESH_STEPS, MOE_MESH_BATCH, MOE_MESH_SEQ, MOE_MESH_RTOL = 2, 8, 64, 1e-2
+#: phase 17: seamless-m4t-medium at its published widths, 2 + 2 of
+#: its 12 + 12 layers, on (data 2, model 2) (FSDP over data), 2 steps of a
+#: global batch of 4 x 128 (a source of 32 frames: both residuals split);
+#: its losses against one rank's on the card within SHARDED_RTOL
+AUDIO_ARCH = "seamless-m4t-medium"
+AUDIO_MESH_LAYERS, AUDIO_MESH_STEPS, AUDIO_MESH_BATCH, AUDIO_MESH_SEQ = 2, 2, 4, 128
 #: serving on a mesh of gloo ranks that share the card: four prompts of 2048
 #: tokens into a cache of 2112 positions (2048 + 32 rounded up to a multiple
 #: of 64, a decode ShapeConfig's), 32 greedy steps. Each case: (arch, layers
@@ -400,12 +416,23 @@ MOE_MESH_STEPS, MOE_MESH_BATCH, MOE_MESH_SEQ, MOE_MESH_RTOL = 2, 8, 64, 1e-2
 #: each rank's 2 rows may round its GEMMs otherwise than on 4; so llama's
 #: 0.1 and hymba's 0.15 of the one-rank checks, and llama's 0.1 for
 #: qwen3-moe's one layer (its decode routes the global batch's 4 tokens, as
-#: the one-rank port's does)
+#: the one-rank port's does). seamless: its 12 encoder and 12
+#: decoder layers, three attentions each, split by heads, its one-rank
+#: serve check's 0.15. xlstm: its vocabulary split only, the blocks
+#: whole on both ranks, so the logits differ by the head's column GEMMs
+#: alone: llama's 0.1; at 4 of its 12 layers (its sLSTM's loop over the
+#: prompt runs on both ranks of the one card), and its prefill's and first
+#: four greedy tokens must equal the one-rank port's
 SHARDED_SERVE = [
     ("llama3.2-1b", None, (2, 2), [("auto", None), ("sequence", None)], 0.1),
     ("hymba-1.5b", None, (1, 2), [("auto", None)], 0.15),
     ("qwen3-moe-235b-a22b", 1, (2, 2), [("auto", "alltoall"), ("auto", "allgather")], 0.1),
+    ("seamless-m4t-medium", None, (2, 2), [("auto", None)], 0.15),
+    ("xlstm-125m", 4, (1, 2), [("auto", None)], 0.1),
 ]
+#: the greedy tokens (the prefill's and the first decode steps') that a
+#: sharded xlstm serve must share with the one-rank port
+SHARDED_EQUAL_TOKENS = 5
 SHARDED_CAPACITY = 2112
 #: the share of (token, slot) expert ids of the sharded prefill that must
 #: equal the one-rank prefill's (a near-tie in the top-k may flip under the
@@ -1390,8 +1417,11 @@ def _check_tokens(torch, cfg):
 def _one_rank_check(torch, arch, layers) -> dict:
     """The one-rank port on the seeded batch of the launcher: the first
     decode step's logits on the check tokens, from the prefill's cache
-    fitted to the sharded steps' capacity; for the moe family, its
-    prefill's expert ids and the capacity they were kept by."""
+    fitted to the sharded steps' capacity, and the greedy tokens of the
+    prefill and the first decode steps (``SHARDED_EQUAL_TOKENS``); for the
+    moe family, its prefill's expert ids and the capacity they were kept
+    by."""
+    from repro_torch import tree as T
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import serve
     from repro_torch.models import moe, registry
@@ -1404,9 +1434,16 @@ def _one_rank_check(torch, arch, layers) -> dict:
         cache, logits_pre = model.prefill(tokens, **extra)
     cache = fit_cache(cache, registry.cache_shapes(
         cfg, ShapeConfig("serve", SHARDED_CAPACITY, SERVE_BATCH, "decode")))
+    greedy = T.map(lambda x: x.clone() if torch.is_tensor(x) else x, cache)
+    toks = [logits_pre.argmax(-1, keepdim=True)]
+    for _ in range(SHARDED_EQUAL_TOKENS - 1):
+        greedy, step_logits = model.decode_step(greedy, toks[-1])
+        toks.append(step_logits.argmax(-1, keepdim=True))
+    del greedy
     _, logits = model.decode_step(cache, _check_tokens(torch, cfg))
     out = {"logits": logits.float().cpu().numpy(), "vocab": cfg.vocab_size,
-           "prefill": logits_pre.float().cpu().numpy()}
+           "prefill": logits_pre.float().cpu().numpy(),
+           "tokens": torch.cat(toks, dim=1).cpu().numpy()}
     if routes is not None:
         ids = routes.ids[0]
         C = moe.capacity(ids.shape[0], cfg)
@@ -1437,7 +1474,8 @@ class _DispatchTap:
             with _Routes() as routes:
                 y, aux = self.real[name](p, x3d, cfg, mesh, *args, **kwargs)
             self.calls.append({"name": name, "p": p, "x": x3d, "y": y, "cfg": cfg,
-                               "mesh": mesh, "ids": routes.ids[0]})
+                               "mesh": mesh, "ids": routes.ids[0],
+                               "positions": kwargs.get("positions", False)})
             return y, aux
         return call
 
@@ -1457,14 +1495,27 @@ def _dispatch_gap(torch, call) -> dict:
     rank's S/n slice of the rows alone, ``allgather`` the slices of the
     row's model ranks together, gathered in (model rank, row, position)
     order. Every rank along ``model`` holds the same rows, so this rank's
-    rows stand for the others'."""
+    rows stand for the others'. On the sequence-parallel residual
+    (``positions``: the rank holds its slice alone, and so does the
+    output) ``alltoall`` is ``dispatch_grouped`` of the rank's tokens, and
+    ``allgather`` the rank's block of ``dispatch_grouped`` of the slices
+    gathered over ``model`` (every rank calls this, in the same order)."""
+    from repro_torch.comm import collectives
     from repro_torch.models import moe
 
     p, x, y, cfg = call["p"], call["x"], call["y"], call["cfg"]
-    n = call["mesh"].shape["model"]
+    mesh = call["mesh"]
+    n = mesh.shape["model"]
     B_l, S, D = x.shape
     s_l = S // n
-    if call["name"] == "dispatch_alltoall":
+    if call["positions"]:
+        if call["name"] == "dispatch_alltoall":
+            ref = moe.dispatch_grouped(p, x.reshape(-1, D), cfg)[0].reshape(B_l, S, D)
+        else:
+            row = collectives.all_gather(x.to(torch.bfloat16), mesh, "model")
+            ref = (moe.dispatch_grouped(p, row.reshape(-1, D), cfg)[0]
+                   .reshape(n, B_l, S, D)[mesh.coords["model"]].to(x.dtype))
+    elif call["name"] == "dispatch_alltoall":
         ref = torch.cat([moe.dispatch_grouped(p, x[:, m * s_l:(m + 1) * s_l].reshape(-1, D),
                                               cfg)[0].reshape(B_l, s_l, D) for m in range(n)],
                         dim=1)
@@ -1577,6 +1628,7 @@ def phase_serve_sharded(torch, checked: set) -> dict:
     summed over its ranks, by path."""
     import numpy as np
 
+    from repro_torch.comm.moe_dispatch import configure
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn
     from repro_torch.models import moe
@@ -1606,6 +1658,10 @@ def phase_serve_sharded(torch, checked: set) -> dict:
         L = cfg.num_layers
         hybrid = cfg.family == "hybrid"
         scans = -(-SERVE_PROMPT // SSM_CHUNK) * L if hybrid else 0
+        # a prefill's attentions: the encoder-decoder's encoder, decoder
+        # self and cross attention; none in xlstm
+        attns = {"audio": cfg.encdec.enc_layers + 2 * cfg.encdec.dec_layers if cfg.encdec
+                 else 0, "ssm": 0}.get(cfg.family, L)
         for r in ranks:
             check(not r["thread_errors"], f"rank {r['rank']}: {r['thread_errors']}")
             print(f"serve sharded {arch}: rank {r['rank']} at {r['coords']}: layout (draw, "
@@ -1616,7 +1672,7 @@ def phase_serve_sharded(torch, checked: set) -> dict:
         for i, (kv, dispatch) in enumerate(runs):
             label = f"serve sharded {arch} {kv}" + (f" {dispatch}" if dispatch else "")
             recs = [r["runs"][i] for r in ranks]
-            want_pre = {"flash_attention": L, "ssm_scan_chunk": scans}
+            want_pre = {"flash_attention": attns, "ssm_scan_chunk": scans}
             want_chk = {"flash_attention": 0, "ssm_scan_chunk": L * hybrid}
             want_dec = {"flash_attention": 0, "ssm_scan_chunk": SERVE_GEN * L * hybrid}
             gaps = []
@@ -1662,21 +1718,32 @@ def phase_serve_sharded(torch, checked: set) -> dict:
                       f"{rec['split']}, working copies {rec['working_bytes']} bytes "
                       f"({rec['working_bytes'] / 2**30:.2f} GiB)")
                 if cfg.family in SPLIT_FAMILIES:  # the split ran: its sums, no gathers
-                    sent = rec["sent_decode"]
-                    check("sum_partials@model" in sent and "gather_cache@model" not in sent
-                          and (rec["mode"] != "heads" or "all_gather@model" not in sent),
-                          f"{label} rank {rank}: the split's decode sent {sent}")
-                    # the sequence-parallel residual and the vocabulary split:
-                    # no whole-activation sums in prefill (but hymba's x_proj
-                    # sum, which the SSM's recurrence reads at every
-                    # position), bytes as counted
-                    pre = rec["sent_prefill"]
-                    check((cfg.family == "hybrid" or "sum_partials@model" not in pre)
-                          and pre.get("gather_seq@model", 0) > 0
-                          and pre.get("scatter_embed@model", 0) > 0
-                          and pre.get("gather_logits@model", 0) > 0,
+                    sent, pre = rec["sent_decode"], rec["sent_prefill"]
+                    if cfg.family == "ssm":
+                        # xlstm: the vocabulary split alone; its blocks and
+                        # state are whole, so the state is gathered a step
+                        check("sum_partials@model" not in sent and "gather_seq@model" not in pre
+                              and sent.get("embed_sum@model", 0) > 0
+                              and pre.get("embed_sum@model", 0) > 0
+                              and sent.get("gather_cache@model", 0) > 0,
+                              f"{label} rank {rank}: the vocabulary split sent {pre} + {sent}")
+                    else:
+                        check("sum_partials@model" in sent and "gather_cache@model" not in sent
+                              and (rec["mode"] != "heads" or "all_gather@model" not in sent),
+                              f"{label} rank {rank}: the split's decode sent {sent}")
+                        # the sequence-parallel residual and the vocabulary
+                        # split: no whole-activation sums in prefill (but
+                        # hymba's x_proj sum, which the SSM's recurrence
+                        # reads at every position)
+                        check((cfg.family == "hybrid" or "sum_partials@model" not in pre)
+                              and pre.get("gather_seq@model", 0) > 0
+                              and pre.get("scatter_embed@model", 0) > 0,
+                              f"{label} rank {rank}: the split prefill sent {pre}")
+                    check(pre.get("gather_logits@model", 0) > 0,
                           f"{label} rank {rank}: the split prefill sent {pre}")
-                    want_p, want_d = _roofline_serve(cfg, rank, n_data, n_model, kv)
+                    # the run's dispatch, as serve_rank configures it
+                    run_cfg = configure(cfg, dispatch) if dispatch and cfg.moe else cfg
+                    want_p, want_d = _roofline_serve(run_cfg, rank, n_data, n_model, kv)
                     print(f"{label}: rank {rank} bytes against analysis.roofline's count: "
                           f"prefill equal {pre == want_p} (total {sum(pre.values())}, "
                           f"counted {sum(want_p.values())}), decode equal {sent == want_d} "
@@ -1695,6 +1762,18 @@ def phase_serve_sharded(torch, checked: set) -> dict:
                               "generated other tokens")
             print(f"{label}: tokens equal across each model group: True; greedy tokens of "
                   f"row 0 {recs[0]['tokens'][0, :12].tolist()}; largest gap {max(gaps)}")
+            n_eq = SHARDED_EQUAL_TOKENS
+            for r, rec in zip(ranks, recs):
+                rows = SERVE_BATCH // n_data
+                d = r["coords"]["data"]
+                want_toks = one["tokens"][d * rows:(d + 1) * rows]
+                same = float((rec["tokens"][:, :n_eq] == want_toks).mean())
+                print(f"{label}: rank {r['rank']}: share of the prefill's and first "
+                      f"{n_eq - 1} decode steps' greedy tokens equal to the one-rank port's "
+                      f"{same}" + (" (held: 1.0)" if cfg.family == "ssm" else ""))
+                check(cfg.family != "ssm" or same == 1.0,
+                      f"{label} rank {r['rank']}: greedy tokens {rec['tokens'][:, :n_eq]}, the "
+                      f"one-rank port's {want_toks}")
             if cfg.family == "moe":
                 for r, rec in zip(ranks, recs):
                     check(len(rec["dispatch"]) == L, f"{label} rank {r['rank']}: "
@@ -2685,12 +2764,13 @@ def moe_mesh_rank(params) -> dict:
     import torch
     import torch.distributed as dist
 
+    from repro_torch.analysis import roofline
     from repro_torch.comm import collectives
     from repro_torch.comm.moe_dispatch import configure
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeConfig, ShardingConfig, TrainConfig
     from repro_torch.data.synthetic import batches_for
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import AbstractMesh, make_mesh
     from repro_torch.models import registry
     from repro_torch.train import step as step_mod
     from repro_torch.train.trainer import ReconfigurableTrainer
@@ -2699,6 +2779,7 @@ def moe_mesh_rank(params) -> dict:
     threading.excepthook = lambda a: errors.append(f"{a.thread.name}: {a.exc_value!r}")
     torch.cuda.set_device(0)
     shape = ShapeConfig("moe mesh", MOE_MESH_SEQ, MOE_MESH_BATCH, "train")
+    tcfg = TrainConfig(warmup_steps=10, total_steps=TRAIN_STEPS)
     out = {"rank": dist.get_rank(), "thread_errors": errors}
     for device in ("cuda:0", "cpu"):
         mesh = make_mesh((2, 2), ("data", "model"), device=device)
@@ -2706,24 +2787,29 @@ def moe_mesh_rank(params) -> dict:
         for impl in MOE_MESH_DISPATCHES:
             cfg = configure(get_smoke_config(MOE_ARCH), impl)
             tr = ReconfigurableTrainer(cfg, shape, mesh, sharding=ShardingConfig(fsdp=True),
-                                       tcfg=TrainConfig(warmup_steps=10, total_steps=TRAIN_STEPS),
-                                       transport="xla")
+                                       tcfg=tcfg, transport="xla")
             state = tr.init_state(params=params)
             gen = batches_for(cfg, shape)
             _reset_all_counts()
-            sent0 = dict(collectives.SENT)
-            local, reported = [], []
+            local, reported, sent = [], [], Counter()
             for step in range(MOE_MESH_STEPS):
                 with torch.no_grad():
                     rows = step_mod.local_rows(gen(step), mesh)
                     local.append(registry.loss(tr.model, rows, batch_split=2).item())
+                sent0 = dict(collectives.SENT)
                 state, hist = tr.run(state, gen, 1)
+                sent.update({k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
+                             if v > sent0.get(k, 0)})
                 reported.append(hist[0]["loss"])
+            counted = roofline.step_collectives(
+                cfg, shape, AbstractMesh(dict(mesh.shape), rank=mesh.rank),
+                sh=ShardingConfig(fsdp=True), tcfg=tcfg)
             out[(device, impl)] = {
                 "local": local, "reported": reported,
                 "ms": [t * 1e3 for t in tr.step_times], "launches": _all_counts(),
-                "sent": {k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
-                         if v > sent0.get(k, 0)}}
+                "sent": dict(sent),
+                "counted": {k: v * MOE_MESH_STEPS for k, v in counted.items()},
+                "split": repr(tr.model.train_split(MOE_MESH_BATCH // 2, MOE_MESH_SEQ, 2))}
             del tr, state
     return out
 
@@ -2767,6 +2853,13 @@ def phase_train_moe_mesh(torch) -> dict:
             want = {"alltoall": "grad_all_to_all@model",
                     "allgather": "grad_reduce_scatter@model"}[impl]
             check(want in grads, f"rank {r['rank']} {impl}: backward collectives {grads}")
+            # the compute split: the rows as the rank's positions, the
+            # banks as its experts; no bank or rows' slice gathered back
+            check("experts=True" in rec["split"] and "grad_all_gather@model" not in grads
+                  and rec["sent"].get("gather_seq@model", 0) > 0,
+                  f"rank {r['rank']} {impl}: split {rec['split']}, sent {rec['sent']}")
+            check(rec["sent"] == rec["counted"], f"rank {r['rank']} {impl}: sent "
+                  f"{rec['sent']}, analysis.roofline counts {rec['counted']}")
     for impl in MOE_MESH_DISPATCHES:
         for device in ("cuda:0", "cpu"):
             by_data: dict = {}
@@ -2787,8 +2880,119 @@ def phase_train_moe_mesh(torch) -> dict:
               f"{cpu['reported']}: max relative difference {diff:.3e} (tolerance "
               f"{MOE_MESH_RTOL}); each rank's own loss bit-equal across its model group on "
               f"both; card step ms {[round(m, 3) for m in ms]} (all ranks, gloo through the "
-              f"host); rank 0's bytes by op@axis {json.dumps(card['sent'])}")
+              f"host); split {card['split']}; rank 0's bytes by op@axis over "
+              f"{MOE_MESH_STEPS} steps {json.dumps(card['sent'])} (equal to "
+              "analysis.roofline's count on every rank)")
     print(f"train moe mesh: launches over all ranks {json.dumps(dict(total))}; spawn to exit "
+          f"{wall:.3f} s; every process exited 0")
+    return dict(total)
+
+
+def _audio_mesh_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import serve
+
+    cfg = serve.cut_depth(get_config(AUDIO_ARCH), AUDIO_MESH_LAYERS)
+    shape = ShapeConfig("audio mesh", AUDIO_MESH_SEQ, AUDIO_MESH_BATCH, "train")
+    return cfg, shape, TrainConfig(warmup_steps=10, total_steps=TRAIN_STEPS)
+
+
+def audio_mesh_rank() -> dict:
+    """One rank of phase 17 (run by ``spawn``): the encoder-decoder's
+    training steps on (data 2, model 2), FSDP over data, on the compute
+    split over model; each step's bytes by ``op@axis`` beside
+    ``analysis.roofline``'s count."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis import roofline
+    from repro_torch.comm import collectives
+    from repro_torch.configs.base import ShardingConfig
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.mesh import AbstractMesh, make_mesh
+    from repro_torch.models.pshard import model_split
+    from repro_torch.train.trainer import ReconfigurableTrainer
+
+    errors: list = []
+    threading.excepthook = lambda a: errors.append(f"{a.thread.name}: {a.exc_value!r}")
+    torch.cuda.set_device(0)
+    cfg, shape, tcfg = _audio_mesh_setup()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda:0")
+    sh = ShardingConfig(fsdp=True)
+    tr = ReconfigurableTrainer(cfg, shape, mesh, sharding=sh, tcfg=tcfg, transport="xla")
+    state = tr.init_state(SEED)
+    gen = batches_for(cfg, shape)
+    counted = dict(roofline.step_collectives(
+        cfg, shape, AbstractMesh(dict(mesh.shape), rank=mesh.rank), sh=sh, tcfg=tcfg))
+    _reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    records = []
+    for _ in range(AUDIO_MESH_STEPS):
+        sent0 = dict(collectives.SENT)
+        state, hist = tr.run(state, gen, 1)
+        records.append({"loss": hist[0]["loss"], "ms": tr.step_times[-1] * 1e3,
+                        "sent": {k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
+                                 if v > sent0.get(k, 0)}})
+    split = model_split(cfg, mesh).at(AUDIO_MESH_SEQ, AUDIO_MESH_SEQ // cfg.encdec.src_ratio)
+    return {"rank": dist.get_rank(), "coords": dict(mesh.coords), "records": records,
+            "counted": counted, "launches": _all_counts(), "split": repr(split),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "thread_errors": errors}
+
+
+def phase_train_audio_mesh(torch) -> dict:
+    """Phase 17: the encoder-decoder trained on the compute split over
+    model (its heads, both stacks' residuals over their lengths, the
+    vocabulary) by four gloo ranks on the card, against one rank's run of
+    the same model here. Returns the launches, summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.mesh import make_mesh, spawn
+    from repro_torch.train.trainer import ReconfigurableTrainer
+
+    cfg, shape, tcfg = _audio_mesh_setup()
+    full = get_config(AUDIO_ARCH).encdec
+    tr = ReconfigurableTrainer(cfg, shape, make_mesh((1,), ("data",), device="cuda"), tcfg=tcfg)
+    _, hist = tr.run(tr.init_state(SEED), batches_for(cfg, shape), AUDIO_MESH_STEPS)
+    one_rank = [h["loss"] for h in hist]
+    del tr, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    why = "the ranks share one GPU; NCCL refuses two ranks on one device"
+    print(f"train audio mesh: four processes on cuda:0, gloo ({why}); {AUDIO_ARCH} at its "
+          f"published widths, {AUDIO_MESH_LAYERS} + {AUDIO_MESH_LAYERS} of its "
+          f"{full.enc_layers} + {full.dec_layers} layers, (data 2, model 2), fsdp, global batch "
+          f"{AUDIO_MESH_BATCH} x {AUDIO_MESH_SEQ} (source {AUDIO_MESH_SEQ // 4} frames), "
+          f"{AUDIO_MESH_STEPS} steps; one rank's losses {one_rank}")
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:audio_mesh_rank", 4, backend="gloo", timeout_s=600.0, reason=why)
+    wall = time.perf_counter() - t0
+    total: Counter = Counter()
+    for r in ranks:
+        rank = r["rank"]
+        check(not r["thread_errors"], f"rank {rank}: exceptions in threads")
+        total.update(r["launches"])
+        check(not any(r["launches"].values()), f"rank {rank}: launched kernels {r['launches']}")
+        check("src_seq=slice(" in r["split"] and "seq=slice(" in r["split"]
+              and "heads=Heads(" in r["split"], f"rank {rank}: split {r['split']}")
+        got = [rec["loss"] for rec in r["records"]]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(got, one_rank))
+        check(all(math.isfinite(l) for l in got) and diff <= SHARDED_RTOL,
+              f"rank {rank}: losses {got}, one rank {one_rank}")
+        for i, rec in enumerate(r["records"]):
+            sent = rec["sent"]
+            check("sum_partials@model" not in sent and sent.get("gather_seq@model", 0) > 0
+                  and sent.get("scatter_seq@model", 0) > 0,
+                  f"rank {rank} step {i}: the split sent {sent}")
+            check(sent == r["counted"], f"rank {rank} step {i}: sent {sent}, "
+                  f"analysis.roofline counts {r['counted']}")
+        print(f"train audio mesh: rank {rank} at {r['coords']}: losses {got} (max relative "
+              f"difference from one rank {diff:.3e}, tolerance {SHARDED_RTOL}); step ms "
+              f"{[round(rec['ms'], 3) for rec in r['records']]} (gloo through the host); peak "
+              f"{r['peak_memory_bytes'] / 2**30:.2f} GiB ({r['peak_memory_bytes']} bytes); "
+              f"split {r['split']}; bytes a step by op@axis {json.dumps(r['records'][0]['sent'])}"
+              " (equal to analysis.roofline's count)")
+    print(f"train audio mesh: launches over all ranks {json.dumps(dict(total))}; spawn to exit "
           f"{wall:.3f} s; every process exited 0")
     return dict(total)
 
@@ -2831,6 +3035,7 @@ def main() -> int:
     paths["train families"] = phase_train_families(torch)
     paths["train xlstm 2 ranks"] = phase_train_xlstm_two(torch)
     paths["train moe mesh"] = phase_train_moe_mesh(torch)
+    paths["train audio mesh"] = phase_train_audio_mesh(torch)
     names = ("quantize_pack", "unpack_dequant", "unpack_dequant_sum", "flash_attention",
              "ssm_scan_chunk")
     # every serve and train path for every kernel, zeros included; the

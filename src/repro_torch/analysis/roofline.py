@@ -206,14 +206,17 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
     - the forward's parameter gathers (``gather_param``, each layer's twice
       under remat: the backward recomputes it) and their backward over a
       batch axis (``grad_reduce_scatter``), per microbatch; under the
-      compute split over ``model`` (``models.pshard``: dense, vlm, hybrid) a
+      compute split over ``model`` (``models.pshard``) a
       leaf it reads as its block is gathered over the batch axes only, one
       it reads as a shared part (``in_proj``, ``x_proj``, KV heads that
       |model| does not divide) also over ``model``, with a reduce-scatter
       backward there, and a replicated leaf read in part (``conv_b``,
       ``dt_bias``, ``D``) sums its gradient over ``model``;
-    - the split's activations (:func:`_split_layer_train`), per layer and
-      microbatch: on the sequence-parallel residual (|model| divides S) the
+    - the split's activations (:func:`_split_layer_train`), per layer of
+      each stack (:func:`_split_stacks`: the encoder-decoder's encoder and
+      decoder layers, each at its own length, and its encoder output's one
+      entry into the decoder's cross K/V) and microbatch: on the
+      sequence-parallel residual (|model| divides S) the
       gathers and reduce-scatters over S (``gather_seq``, ``scatter_seq``)
       and their backwards (``grad_scatter_seq``, ``grad_gather_seq``), else
       the row products' sums (``sum_partials``) and the "f" conjugates'
@@ -234,6 +237,7 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
     from repro_torch import tree as T
     from repro_torch.comm.chunnels import stack_manual_axes
     from repro_torch.models import registry
+    from repro_torch.models.moe import mesh_dispatch
     from repro_torch.models.pshard import model_split
     from repro_torch.models.sharding import Layout, NamedSharding, per_layer
     from repro_torch.models.stacking import group_size
@@ -258,13 +262,21 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
         n_rows = math.prod(mesh.shape[a] for a in BATCH_AXES if a in mesh.axis_names)
         rows = shape.global_batch // n_rows if shape.global_batch % n_rows == 0 \
             else shape.global_batch
+        batch_split = shape.global_batch // rows
     if split is not None:
-        split = split.at(shape.seq_len)
-        g = group_size(cfg.num_layers, model._remat_group())
-        for i in range(cfg.num_layers):
-            for _ in range(n_mb):  # under remat, all but a unit's last "g" run again
-                _split_layer_train(out, cfg, split, rows // n_mb, shape.seq_len,
-                                   cfg.remat != "none", last=(i + 1) % g == 0)
+        split = split.at(shape.seq_len, _src_len(cfg, shape.seq_len))
+        if cfg.family == "moe" and mesh_dispatch(cfg, mesh, rows, shape.seq_len, batch_split):
+            split = split.with_experts()
+        for layer_split, S, count, cross, group in _split_stacks(model, split, shape.seq_len):
+            g = group_size(count, group)
+            for i in range(count):
+                for _ in range(n_mb):  # under remat, all but a unit's last "g" run again
+                    _split_layer_train(out, cfg, layer_split, rows // n_mb, S,
+                                       cfg.remat != "none", last=(i + 1) % g == 0, cross=cross)
+        for _ in range(n_mb):
+            for fwd, bwd in _cross_in_ops(cfg, split, rows // n_mb, shape.seq_len):
+                _issue(out, fwd, mesh.shape["model"])
+                _issue(out, bwd, mesh.shape["model"])
         if split.vocab is not None:
             for _ in range(n_mb):
                 for fwd, bwd in _vocab_ops(cfg, split, rows // n_mb, shape.seq_len, train=True,
@@ -293,9 +305,10 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
                 out.all_reduce("grad_all_reduce", "model", mesh.shape["model"], cur * F32)
 
     if cfg.family == "moe":
+        seq = split is not None and split.seq is not None
         for _ in range(cfg.num_layers * n_mb):
-            _moe_layer_train(out, cfg, mesh, rows // n_mb, shape.seq_len,
-                             shape.global_batch // rows)
+            _moe_layer_train(out, cfg, mesh, rows // n_mb, shape.seq_len, batch_split, seq=seq,
+                             experts=split is not None and split.experts)
 
     batch = [a for a in BATCH_AXES if a in mesh.axis_names and mesh.shape[a] > 1]
     shared = [a for a in mesh.axis_names if a not in BATCH_AXES and mesh.shape[a] > 1]
@@ -343,32 +356,37 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
     return out
 
 
-def _moe_layer(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int, batch_split: int) -> None:
+def _moe_layer(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int, batch_split: int,
+               seq: bool = False) -> None:
     """One ``models.moe.moe_ffn`` call on ``rows`` rows of ``S`` positions
-    (bfloat16 activations), its dispatch resolved as ``moe_ffn`` does."""
-    from repro_torch.models.moe import capacity
+    (bfloat16 activations), its dispatch resolved as ``moe_ffn`` does; under
+    the compute split's sequence-parallel residual (``seq``) on the rank's
+    ``S/|model|`` positions of them."""
+    from repro_torch.models.moe import capacity, mesh_dispatch
 
     D, E = cfg.d_model, cfg.moe.num_experts
-    axes = mesh.axis_names
-    b_axes = [a for a in BATCH_AXES if a in axes]
-    n_batch = math.prod(mesh.shape[a] for a in b_axes)
-    n = mesh.shape["model"] if "model" in axes else 1
-    manual_ok = ("model" in axes and "data" in axes and (rows * batch_split) % n_batch == 0
-                 and S % n == 0 and E % n == 0)
-    impl = cfg.moe.dispatch
-    if impl in ("alltoall", "allgather") and manual_ok:
+    b_axes = [a for a in BATCH_AXES if a in mesh.axis_names]
+    n = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    impl = mesh_dispatch(cfg, mesh, rows, S, batch_split)
+    if impl is not None:
         T_loc = rows * S // n
         if impl == "alltoall":
             block = E // n * capacity(T_loc, cfg) * D * BF16
             out.all_gather("all_to_all", "model", n, block)
             out.all_gather("all_to_all", "model", n, block)
-            out.all_gather("all_gather", "model", n, T_loc * D * BF16)
+            if not seq:  # the output gathered into the whole rows
+                out.all_gather("all_gather", "model", n, T_loc * D * BF16)
         else:
             out.all_gather("all_gather", "model", n, T_loc * D * BF16)
-            out.all_reduce("all_reduce", "model", n, n * T_loc * D * F32)
+            if seq:  # the partial outputs reduce-scattered to the rank's positions
+                out.sends("reduce_scatter", "model", n - 1, T_loc * D * F32)
+            else:
+                out.all_reduce("all_reduce", "model", n, n * T_loc * D * F32)
         for a in ("model", "data"):  # the aux loss's mean
             out.all_reduce("all_reduce", a, mesh.shape[a], F32)
         return
+    if seq:  # the rows gathered over S
+        out.all_gather("gather_seq", "model", n, rows * S // n * D * BF16)
     if batch_split > 1:  # the global batch's tokens gathered, innermost axis first
         cur = rows * S * D * BF16
         for a in reversed(b_axes):
@@ -377,27 +395,26 @@ def _moe_layer(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int, batch_spli
 
 
 def _moe_layer_train(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int,
-                     batch_split: int) -> None:
+                     batch_split: int, seq: bool = False, experts: bool = False) -> None:
     """One training ``moe_ffn`` (``comm.collectives``' differentiable
     collectives): the forward's collectives, then the backward's
     (``grad_<op>``). A layer recomputed under remat issues only those of its
     forward's collectives that precede its last saved activation (the
-    recomputation stops there), which are the all-to-alls and ``allgather``'s
-    row gather: so they count twice (held to ``SENT`` under ``"full"``)."""
-    from repro_torch.models.moe import capacity
+    recomputation stops there), which are the all-to-alls, ``allgather``'s
+    row gather and the rows' gathers for ``grouped``: so they count twice
+    (held to ``SENT`` under ``"full"``). ``seq``: on the rank's positions
+    (no slice of the rows, no gather of the output); ``experts``: the banks
+    are read as the rank's experts (no sum of their gradients)."""
+    from repro_torch.models.moe import capacity, mesh_dispatch
 
     D, E = cfg.d_model, cfg.moe.num_experts
-    axes = mesh.axis_names
-    b_axes = [a for a in BATCH_AXES if a in axes]
-    n_batch = math.prod(mesh.shape[a] for a in b_axes)
-    n = mesh.shape["model"] if "model" in axes else 1
-    manual_ok = ("model" in axes and "data" in axes and (rows * batch_split) % n_batch == 0
-                 and S % n == 0 and E % n == 0)
-    impl = cfg.moe.dispatch
+    b_axes = [a for a in BATCH_AXES if a in mesh.axis_names]
+    n = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    impl = mesh_dispatch(cfg, mesh, rows, S, batch_split)
     remat = cfg.remat != "none"
-    if impl in ("alltoall", "allgather") and manual_ok:
+    if impl is not None:
         T_loc = rows * S // n
-        _moe_layer(out, cfg, mesh, rows, S, batch_split)
+        _moe_layer(out, cfg, mesh, rows, S, batch_split, seq)
         if impl == "alltoall":
             block = E // n * capacity(T_loc, cfg) * D * BF16
             for _ in range(2):
@@ -407,13 +424,22 @@ def _moe_layer_train(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int,
         else:
             if remat:
                 out.all_gather("all_gather", "model", n, T_loc * D * BF16)
+            if seq:  # the reduce-scatter's backward
+                out.all_gather("grad_gather_seq", "model", n, T_loc * D * BF16)
             out.sends("grad_reduce_scatter", "model", n - 1, T_loc * D * BF16)
         out.all_reduce("grad_all_reduce", "data", mesh.shape["data"], F32)  # the aux's mean
         out.all_reduce("grad_all_reduce", "model", n, D * E * F32)  # the router
-        for _ in range(3):  # the banks' experts
-            out.all_gather("grad_all_gather", "model", n, E // n * D * cfg.moe.d_ff_expert * BF16)
-        out.all_gather("grad_all_gather", "model", n, T_loc * D * BF16)  # the rows' slice
+        if not experts:  # the banks' experts
+            for _ in range(3):
+                out.all_gather("grad_all_gather", "model", n,
+                               E // n * D * cfg.moe.d_ff_expert * BF16)
+        if not seq:  # the rows' slice
+            out.all_gather("grad_all_gather", "model", n, T_loc * D * BF16)
         return
+    if seq:  # the rows gathered over S, and their cotangents reduce-scattered back
+        for _ in range(2 if remat else 1):
+            out.all_gather("gather_seq", "model", n, rows * S // n * D * BF16)
+        out.sends("grad_scatter_seq", "model", n - 1, rows * S // n * D * F32)
     if batch_split > 1:  # the global batch's rows: gathered, and reduce-scattered back
         cur = rows * S * D * BF16
         for a in reversed(b_axes):
@@ -423,7 +449,44 @@ def _moe_layer_train(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int,
             cur *= mesh.shape[a]
 
 
-def _split_ops(cfg: ModelConfig, split, rows: int, S: int) -> list:
+def _src_len(cfg: ModelConfig, S: int):
+    """The encoder-decoder's source positions for a call of ``S`` decoder
+    positions (``registry.batch_specs``' frames), else None."""
+    return max(1, S // cfg.encdec.src_ratio) if cfg.family == "audio" else None
+
+
+def _split_stacks(model, split, S: int) -> list:
+    """The model's stacks of split layers as (split, positions, layers,
+    cross, remat group): the encoder-decoder's encoder (its ``Split.src``
+    over the source) and decoder (with cross attention), else the one stack
+    of ``cfg.num_layers``."""
+    cfg = model.cfg
+    if cfg.family == "audio":
+        return [(split.src, _src_len(cfg, S), cfg.encdec.enc_layers, False, 1),
+                (split, S, cfg.encdec.dec_layers, True, 1)]
+    return [(split, S, cfg.num_layers, False, model._remat_group())]
+
+
+def _cross_in_ops(cfg: ModelConfig, split, rows: int, S: int) -> list:
+    """The encoder-decoder's encoder output into the decoder's cross K/V,
+    once a forward (``EncDecLM._cross_in``), as :func:`_split_ops` gives its
+    collectives: gathered over the source (``gather_seq``, its backward
+    ``grad_scatter_seq``) where its residual is split, else through the "f"
+    for the rank's KV heads (backward ``grad_all_reduce``)."""
+    if cfg.family != "audio":
+        return []
+    m, D = split.mesh.shape["model"], cfg.d_model
+    S_src = _src_len(cfg, S)
+    if split.src.seq is not None:
+        own = rows * S_src // m
+        return [(("all_gather", "gather_seq", own * D * BF16),
+                 ("sends", "grad_scatter_seq", own * D * F32))]
+    if split.heads is not None:
+        return [(None, ("all_reduce", "grad_all_reduce", rows * S_src * D * F32))]
+    return []
+
+
+def _split_ops(cfg: ModelConfig, split, rows: int, S: int, cross: bool = False) -> list:
     """The collectives of one split layer on ``rows`` rows of ``S``
     positions, in the forward's order: each a pair (forward, backward) of
     ``(kind, op, nbytes)`` (kind a ``_Sent`` method; None where there is
@@ -435,9 +498,12 @@ def _split_ops(cfg: ModelConfig, split, rows: int, S: int) -> list:
     "g" the float32 reduce-scatter ``scatter_seq``, its backward
     ``grad_gather_seq`` of the bfloat16 cotangent. Dense and vlm: the
     attention's (heads, or its input gathered when whole) and the MLP's
-    (d_ff). The hybrid: one input for both branches, the SSM's ``x_proj``
-    sum over every position (d_in), the split branches' outputs side by
-    side, the MLP's."""
+    (d_ff); the moe family's attention (its MLP is the dispatch's). The
+    hybrid: one input for both branches, the SSM's ``x_proj`` sum over
+    every position (d_in), the split branches' outputs side by side, the
+    MLP's. ``cross``: the encoder-decoder's decoder layer, whose cross
+    attention follows the self-attention as a second attention (its K/V
+    from the encoder's output, :func:`_cross_in_ops`)."""
     from repro_torch.models.ssm import dt_rank
 
     m, D = split.mesh.shape["model"], cfg.d_model
@@ -467,10 +533,12 @@ def _split_ops(cfg: ModelConfig, split, rows: int, S: int) -> list:
                     (None, ("all_reduce", "grad_all_reduce", full * proj * F32))]
         if heads or d_in:
             ops.append(g(D * (heads + d_in)))
-    elif heads:
-        ops += [f(D), g(D)]
-    elif split.seq is not None:  # the whole attention reads every position
-        ops.append(f(D))
+    else:
+        for _ in range(2 if cross else 1):
+            if heads:
+                ops += [f(D), g(D)]
+            elif split.seq is not None:  # the whole attention reads every position
+                ops.append(f(D))
     if split.d_ff is not None:
         ops += [f(D), g(D)]
     return ops
@@ -486,20 +554,21 @@ def _issue(out: _Sent, op, m: int) -> None:
         getattr(out, kind)(name, "model", m, nbytes)
 
 
-def _split_layer(out: _Sent, cfg: ModelConfig, split, rows: int, S: int) -> None:
+def _split_layer(out: _Sent, cfg: ModelConfig, split, rows: int, S: int,
+                 cross: bool = False) -> None:
     """One split layer's forward collectives (:func:`_split_ops`), once."""
-    for fwd, _bwd in _split_ops(cfg, split, rows, S):
+    for fwd, _bwd in _split_ops(cfg, split, rows, S, cross):
         _issue(out, fwd, split.mesh.shape["model"])
 
 
 def _split_layer_train(out: _Sent, cfg: ModelConfig, split, rows: int, S: int,
-                       remat: bool, last: bool) -> None:
+                       remat: bool, last: bool, cross: bool = False) -> None:
     """One split layer in training: its forward's collectives, each run
     again where remat recomputes it (the recomputation stops at the last
     saved activation, so the layer's final "g", the MLP's, runs once in the
     last layer of a checkpointed unit), and the backward's."""
     m = split.mesh.shape["model"]
-    ops = _split_ops(cfg, split, rows, S)
+    ops = _split_ops(cfg, split, rows, S, cross)
     for i, (fwd, bwd) in enumerate(ops):
         trailing = split.d_ff is not None and i == len(ops) - 1
         for _ in range(2 if remat and not (trailing and last) else 1):
@@ -553,23 +622,26 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
     positions) or ``"decode"`` (one token against a cache of
     ``shape.seq_len``), by ``op@axis``. The layout's one-time gathers of the
     working copies (``lay_out``) are not a step's. Both kinds run the compute
-    split's collectives (:func:`_split_layer`: a prefill whose S |model|
-    divides on the sequence-parallel residual, ``gather_seq`` and
-    ``scatter_seq``; decode's sums, ``sum_partials``), the vocabulary
-    split's (:func:`_vocab_ops`: the embedding's sum, a prefill's last row,
-    the logits' gather) and the MoE dispatches; a decode step also gathers
-    the cache leaves that a family computing whole over ``model`` holds
-    split (``gather_cache``), and runs
-    the KV-partition slot of each layer that attends through it (heads: a
-    whole-compute family's ``all_gather`` of the output, nothing for a split
-    model's heads; sequence: the flash-decode combine's ``all_reduce_max``
-    and ``all_reduce``, also for the hybrid's rings where their slots are
+    split's collectives (:func:`_split_layer` for each layer of each stack:
+    a prefill whose S |model| divides on the sequence-parallel residual,
+    ``gather_seq`` and ``scatter_seq``; decode's sums, ``sum_partials``;
+    the encoder-decoder's prefill runs its encoder's layers on the source
+    and gathers the encoder's output once), the vocabulary split's
+    (:func:`_vocab_ops`: the embedding's sum, a prefill's last row, the
+    logits' gather) and the MoE dispatches (on the rank's positions under
+    the sequence-parallel residual); a decode step also gathers the cache
+    leaves that the model reads whole and holds split (``gather_cache``:
+    ``serving.steps.kept_slice``), and runs the KV-partition slot of each
+    layer that attends through it (heads: the ``all_gather`` of the output
+    for a model computing every head, nothing for a split model's heads;
+    sequence: the flash-decode combine's ``all_reduce_max`` and
+    ``all_reduce``, also for the hybrid's rings where their slots are
     split)."""
     from repro_torch import tree as T
     from repro_torch.models import registry
     from repro_torch.models.pshard import model_split
     from repro_torch.models.sharding import NamedSharding, batch_axes, kv_partition_mode
-    from repro_torch.serving.steps import KV_LEAVES, cache_shardings
+    from repro_torch.serving.steps import KV_LEAVES, cache_shardings, kept_slice
 
     out = _Sent()
     b_axes = batch_axes(mesh)
@@ -584,15 +656,26 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
         raise ValueError(f"serve_collectives takes prefill or decode, not {shape.kind!r}")
     S = shape.seq_len if shape.kind == "prefill" else 1
     if split is not None:
-        split = split.at(S)
-        for _ in range(cfg.num_layers):
-            _split_layer(out, cfg, split, rows, S)
+        prefill = shape.kind == "prefill"
+        split = split.at(S, _src_len(cfg, S) if prefill else None)
+        if cfg.family == "audio":  # decode runs the decoder alone
+            stacks = [(split, S, cfg.encdec.dec_layers, True)]
+            if prefill:
+                stacks.insert(0, (split.src, _src_len(cfg, S), cfg.encdec.enc_layers, False))
+                for fwd, _bwd in _cross_in_ops(cfg, split, rows, S):
+                    _issue(out, fwd, m)
+        else:
+            stacks = [(split, S, cfg.num_layers, False)]
+        for layer_split, S_layer, count, cross in stacks:
+            for _ in range(count):
+                _split_layer(out, cfg, layer_split, rows, S_layer, cross)
         if split.vocab is not None:
             for fwd, _bwd in _vocab_ops(cfg, split, rows, S, train=False):
                 _issue(out, fwd, m)
     if cfg.family == "moe":
         for _ in range(cfg.num_layers):
-            _moe_layer(out, cfg, mesh, rows, S, batch_split)
+            _moe_layer(out, cfg, mesh, rows, S, batch_split,
+                       seq=split is not None and split.seq is not None)
     if shape.kind == "prefill":
         return out
     cache = registry.cache_shapes(cfg, shape)
@@ -609,7 +692,7 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
         if behind_slot:
             slot_layers += (leaf.shape[0] if leaf.dim() == 5 else 1) if path[-1] == "k" else 0
             continue
-        if split is not None:  # a split model's leaves stay its slices
+        if kept_slice(cfg, split, path, False):  # a split model's slices
             continue
         cur = local_numel(sharding, tuple(leaf.shape)) * leaf.element_size()
         for _dim, axis in reversed(sharding.splits(leaf.dim())):
@@ -622,7 +705,7 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
             if mode == "sequence":
                 out.all_reduce("all_reduce_max", "model", m, rows * H * F32)
                 out.all_reduce("all_reduce", "model", m, rows * H * (hd + 1) * F32)
-            elif split is None:
+            elif split is None or split.heads is None:
                 out.all_gather("all_gather", "model", m, rows * H // m * hd * BF16)
     return out
 

@@ -9,13 +9,13 @@ The counterpart of ``src/repro/comm/kvshard.py``, on ``torch.distributed``:
               ``[r·KH/m, (r+1)·KH/m)`` and attends the query heads they
               serve, ``[r·H/m, (r+1)·H/m)`` (GQA: query head h reads KV head
               h // group). A model whose compute is split over 'model'
-              (``models.pshard``: dense, vlm, hybrid) computes only those
-              heads of q and of the new K/V, and the slot returns the rank's
-              heads of the output (``local_heads``): ``wo``'s row product
-              and its sum over 'model' take the place of a gather. A family
-              that computes every head (moe, audio) hands the slot all of
-              them; it writes its heads of the new K/V and all-gathers the
-              output over 'model' along the heads.
+              (``models.pshard``: every family with KV heads) computes only
+              those heads of q and of the new K/V, and the slot returns the
+              rank's heads of the output (``local_heads``): ``wo``'s row
+              product and its sum over 'model' take the place of a gather.
+              A model that computes every head hands the slot all of them;
+              it writes its heads of the new K/V and all-gathers the output
+              over 'model' along the heads.
   sequence  — cache SEQUENCE sharded over 'model' (granite kv=1, hymba kv=5,
               qwen/mistral/dbrx kv∤16): flash-decoding — each rank computes
               partial (m, l, o) over its sequence shard, combined with a

@@ -31,9 +31,10 @@ ranks (``launch.mesh.AbstractMesh``). For each cell it records:
   rank gathers in full (``serving.steps.lay_out``), outside the total.
 - ``roofline``: ``analysis.roofline.analyze`` on the H100 table, with the
   collective bytes the port's step sends (``roofline.step_collectives``,
-  also under ``collectives`` by ``op@axis``: for the dense, vlm and hybrid
-  families the compute split's, on the sequence-parallel residual where
-  |model| divides S, and the vocabulary split's).
+  also under ``collectives`` by ``op@axis``: the compute split's of every
+  family, on the sequence-parallel residual where |model| divides S (the
+  encoder-decoder's each stack over its own length), and the vocabulary
+  split's).
 - null, with the reason under ``null_reasons``: ``lower_s``, ``compile_s``
   and ``memory.temp_bytes``, which have no meaning without XLA.
 

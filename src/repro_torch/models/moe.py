@@ -17,23 +17,32 @@ expert-dispatch layer is a Select (``cfg.moe.dispatch``, negotiated by
 
 ``alltoall`` and ``allgather`` run on a mesh with a ``data`` and a ``model``
 axis whose sizes divide the global batch, the sequence and the experts
-(``moe_ffn``, the reference's conditions at ``moe.py:317-329``); anywhere
-else they resolve to ``grouped``, as the reference's do (decode, with one
-token a row, always). On a mesh, ``moe_ffn`` is given this rank's rows of
-the global batch (``batch_split`` blocks of rows dealt over ``pod`` and
-``data``, 1 where every rank holds them all; the caller passes it), each
-rank computing the whole forward on its rows: the mesh dispatches take the
-rank's ``S/|model|`` slice of the sequence (the reference's in-spec
-``P(b_axes, "model", None)``), route it with the capacity of its own
-tokens, run the rank's ``E/|model|`` experts, and hand the output back
-all-gathered over ``model``; ``grouped`` and ``dense`` on dealt rows route
+(:func:`mesh_dispatch`, the reference's conditions at ``moe.py:317-329``);
+anywhere else they resolve to ``grouped``, as the reference's do (decode,
+with one token a row, always). On a mesh, ``moe_ffn`` is given this rank's
+rows of the global batch (``batch_split`` blocks of rows dealt over ``pod``
+and ``data``, 1 where every rank holds them all; the caller passes it).
+Under the compute split's sequence-parallel residual (``pshard.Split.seq``,
+the moe family's layout since the split covers it) the rows arrive as the
+rank's ``S/|model|`` positions, the reference's in-spec ``P(b_axes,
+"model", None)``: the mesh dispatches route them with the capacity of the
+rank's own tokens, run the rank's ``E/|model|`` experts and hand back the
+rank's positions (``alltoall`` after its second all-to-all; ``allgather``
+by a reduce-scatter of the partial outputs, the reference's out-spec), and
+``grouped`` and ``dense`` read the rows gathered over S and keep their own
+positions. Without it (the residual whole: S that |model| does not divide,
+or no split) each rank computes the whole forward on its rows: the mesh
+dispatches take the rank's slice of the sequence and hand the output back
+all-gathered over ``model``. ``grouped`` and ``dense`` on dealt rows route
 the global batch (its rows all-gathered), as the reference's global
 computation does. The load-balance aux loss is averaged over ``model``,
-then ``data``, as in the reference. The rank's experts are slices of the
-bfloat16 serving banks, which every rank holds whole for decode's
-``grouped``; the reference gathers them over ``data`` inside the dispatch
-(``_gathered_weights``) because its banks stay sharded, which decode on one
-rank's whole forward cannot keep.
+then ``data``, as in the reference. In training under a mesh dispatch the
+split reads the expert banks as the rank's ``model`` block (``Split.experts``:
+gathered over the batch axes only); in serving the rank's experts are
+slices of the bfloat16 serving banks, which every rank holds whole for
+decode's ``grouped``; the reference gathers them over ``data`` inside the
+dispatch (``_gathered_weights``) because its banks stay sharded, which
+decode on one rank's whole forward cannot keep.
 
 All share the routing (``route``) and ``capacity``. The expert products are
 ``torch.bmm``/``torch.einsum`` in bfloat16, as the reference leaves its
@@ -52,13 +61,20 @@ is the all-to-all of the cotangent; the output gathered over ``model``
 feeds every rank's repeated forward (backward: the rank's block), the rows
 gathered for ``allgather``'s and the dealt ``grouped``'s experts feed each
 rank's own part (backward: a reduce-scatter sum); the partial outputs'
-sum feeds a repeated forward (backward: the cotangent as it is). The
+sum feeds a repeated forward (backward: the cotangent as it is), or is
+reduce-scattered to the rank's positions (backward: an all-gather). The
 router, the rows before their sequence slice and the banks before their
 expert slice enter the dispatch whole on every rank of ``model``, and
 their backward sums the ranks' gradients over it (``_router``,
 ``_seq_slice``, ``_local_banks``), as ``shard_map`` sums an input's
 cotangent over the axes its spec does not name; without it every rank
-would keep its own tokens' or experts' share of the gradient only.
+would keep its own tokens' or experts' share of the gradient only. Under
+the sequence-parallel residual the rows arrive as the rank's positions and
+the banks as its experts, so only the router's sum remains. ``grouped`` on
+the rows gathered over S computes the aux whole on every rank of
+``model``, while each rank's LM loss reads its own positions: the aux
+passes only 1/|model| of its gradient (``_aux_once``), so that the sums
+over ``model`` of the router's and the rows' gradients count it once.
 
 Three of the reference's semantics that PyTorch does not give for free:
 
@@ -287,22 +303,25 @@ def _seq_slice(x3d: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 
 def dispatch_alltoall(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
-                      axis: str = "model", data_axis: str = "data"):
+                      axis: str = "model", data_axis: str = "data", *,
+                      positions: bool = False, experts: bool = False):
     """Explicit expert-parallel all-to-all over ``axis``.
 
-    x3d ``(B_l, S, D)`` is this rank's rows. The rank routes its S/n slice
-    of them with the capacity of its own tokens, all-to-alls the
-    ``(n, E/n, C, D)`` capacity buffers to the experts' owners, computes its
-    E/n experts, all-to-alls the outputs back and combines them; the output
-    is all-gathered over ``axis`` into the rows' whole sequence. Returns
-    (``(B_l, S, D)``, aux)."""
+    x3d ``(B_l, S, D)`` is this rank's rows (``positions``: its ``(B_l,
+    S/n, D)`` positions of them, the sequence-parallel residual). The rank
+    routes its S/n slice with the capacity of its own tokens, all-to-alls
+    the ``(n, E/n, C, D)`` capacity buffers to the experts' owners, computes
+    its E/n experts (``experts``: ``p``'s banks are the rank's experts
+    already), all-to-alls the outputs back and combines them; the output is
+    the rank's positions, or with the whole rows all-gathered over ``axis``
+    into their whole sequence. Returns (``(B_l, S or S/n, D)``, aux)."""
     n = mesh.shape[axis]
     E = cfg.moe.num_experts
     if E % n:
         raise ValueError(f"{E} experts over {n} ranks")
     B_l, S, D = x3d.shape
-    x_loc = _seq_slice(x3d, mesh, axis)
-    banks = _local_banks(p, mesh, axis)
+    x_loc = x3d.reshape(-1, D) if positions else _seq_slice(x3d, mesh, axis)
+    banks = p.banks() if experts else _local_banks(p, mesh, axis)
     gates, ids, aux = route(_router(p, mesh, axis), x_loc, cfg)
     C = capacity(x_loc.shape[0], cfg)
     pos, keep = _positions_in_expert(ids, E, C)
@@ -315,6 +334,8 @@ def dispatch_alltoall(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
     y_send = y_pe.reshape(E // n, n, C, D).transpose(0, 1).contiguous()
     y_sorted = collectives.all_to_all_grad(y_send, mesh, axis).reshape(E, C, D)  # rank's slots
     y_loc = _combine(y_sorted, ids, pos, gates, keep, C).to(x3d.dtype)
+    if positions:
+        return y_loc.reshape(B_l, S, D), _mean_aux(aux, mesh, axis, data_axis)
     # every rank of the axis goes on with the whole sequence of its rows
     y = collectives.gather_grad(y_loc.reshape(B_l, S // n, D), mesh, axis, 1,
                                 downstream="replicated")
@@ -322,21 +343,24 @@ def dispatch_alltoall(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
 
 
 def dispatch_allgather(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
-                       axis: str = "model", data_axis: str = "data"):
+                       axis: str = "model", data_axis: str = "data", *,
+                       positions: bool = False, experts: bool = False):
     """Each model-rank computes its local experts for its data row's
-    tokens: the rank's S/n slice is all-gathered over ``axis`` (bfloat16),
-    routed with the capacity of the row's tokens, and the partial outputs
-    summed over ``axis``. The sum is the row's whole output, the port's
-    layout: the reference keeps this rank's slice of it. Returns
-    (``(B_l, S, D)``, aux)."""
+    tokens: the rank's S/n slice (``positions``: ``x3d`` is its positions
+    already) is all-gathered over ``axis`` (bfloat16), routed with the
+    capacity of the row's tokens, and the partial outputs summed over
+    ``axis``: reduce-scattered to the rank's positions (the reference's
+    out-spec) with ``positions``, else all-reduced into the row's whole
+    output (the port's layout of whole rows). ``experts`` as for
+    :func:`dispatch_alltoall`. Returns (``(B_l, S or S/n, D)``, aux)."""
     n, r = mesh.shape[axis], mesh.coords[axis]
     E = cfg.moe.num_experts
     if E % n:
         raise ValueError(f"{E} experts over {n} ranks")
     e_loc = E // n
     B_l, S, D = x3d.shape
-    x_loc = _seq_slice(x3d, mesh, axis)
-    banks = _local_banks(p, mesh, axis)
+    x_loc = x3d.reshape(-1, D) if positions else _seq_slice(x3d, mesh, axis)
+    banks = p.banks() if experts else _local_banks(p, mesh, axis)
     # (n*T_loc, D); each rank runs its own experts on it: the backward sums
     x_row = collectives.gather_grad(x_loc.to(COMPUTE), mesh, axis, 0, downstream="partial")
     Tn = x_row.shape[0]
@@ -348,34 +372,64 @@ def dispatch_allgather(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
     x_sorted = _sorted_tokens(x_row, _slot_tokens(ids_loc, pos, keep_loc, e_loc, C, Tn))
     y_sorted = expert_ffn(banks, x_sorted, cfg)
     y_part = _combine(y_sorted, ids_loc, pos, gates, keep_loc, C)  # (Tn, D)
+    if positions:  # rows of x_row are (model rank, token): this rank's are block r
+        y = collectives.scatter_seq(y_part[None], mesh, axis, x3d.dtype, op="reduce_scatter")
+        return y.reshape(B_l, S, D), _mean_aux(aux, mesh, axis, data_axis)
     y_row = collectives.all_reduce_grad(y_part, mesh, axis, downstream="replicated")
     # rows of x_row are (model rank, row, position in the slice)
     y = y_row.reshape(n, B_l, S // n, D).transpose(0, 1).reshape(B_l, S, D)
     return y.to(x3d.dtype), _mean_aux(aux, mesh, axis, data_axis)
 
 
+def mesh_dispatch(cfg: ModelConfig, mesh, rows: int, S: int, batch_split: int = 1):
+    """The mesh dispatch (``"alltoall"`` or ``"allgather"``) that a
+    ``moe_ffn`` call on ``rows`` rows of ``S`` positions (the whole
+    sequence) runs on ``mesh``, or None where it resolves to ``grouped`` or
+    ``dense``: the reference's conditions, a mesh with ``data`` and
+    ``model`` axes, the global batch (``rows·batch_split``) divided by the
+    batch axes and ``model`` dividing the sequence and the experts."""
+    impl = cfg.moe.dispatch
+    if impl not in ("alltoall", "allgather") or mesh is None:
+        return None
+    axes = tuple(mesh.axis_names)
+    n_batch = math.prod(mesh.shape[a] for a in batch_axes(mesh))
+    n_model = mesh.shape["model"] if "model" in axes else 1
+    manual_ok = ("model" in axes and "data" in axes and (rows * batch_split) % n_batch == 0
+                 and S % n_model == 0 and cfg.moe.num_experts % n_model == 0)
+    return impl if manual_ok else None
+
+
+def _aux_once(aux: torch.Tensor, m: int) -> torch.Tensor:
+    """``aux``, computed whole on each of the ``m`` ranks of ``model`` from
+    the rows gathered over S, passing 1/m of its gradient: the router's and
+    the rows' gradients are summed over ``model`` (each rank's LM loss
+    reads its own positions only), which then counts it once."""
+    return aux.detach() + (aux - aux.detach()) / m
+
+
 def moe_ffn(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh=None, *,
-            batch_split: int = 1):
+            batch_split: int = 1, split=None):
     """The dispatch Select's resolution: x3d ``(B_l, S, D)`` -> (``(B_l, S,
     D)``, aux). On ``mesh`` x3d is this rank's rows: one of ``batch_split``
     blocks of the global batch dealt over ``pod`` and ``data`` (1: all of
-    them). ``alltoall`` and ``allgather`` run on a mesh with ``data`` and
-    ``model`` axes when the global batch divides the batch axes and
-    ``model`` divides the sequence and the experts; else they resolve to
-    ``grouped``, as the reference's do."""
+    them); under ``split``'s ``seq`` (a ``pshard.Split``) their ``(B_l,
+    S/|model|, D)`` positions, and the output is those positions too.
+    ``alltoall`` and ``allgather`` run where :func:`mesh_dispatch` says;
+    else they resolve to ``grouped``, as the reference's do."""
     impl = cfg.moe.dispatch
     if impl not in DISPATCHES:
         raise ValueError(f"unknown moe dispatch {impl!r}")
+    seq = split is not None and split.seq is not None
     B_l, S, D = x3d.shape
-    axes = tuple(mesh.axis_names) if mesh is not None else ()
-    n_batch = math.prod(mesh.shape[a] for a in batch_axes(mesh)) if mesh is not None else 1
-    n_model = mesh.shape["model"] if "model" in axes else 1
-    manual_ok = ("model" in axes and "data" in axes and (B_l * batch_split) % n_batch == 0
-                 and S % n_model == 0 and cfg.moe.num_experts % n_model == 0)
-    if impl == "alltoall" and manual_ok:
-        return dispatch_alltoall(p, x3d, cfg, mesh)
-    if impl == "allgather" and manual_ok:
-        return dispatch_allgather(p, x3d, cfg, mesh)
+    S_all = S * mesh.shape["model"] if seq else S
+    on_mesh = mesh_dispatch(cfg, mesh, B_l, S_all, batch_split)
+    if on_mesh is not None:
+        fn = dispatch_alltoall if on_mesh == "alltoall" else dispatch_allgather
+        return fn(p, x3d, cfg, mesh, positions=seq,
+                  experts=split is not None and split.experts)
+    if seq:  # every position of the rank's rows; it keeps its own
+        y, aux = moe_ffn(p, split.gather(x3d), cfg, mesh, batch_split=batch_split)
+        return split.own(y), _aux_once(aux, mesh.shape["model"])
     fn = dispatch_dense if impl == "dense" else dispatch_grouped
     if batch_split == 1:
         y, aux = fn(p, x3d.reshape(B_l * S, D), cfg)
@@ -402,41 +456,58 @@ class MoeLM(DenseLM):
     layer's load-balance aux through the stack beside the residual stream,
     as the reference's ``moe_layer`` carry ``(x, aux_acc)``: an output of the
     layer's body, so that a layer recomputed in backward (``cfg.remat``)
-    counts its aux once."""
+    counts its aux once. On a mesh whose ``model`` axis has more than one
+    rank it inherits ``DenseLM``'s compute split (``pshard.Split``: the
+    attention's heads, the sequence-parallel residual, the vocabulary), and
+    ``moe_ffn`` takes the split's layout of the rows."""
 
     FAMILY, LAYER = "moe", MoeLayer
 
     def _ffn(self, layer: MoeLayer, h: torch.Tensor, batch_split: int = 1,
              split=None) -> torch.Tensor:
         y, _aux = moe_ffn(layer.moe, layer.ln2(h), self.cfg, self.mesh,
-                          batch_split=batch_split)
+                          batch_split=batch_split, split=split)
         return y
 
-    def _train_moe_layer(self, layer: MoeLayer, carry: tuple, rope: tuple, *,
+    def _train_moe_layer(self, layer: MoeLayer, carry: tuple, rope: tuple, split=None, *,
                          batch_split: int = 1):
         """The reference's ``moe_layer``: (x, aux_acc) -> (x', aux_acc + aux)."""
         x, aux_acc = carry
-        h = self._attn_residual(layer, x, rope)
-        y, aux = moe_ffn(layer.moe, layer.ln2(h), self.cfg, self.mesh, batch_split=batch_split)
+        h = self._attn_residual(layer, x, rope, split)
+        y, aux = moe_ffn(layer.moe, layer.ln2(h), self.cfg, self.mesh, batch_split=batch_split,
+                         split=split)
         return h + y, aux_acc + aux
 
-    def hidden_states(self, tokens: torch.Tensor, *, batch_split: int = 1):
+    def hidden_states(self, tokens: torch.Tensor, *, batch_split: int = 1, split=None):
         """tokens (B, S) -> (final hidden states (B, S, D) bfloat16, the
         layers' summed aux loss): the reference's ``moe.hidden_states``.
         ``batch_split`` as for :meth:`prefill`: on a mesh, the rank's rows
-        are one of ``batch_split`` blocks of the global batch."""
-        x = self.embed(tokens)
+        are one of ``batch_split`` blocks of the global batch. Under
+        ``split``'s ``seq`` the hidden states are the rank's positions."""
+        x = self._embed_inputs(tokens, None, split)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         x, aux = self._train_stack(
             (x, zero), tokens.shape[1],
-            lambda layer, c, rope, _split: self._train_moe_layer(layer, c, rope,
-                                                                 batch_split=batch_split))
+            lambda layer, c, rope, sp: self._train_moe_layer(layer, c, rope, sp,
+                                                             batch_split=batch_split),
+            split)
         return self.final_norm(x), aux
+
+    def train_split(self, rows: int, S: int, batch_split: int = 1):
+        """The training forward's split on ``rows`` rows of ``S`` positions:
+        ``DenseLM``'s, reading the expert banks as the rank's ``model``
+        block where the dispatch runs on the mesh (:func:`mesh_dispatch`)."""
+        split = self._train_split(S)
+        if split is not None and mesh_dispatch(self.cfg, split.mesh, rows, S, batch_split):
+            split = split.with_experts()
+        return split
 
     def loss(self, batch: dict, *, loss_chunk=None, batch_split: int = 1) -> torch.Tensor:
         """The reference's ``moe.loss_fn``: the LM loss of ``batch``
         (``tokens``, ``labels``) plus the aux."""
         self._check_released()
-        with self._head_gathered():
-            h, aux = self.hidden_states(batch["tokens"], batch_split=batch_split)
-            return self._lm_loss(h, batch["labels"], loss_chunk) + aux
+        tokens = batch["tokens"]
+        split = self.train_split(tokens.shape[0], tokens.shape[1], batch_split)
+        with self._head_gathered(split):
+            h, aux = self.hidden_states(tokens, batch_split=batch_split, split=split)
+            return self._lm_loss(h, batch["labels"], loss_chunk, split) + aux

@@ -34,11 +34,22 @@ the reference's divisibility rules:
   ``vocab_padded`` (the reference's table spec ``("model", fsdp)`` and head
   ``(fsdp, "model")``).
 
-:class:`Split` is one rank's split of a model of the dense, vlm or hybrid
-family (:func:`model_split`; the other families compute whole on every rank
-of ``model``). Its column products (``wq``/``wk``/``wv``, ``gate``/``up``,
-the SSM's ``in_proj``) take the rank's output block after Megatron's "f"
-(:meth:`Split.enter`: the identity, its backward a sum over ``model``); its
+:class:`Split` is one rank's split of a model (:func:`model_split`), by
+family: dense, vlm and hybrid split the attention's heads, the MLP's d_ff
+(the hybrid also the SSM's d_in), the residual over S and the vocabulary.
+The moe family splits the heads, the residual and the vocabulary; its
+experts are the dispatch's business (``models.moe``), and in training under
+a mesh dispatch the split reads the expert banks as the rank's ``model``
+block (``experts``). The audio family (the encoder-decoder) splits the
+heads of all three attentions (encoder self, decoder self, cross), both
+stacks' d_ff, each stack's residual over its own length (the encoder's
+split is ``Split.src``, by :meth:`Split.at`) and the vocabulary. The ssm
+family (xLSTM) splits the vocabulary only: the reference pins its residual
+by batch only (``shard_batch``), so ``seq`` is never set, and its blocks
+and state stay whole on every rank of ``model``. Its column products
+(``wq``/``wk``/``wv``, ``gate``/``up``, the SSM's ``in_proj``) take the
+rank's output block after Megatron's "f" (:meth:`Split.enter`: the
+identity, its backward a sum over ``model``); its
 row products (``wo``, ``down``, ``out_proj``, and ``x_proj``, whose input is
 the rank's channels) take the rank's input block, and their partial outputs
 are summed by the "g" (:meth:`Split.reduce`: a float32 sum of the bfloat16
@@ -91,8 +102,16 @@ from repro_torch.comm import collectives
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import COMPUTE
 
-#: the families whose layers split their compute over ``model``
-SPLIT_FAMILIES = ("dense", "vlm", "hybrid")
+#: the families whose compute splits over ``model``
+SPLIT_FAMILIES = ("dense", "vlm", "hybrid", "moe", "audio", "ssm")
+#: the families whose residual the reference pins by batch only
+#: (``shard_batch``): never sequence-parallel
+BATCH_ONLY = ("ssm",)
+#: the parameters of the encoder-decoder that the encoder's split reads
+#: (``Split.src``), by their first name
+SRC_PARAMS = ("encoder", "src_proj", "enc_norm")
+#: the stacks of per-layer parameters, by their first name
+STACKS = ("layers", "encoder", "decoder")
 AXIS = "model"
 
 
@@ -185,12 +204,19 @@ def _halves(d_in: int, block: slice) -> Read:
     return Read("shared", take)
 
 
-#: a layer's norms, by their name in the layer (hymba's fusion norms too)
-_NORMS = ("ln1", "gn_attn", "gn_ssm", "ln2")
+#: a layer's norms, by their name in the layer (hymba's fusion norms, the
+#: decoder's cross-attention norm ``lnx`` too)
+_NORMS = ("ln1", "gn_attn", "gn_ssm", "lnx", "ln2")
+#: a layer's attentions: the decoder-only families' ``attn``, the
+#: encoder-decoder's ``attn`` (encoder), ``self_attn`` and ``cross_attn``
+_ATTNS = ("attn", "self_attn", "cross_attn")
 #: the leaves of each block that may stay whole, by their name in the layer
-_ATTN = ("attn.wq.w", "attn.wq.b", "attn.wk.w", "attn.wk.b", "attn.wv.w", "attn.wv.b",
-         "attn.wo.w")
+_ATTN = tuple(f"{a}.{leaf}" for a in _ATTNS
+              for leaf in ("wq.w", "wq.b", "wk.w", "wk.b", "wv.w", "wv.b", "wo.w"))
 _MLP = ("mlp.gate.w", "mlp.up.w", "mlp.down.w")
+#: the moe layer's expert banks and router
+_BANKS = ("moe.gate", "moe.up", "moe.down")
+_ROUTER = ("moe.router.w",)
 _SSM = tuple(f"ssm.{leaf}" for leaf in ("in_proj.w", "conv_w", "conv_b", "x_proj.w",
                                         "dt_proj.w", "dt_bias", "A_log", "D", "out_proj.w"))
 
@@ -199,35 +225,52 @@ class Split:
     """One rank's compute split over ``model`` of a model of ``cfg``:
     ``heads`` (or None: the attention is whole), ``d_ff`` and ``d_in`` (the
     rank's block of the MLP's and the SSM's channels, or None), ``vocab``
-    (the rank's rows of the vocabulary, or None) and ``seq`` (the rank's
-    positions of the residual stream in this call, or None: :meth:`at`)."""
+    (the rank's rows of the vocabulary, or None), ``seq`` (the rank's
+    positions of the residual stream in this call, or None: :meth:`at`),
+    ``experts`` (the moe family's expert banks read as the rank's ``model``
+    block: a training call whose dispatch runs on the mesh) and ``src`` (the
+    encoder-decoder's split of its encoder in this call, whose ``seq`` is
+    the rank's positions of the source, or None)."""
 
     def __init__(self, mesh, cfg: ModelConfig, heads: Optional[Heads],
                  d_ff: Optional[slice], d_in: Optional[slice],
-                 vocab: Optional[slice] = None, seq: Optional[slice] = None):
+                 vocab: Optional[slice] = None, seq: Optional[slice] = None,
+                 experts: bool = False, src: Optional["Split"] = None):
         if seq is not None and vocab is None:
             raise ValueError(f"the sequence-parallel residual needs the vocabulary split: "
                              f"|model| does not divide vocab_padded {cfg.vocab_padded}")
         self.mesh, self.cfg = mesh, cfg
         self.heads, self.d_ff, self.d_in = heads, d_ff, d_in
-        self.vocab, self.seq = vocab, seq
+        self.vocab, self.seq, self.experts, self.src = vocab, seq, experts, src
         self._reads = self._layer_reads()
         self._top = self._top_reads()
 
-    def _with_seq(self, seq: Optional[slice]) -> "Split":
-        if seq == self.seq:
+    def _with(self, **kw) -> "Split":
+        fields = {"seq": self.seq, "experts": self.experts, "src": self.src, **kw}
+        if all(fields[k] is getattr(self, k) or fields[k] == getattr(self, k) for k in fields):
             return self
-        return Split(self.mesh, self.cfg, self.heads, self.d_ff, self.d_in, self.vocab, seq)
+        return Split(self.mesh, self.cfg, self.heads, self.d_ff, self.d_in, self.vocab,
+                     **fields)
 
-    def at(self, S: int) -> "Split":
+    def at(self, S: int, S_src: Optional[int] = None) -> "Split":
         """This split for a call on ``S`` positions: ``seq`` by
-        :func:`shard_seq`."""
-        return self._with_seq(shard_seq(S, self.mesh))
+        :func:`shard_seq` (None for the families the reference pins by
+        batch only); ``S_src``, the encoder-decoder's source positions, gives
+        ``src``, the encoder's split of them."""
+        seq = None if self.cfg.family in BATCH_ONLY else shard_seq(S, self.mesh)
+        src = None if S_src is None else self._with(src=None).at(S_src)
+        return self._with(seq=seq, src=src)
 
     def whole_seq(self) -> "Split":
         """This split with the residual whole (``seq`` None): for a sum inside
         a block that reads every position (the SSM's ``x_proj``)."""
-        return self._with_seq(None)
+        return self._with(seq=None)
+
+    def with_experts(self) -> "Split":
+        """This split reading the expert banks as the rank's ``model`` block:
+        the moe family's training call whose dispatch runs on the mesh
+        (``models.moe.mesh_dispatch``)."""
+        return self._with(experts=True)
 
     def enter(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """``x`` into the column products ("f"): under ``seq`` the all-gather
@@ -294,15 +337,19 @@ class Split:
         out: Dict[str, Read] = {}
         hd = self.cfg.head_dim_
         if self.heads is not None:
-            for leaf in ("attn.wq.w", "attn.wq.b", "attn.wo.w"):
-                out[leaf] = BLOCK
             kv = self.heads.kv
             read = BLOCK if self.heads.kv_block else _narrow(-1, slice(kv.start * hd,
                                                                        kv.stop * hd))
-            for leaf in ("attn.wk.w", "attn.wk.b", "attn.wv.w", "attn.wv.b"):
-                out[leaf] = read
+            for a in _ATTNS:
+                for leaf in ("wq.w", "wq.b", "wo.w"):
+                    out[f"{a}.{leaf}"] = BLOCK
+                for leaf in ("wk.w", "wk.b", "wv.w", "wv.b"):
+                    out[f"{a}.{leaf}"] = read
         if self.d_ff is not None:
-            for leaf in ("mlp.gate.w", "mlp.up.w", "mlp.down.w"):
+            for leaf in _MLP:
+                out[leaf] = BLOCK
+        if self.experts:
+            for leaf in _BANKS:
                 out[leaf] = BLOCK
         if self.d_in is not None:
             d_in = self.cfg.ssm.expand * self.cfg.d_model
@@ -320,6 +367,12 @@ class Split:
                 whole += _MLP
             if self.d_in is None and self.cfg.family == "hybrid":
                 whole += _SSM
+            if self.cfg.family == "moe" and not self.experts:
+                # the dispatch on the rows gathered over S: each rank's loss
+                # reads its own positions of it. Under a mesh dispatch the
+                # router enters through ``moe._router``, whose backward sums
+                # it over ``model`` already
+                whole += _ROUTER + _BANKS
             out.update({n: SHARED for n in whole if n not in out})
         return out
 
@@ -327,41 +380,55 @@ class Split:
         out: Dict[str, Read] = {}
         if self.vocab is not None:
             out["embed.table"] = out["lm_head.w"] = BLOCK
-        if self.seq is not None:
-            out["final_norm.scale"] = out["final_norm.bias"] = SHARED
+        if self.seq is not None:  # read on the rank's positions
+            for name in ("final_norm.scale", "final_norm.bias", "enc_norm.scale",
+                         "enc_norm.bias", "src_proj.w", "src_proj.b"):
+                out[name] = SHARED
         return out
 
     def reads(self, prefix: Optional[str] = None) -> Dict[str, Read]:
         """The parameters that the split reads otherwise than whole, by their
         name in a layer (``prefix`` None), or in the top-level module
-        ``prefix`` (``"embed."``, ``"final_norm."``, ``"lm_head."``)."""
+        ``prefix`` (``"embed."``, ``"final_norm."``, ``"lm_head."``; the
+        encoder-decoder's ``"src_proj."`` and ``"enc_norm."`` by ``src``)."""
         if prefix is None:
             return self._reads
+        if self.src is not None and prefix.partition(".")[0] in SRC_PARAMS:
+            return self.src.reads(prefix)
         return {n[len(prefix):]: r for n, r in self._top.items() if n.startswith(prefix)}
 
     def read_of(self, name: str) -> Optional[Read]:
-        """The read of the model's parameter ``name`` (``layers.{i}.<leaf>``
-        or a top-level one), or None (whole)."""
+        """The read of the model's parameter ``name`` (``layers.{i}.<leaf>``,
+        ``encoder.{i}.<leaf>``, ``decoder.{i}.<leaf>`` or a top-level one),
+        or None (whole). The encoder's parameters are read by ``src`` where
+        it is set."""
         head, _, rest = name.partition(".")
-        if head != "layers":
+        if self.src is not None and head in SRC_PARAMS:
+            return self.src.read_of(name)
+        if head not in STACKS:
             return self._top.get(name)
         return self._reads.get(rest.partition(".")[2])
 
     def __repr__(self) -> str:
+        extra = (", experts=True" if self.experts else "") + \
+            (f", src_seq={self.src.seq}" if self.src is not None else "")
         return (f"Split(heads={self.heads}, d_ff={self.d_ff}, d_in={self.d_in}, "
-                f"vocab={self.vocab}, seq={self.seq})")
+                f"vocab={self.vocab}, seq={self.seq}{extra})")
 
 
 def model_split(cfg: ModelConfig, mesh, kv_mode: Optional[str] = None) -> Optional[Split]:
-    """This rank's split of a model of ``cfg`` on ``mesh``, or None where the
-    family computes whole (moe, ssm, audio), |model| is 1, or nothing divides.
+    """This rank's split of a model of ``cfg`` on ``mesh``, or None where
+    |model| is 1 or nothing divides. By family: heads, d_ff and vocabulary
+    (dense, vlm, audio), with d_in (hybrid); heads and vocabulary (moe: its
+    config's ``d_ff`` names no dense MLP); the vocabulary only (ssm).
     ``kv_mode``: the serving KV partition (``"sequence"`` keeps the attention
     whole); None in training. Its ``seq`` is None: a call on S positions
     takes :meth:`Split.at`."""
     if cfg.family not in SPLIT_FAMILIES or mesh is None or _model(mesh)[0] == 1:
         return None
-    heads = shard_heads(cfg, mesh, kv_mode)
-    d_ff = shard_model_dim(cfg.d_ff, mesh)
+    heads = shard_heads(cfg, mesh, kv_mode) if cfg.family != "ssm" else None
+    d_ff = (shard_model_dim(cfg.d_ff, mesh)
+            if cfg.family in ("dense", "vlm", "hybrid", "audio") else None)
     d_in = (shard_model_dim(cfg.ssm.expand * cfg.d_model, mesh)
             if cfg.family == "hybrid" else None)
     vocab = shard_vocab(cfg, mesh)

@@ -11,7 +11,8 @@ in backward under ``cfg.remat`` (``stacking.remat``).
 A model sharded over a mesh (:meth:`DenseLM.shard`) holds only its rank's
 block of each parameter and gathers what the training forward reads
 (``sharding.Layout``). On a mesh whose ``model`` axis has more than one rank
-the dense and vlm families split their compute over it (``pshard.Split``):
+the dense and vlm families split their compute over it (``pshard.Split``;
+the moe, ssm and audio families' models reuse these helpers):
 a rank computes its query heads and the KV heads they read (where |model|
 divides H), and its d_ff/|model| channels of the MLP; the row products'
 partial outputs (``wo``, ``down``) are summed over ``model``. The split's
@@ -226,7 +227,7 @@ class DenseLM(nn.Module):
         q, k, v = layer.attn.qkv(self._attn_in(layer.ln1(x), split), rope)
         o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                            window=cfg.sliding_window, chunk=cfg.attn_chunk)
-        return x + self._attn_out(layer, o, split)
+        return x + self._attn_out(layer.attn, o, split)
 
     @staticmethod
     def _attn_in(h: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
@@ -238,15 +239,15 @@ class DenseLM(nn.Module):
         return split.enter(h) if split.heads is not None else split.gather(h)
 
     @staticmethod
-    def _attn_out(layer: nn.Module, o: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
-        """``wo`` of the attention's output (B, S, heads, hd): a row product
-        summed over ``model`` when ``o`` holds the rank's heads; of the
-        rank's positions of a whole attention under a sequence split."""
+    def _attn_out(att: Attention, o: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+        """``att.wo`` of the attention's output (B, S, heads, hd): a row
+        product summed over ``model`` when ``o`` holds the rank's heads; of
+        the rank's positions of a whole attention under a sequence split."""
         if split is None or split.heads is None:
             o = o if split is None else split.own(o)
-            return layer.attn.wo(o.reshape(o.shape[0], o.shape[1], -1))
+            return att.wo(o.reshape(o.shape[0], o.shape[1], -1))
         B, S = o.shape[:2]
-        return split.reduce(layer.attn.wo.partial(o.reshape(B, S, -1)))
+        return split.reduce(att.wo.partial(o.reshape(B, S, -1)))
 
     def _train_layer(self, layer: DecoderLayer, x: torch.Tensor, rope: tuple,
                      split: Optional[Split] = None) -> torch.Tensor:
@@ -411,7 +412,7 @@ class DenseLM(nn.Module):
             q, k, v = layer.attn.qkv(self._attn_in(layer.ln1(x), split), rope)
             o = attn.attention(q, k, v, impl=self.attn_impl, causal=True,
                                window=cfg.sliding_window, chunk=cfg.attn_chunk)
-            x = x + self._attn_out(layer, o, split)
+            x = x + self._attn_out(layer.attn, o, split)
             x = x + self._ffn(layer, x, batch_split, split)
             ks.append(k.to(COMPUTE))
             vs.append(v.to(COMPUTE))
@@ -453,7 +454,7 @@ class DenseLM(nn.Module):
             slot.write(cache["k"][i], k, pos)
             slot.write(cache["v"][i], v, pos)
             o = slot(q, cache["k"][i], cache["v"][i], pos + 1, cfg.sliding_window)
-            x = x + self._attn_out(layer, o, split)
+            x = x + self._attn_out(layer.attn, o, split)
             x = x + self._ffn(layer, x, batch_split, split)
         return {"k": cache["k"], "v": cache["v"], "len": pos + 1}, self._last_logits(x, split)
 

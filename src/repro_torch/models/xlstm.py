@@ -24,9 +24,18 @@ float32, and generation needs no growth. The gate products run in float32
 (``Linear(..., dtype=torch.float32)``, the reference's
 ``L.linear(..., dtype=jnp.float32)``); the rest in bfloat16. This family
 runs no kernel.
+
+On a mesh whose ``model`` axis has more than one rank the embedding and the
+head are vocabulary-parallel (``pshard.Split.vocab``, the reference's table
+and head specs): the rank's rows' lookups summed over ``model``, the loss
+``layers.vocab_parallel_lm_loss`` of the rank's columns, the serving
+logits gathered. The blocks and the state stay whole on every rank of
+``model``: the reference pins the residual by batch only (``shard_batch``),
+so the split has no ``seq``.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional
 
 import torch
@@ -35,6 +44,7 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import MLP, Linear, Norm, truncated_normal_
+from repro_torch.models.pshard import Split
 from repro_torch.models.transformer import DenseLM
 
 F32 = torch.float32
@@ -236,43 +246,49 @@ class XlstmLM(DenseLM):
         not read)."""
         return self.init_state(batch)
 
-    def forward(self, tokens: torch.Tensor, state: Optional[dict] = None):
+    def forward(self, tokens: torch.Tensor, state: Optional[dict] = None,
+                split: Optional[Split] = None, *, gather: bool = True):
         """tokens ``(B, S)`` from ``state`` (the zero state where None) ->
         (the final hidden states ``(B, S, D)``, each layer's new state). A
-        sharded model gathers each layer's parameters for its block."""
-        x = self.embed(tokens)
+        sharded model in training gathers each layer's parameters for its
+        block (``gather``); serving (``gather=False``) reads the working
+        copies that ``serving.steps.lay_out`` made. Under ``split`` the
+        embedding is its vocabulary split's."""
+        x = self._embed_inputs(tokens, None, split)
         states = []
         for idx, layer in enumerate(self.layers):
             st = state["layers"][idx] if state is not None else None
             apply = slstm_apply if is_slstm(idx, self.cfg) else mlstm_apply
-            with self._gathered(layer, f"layers.{idx}."):
+            with self._gathered(layer, f"layers.{idx}.") if gather else nullcontext():
                 x, st = apply(layer, x, self.cfg, st)
             states.append(st)
         return self.final_norm(x), states
 
     # -- training ----------------------------------------------------------
 
-    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
+    def hidden_states(self, tokens: torch.Tensor,
+                      split: Optional[Split] = None) -> torch.Tensor:
         """tokens ``(B, S)`` -> the final hidden states ``(B, S, D)`` from the
         zero state: the reference's ``forward``, whose layers take no remat.
         The sLSTM's loop over time is differentiated as it runs."""
-        return self(tokens)[0]
+        return self(tokens, None, split)[0]
 
     def loss(self, batch: dict, *, loss_chunk=None, batch_split: int = 1) -> torch.Tensor:
         """The reference's ``xlstm.loss_fn``: the mean next-token
         cross-entropy of ``batch`` (``tokens``, ``labels``) through the
-        untied ``lm_head``."""
+        untied ``lm_head`` (vocabulary-parallel on a split mesh)."""
         self._check_released()
-        with self._head_gathered():
-            return self._lm_loss(self.hidden_states(batch["tokens"]), batch["labels"],
-                                 loss_chunk)
+        split = self._train_split(batch["tokens"].shape[1])
+        with self._head_gathered(split):
+            return self._lm_loss(self.hidden_states(batch["tokens"], split), batch["labels"],
+                                 loss_chunk, split)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
         """The whole prompt ``(B, S)`` from the zero state; returns the state
         after it and the last position's logits ``(B, vocab_padded)``."""
-        h, states = self(tokens)
-        return {"layers": states, "len": tokens.shape[1]}, self._logits(h[:, -1])
+        h, states = self(tokens, None, self.split, gather=False)
+        return {"layers": states, "len": tokens.shape[1]}, self._logits(h[:, -1], self.split)
 
     def grow_cache(self, cache: dict, extra: int) -> dict:
         """The state as it is: a recurrent model needs no room to generate."""
@@ -282,5 +298,5 @@ class XlstmLM(DenseLM):
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """One token per row, ``tokens`` ``(B, 1)``, from the state (mLSTM at
         chunk 1); returns the new state (new tensors) and the logits."""
-        h, states = self(tokens, cache)
-        return {"layers": states, "len": cache["len"] + 1}, self._logits(h[:, -1])
+        h, states = self(tokens, cache, self.split, gather=False)
+        return {"layers": states, "len": cache["len"] + 1}, self._logits(h[:, -1], self.split)

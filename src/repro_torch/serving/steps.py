@@ -10,16 +10,19 @@ process of its own and the split is explicit:
   reads working copies made once from the blocks: the bfloat16 serving
   copies of the matrices (``prepare``) and a float32 copy of each leaf the
   forward reads in float32 (the SSM's conv and ``A_log``, xLSTM's gates,
-  the MoE router). The dense, vlm and hybrid families split their compute
-  over ``model`` (``models.pshard``, for the steps' KV mode): the working
+  the MoE router). Every family splits its compute over ``model``
+  (``models.pshard``, for the steps' KV mode; xLSTM its vocabulary only):
+  the working
   copy of a leaf the split consumes is the rank's part of it (its ``model``
   block gathered over the batch axes only; ``in_proj``'s channels of x and
   z and ``x_proj``'s input rows cut from the gathered whole), so a rank
   holds about 1/|model| of those layers' weights; where |model| divides
   ``vocab_padded`` the table's and the head's copies are the rank's rows
   and columns of the vocabulary (the tied llama table halves on |model|
-  2). Every other leaf's copy is gathered whole. The MoE mesh dispatches run the rank's experts, slices of
-  the whole serving banks that decode's ``grouped`` reads (``models.moe``).
+  2). Every other leaf's copy is gathered whole (the MoE banks too). The
+  MoE mesh dispatches run the rank's experts, slices of the whole serving
+  banks that decode's
+  ``grouped`` reads (``models.moe``).
 - Batch rows go by ``data_spec``: each rank runs the forward on its rows of
   the global batch (all of them where the batch does not divide the batch
   axes); the ranks along ``model`` share their rows, and under the split
@@ -38,9 +41,10 @@ process of its own and the split is explicit:
   (``comm.kvshard.pick_kv_chunnel``), passed to the model's decode slot at
   every step (the model keeps no step's state but its mesh and split).
   Heads mode: a rank holds KV heads ``[r·KH/m, (r+1)·KH/m)``; a split model
-  computes those heads of the new K/V and the query heads they serve, and
-  its ``wo`` sums the output over ``model``; a family that computes every
-  head (moe, audio) attends the rank's heads and all-gathers the output.
+  (every family with KV heads) computes those heads of the new K/V and the
+  query heads they serve, and its ``wo`` sums the output over ``model``.
+  The slot's all-gather of every head's output serves a model that
+  computes every head, which no family of the zoo does any more.
   Sequence mode: the rank that owns position ``pos`` writes it, and
   attention is the flash-decode combine over ``model`` (a split model's
   attention block is whole there, ``comm.kvshard``'s hazard); the cache's
@@ -49,11 +53,15 @@ process of its own and the split is explicit:
   and :class:`ServeSteps` raises otherwise. The hybrid's rings are attended
   by the same partition (``HymbaLM.decode_step``'s ``ring_fn``): by heads,
   or by slots with the combine.
-- A split model's cache leaves stay its slices between steps: its K/V, and
-  the SSM state of its channels (``ssm_h``, ``ssm_conv``). The leaves of a
-  family that computes whole over ``model`` and whose spec splits them —
-  xLSTM's state, the encoder-decoder's cross caches — are gathered over
-  ``model`` for the step and cut to the slice after (``gather_cache``).
+- A split model's cache leaves stay its slices between steps
+  (:func:`kept_slice`): its K/V, the SSM state of its channels (``ssm_h``,
+  ``ssm_conv``), and in heads mode the encoder-decoder's cross caches
+  (``xk``, ``xv``: the rank's KV heads, computed as such by its prefill).
+  The leaves that the model reads whole over ``model`` and whose spec
+  splits them are gathered over ``model`` for the step and cut to the slice
+  after (``gather_cache``): xLSTM's state (its blocks stay whole), and in
+  sequence mode the cross caches (split by source position there, while
+  the cross attention reads every position of them).
 
 ``serve_rank`` and ``serve_sharded`` serve one arch on a spawned mesh
 (``launch.mesh.spawn``): the serve launcher's ``--world``. Entry points take
@@ -85,9 +93,33 @@ from repro_torch.models.sharding import (
     per_layer,
 )
 
-#: the cache leaves of K/V behind the decode slot, and of the SSM state, by name
+#: the cache leaves of K/V behind the decode slot, of the encoder-decoder's
+#: cross attention, and of the SSM state, by name
 KV_LEAVES = ("k", "v")
+CROSS_LEAVES = ("xk", "xv")
 SSM_LEAVES = ("ssm_h", "ssm_conv")
+
+
+def computed_slice(split: Optional[Split], path) -> bool:
+    """Whether a model under ``split`` computes the cache leaf at ``path``
+    as its slice: its KV heads (self and cross) under a heads split, its
+    SSM channels under a d_in split."""
+    if split is None:
+        return False
+    return ((path[-1] in KV_LEAVES + CROSS_LEAVES and split.heads is not None)
+            or (path[-1] in SSM_LEAVES and split.d_in is not None))
+
+
+def kept_slice(cfg: ModelConfig, split: Optional[Split], path, behind_slot: bool) -> bool:
+    """Whether the cache leaf at ``path`` stays the rank's slice between
+    decode steps (no ``gather_cache``): a K/V leaf behind the decode slot
+    (``behind_slot``), and every leaf of a split model but the cross caches
+    it does not compute as slices (sequence mode) and xLSTM's state."""
+    if cfg.family == "ssm":
+        return False
+    if path[-1] in KV_LEAVES and behind_slot:
+        return True
+    return split is not None and (path[-1] not in CROSS_LEAVES or computed_slice(split, path))
 
 
 def cache_shardings(cache: Any, cfg: ModelConfig, mesh, sh: ShardingConfig):
@@ -293,13 +325,11 @@ class ServeSteps:
         self.cache_sh = T.map(lambda s: NamedSharding(mesh, s),
                               cache_shardings(global_shapes, cfg, mesh, sh))
         paths = [path for path, leaf in T.flatten_with_paths(global_shapes) if torch.is_tensor(leaf)]
-        # the leaves the split model computes as its slices (its heads of K/V,
-        # its channels of the SSM state), and those that stay its slices
-        # between steps: a split model's every leaf, else the K/V behind the slot
-        self._computed = {p for p in paths if self.split is not None and (
-            (p[-1] in KV_LEAVES and heads) or (p[-1] in SSM_LEAVES and self.split.d_in))}
-        self._kept = {p for p in paths if has_kv and (
-            self.split is not None or (p[-1] in KV_LEAVES and self._behind_slot(p)))}
+        # the leaves the split model computes as its slices, and those that
+        # stay its slices between steps
+        self._computed = {p for p in paths if computed_slice(self.split, p)}
+        self._kept = {p for p in paths if kept_slice(
+            cfg, self.split, p, p[-1] in KV_LEAVES and self._behind_slot(p))}
         # what the model's forward is given at each call: the decode slots,
         # and for the moe family (whose dispatch crosses rows) the blocks
         # the global batch's rows are dealt into

@@ -18,16 +18,22 @@ global batch of 4 rows of 16 positions dealt over ``data``:
   reference routes each (data, model) cell's tokens at the cell's own
   capacity, as the port's mesh dispatches do, so the same tokens drop;
 - the losses are equal across each ``model`` group;
-- without the sums over ``model`` of the inputs that enter the dispatch
-  whole (the router, the rows before their sequence slice, the banks before
-  their expert slice), the last layer's router gets a gradient |model| = 2
-  times too small: each rank keeps only its own tokens' share, and the
-  step's agreement over ``model`` averages them; the layers below get wrong
-  gradients, not scaled ones. (The banks come out right either way: the
-  layout splits them over ``model``, and a rank's block is its experts.);
+- the model trains on the compute split over ``model`` (``pshard.Split``:
+  its heads, the sequence-parallel residual, the vocabulary), so the mesh
+  dispatches take the rows as the rank's positions and, in training, the
+  banks as its experts: the router is the one input that enters the
+  dispatch whole. Without its sum over ``model`` the last layer's router
+  gets a gradient |model| = 2 times too small: each rank keeps only its own
+  tokens' share, and the step's agreement over ``model`` averages them.
+  The banks and the layers below come out the same either way: nothing
+  else enters whole;
 - the collectives of the backward: ``grad_all_to_all@model`` under
   ``alltoall`` only, ``grad_reduce_scatter@model`` under ``allgather``
-  only, ``grad_reduce_scatter@data`` under ``grouped`` only.
+  (the rows' gather) and ``grouped`` (the banks, read whole as a shared
+  part of the gathered rows' dispatch), ``grad_reduce_scatter@data`` under
+  ``grouped`` only; the sequence split's ``grad_gather_seq@model`` and
+  ``grad_scatter_seq@model`` under each, and no ``grad_all_gather@model``
+  (no rows' slice, no bank's experts) under the mesh dispatches.
 """
 import os
 
@@ -93,7 +99,7 @@ def _grads(tr, batch) -> tuple:
 
 def _no_sums():
     """The dispatch's inputs sliced with no sum over ``model`` in their
-    backward."""
+    backward (under the split only the router's is called)."""
     def router(p, mesh, axis):
         return p.router.w
 
@@ -245,10 +251,10 @@ def test_replicated_input_sums(four_ranks, impl):
             np.testing.assert_allclose(without[last + leaf], with_sums[last + leaf],
                                        rtol=FACTOR_RTOL,
                                        atol=FACTOR_ATOL * np.abs(with_sums[last + leaf]).max())
-        # the layers below get a part of their gradient through the last
-        # dispatch's rows, so they differ too, otherwise
+        # the rows arrive as the rank's positions, with no sum to drop: the
+        # layers below get the same gradient
         name = "layers.0.attn.wq.w"
-        assert not np.allclose(without[name], with_sums[name], rtol=1e-3)
+        np.testing.assert_array_equal(without[name], with_sums[name])
 
 
 @pytest.mark.parametrize("impl", DISPATCHES)
@@ -256,8 +262,9 @@ def test_backward_collectives(four_ranks, impl):
     for r in four_ranks:
         sent = r[(impl, "replicated")][3]
         assert ("grad_all_to_all@model" in sent) == (impl == "alltoall")
-        assert ("grad_reduce_scatter@model" in sent) == (impl == "allgather")
+        assert ("grad_reduce_scatter@model" in sent) == (impl != "alltoall")
         assert ("grad_reduce_scatter@data" in sent) == (impl == "grouped")
+        assert {"grad_gather_seq@model", "grad_scatter_seq@model"} <= set(sent)
         if impl != "grouped":
-            assert {"grad_all_reduce@model", "grad_all_gather@model",
-                    "grad_all_reduce@data"} <= set(sent)
+            assert {"grad_all_reduce@model", "grad_all_reduce@data"} <= set(sent)
+            assert "grad_all_gather@model" not in sent

@@ -376,8 +376,8 @@ def test_launcher_world_serves_the_one_rank_tokens(arch, kv, dispatch):
     four spawned ranks generate, row for row, the one-rank launcher's
     greedy tokens from the same seed, and send what their chunnel sends:
     the heads branch of a model that splits its compute over ``model``
-    (llama) sums its row products (``sum_partials``) where a whole-compute
-    family (qwen3-moe) all-gathers the attention's output."""
+    (llama, and qwen3-moe since its family splits too) sums its row
+    products (``sum_partials``) and all-gathers no attention output."""
     from repro_torch.launch import serve
 
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "4", "--prompt-len", "24",
@@ -393,7 +393,7 @@ def test_launcher_world_serves_the_one_rank_tokens(arch, kv, dispatch):
         np.testing.assert_array_equal(run["tokens"], one[rows])
         assert run["kv"] == {"heads": "KVHeadSharded", "sequence": "KVSeqSharded"}[kv]
         want = "all_gather@model" if kv == "heads" else "all_reduce_max@model"
-        if kv == "heads" and dispatch is None:  # the split: wo's sum, no gather
+        if kv == "heads":  # the split: wo's sum, no gather
             assert "all_gather@model" not in run["sent_decode"]
             want = "sum_partials@model"
         assert want in run["sent_decode"]
