@@ -107,7 +107,12 @@ Phases, each of which exits non-zero on any failed check:
    ``model`` for each step; qwen3-moe-235b-a22b at 1 of 94 layers at the
    published widths on (data 2, model 2), prefill with the expert dispatch
    ``alltoall`` and then ``allgather`` (decode resolves both to
-   ``grouped``). Four prompts of 2048 tokens from the launcher's seed, 32
+   ``grouped``, expert-parallel: each rank's bf16 banks hold its 64 of 128
+   experts, checked, its peak printed beside the whole banks' 10.68 GiB);
+   seamless-m4t-medium on (data 2, model 2); xlstm-125m at 4 of 12 layers
+   on (data 1, model 2), its mLSTM by heads and its sLSTM by channels (its
+   decode sums ``wo`` and gathers no state). Four prompts of 2048 tokens
+   from the launcher's seed, 32
    greedy steps. Each rank's counters are set to 0 just before each run's
    prefill and read after it, after a check decode step on seeded tokens
    (from a copy of the prefill's cache) and after the greedy steps: one B3
@@ -222,7 +227,18 @@ Phases, each of which exits non-zero on any failed check:
     bit-equal across its ``model`` group, the card's losses within 1e-2
     (relative) of the CPU's, the backward's own collectives present
     (``grad_all_to_all@model``, ``grad_reduce_scatter@model``), no kernel
-    launch.
+    launch;
+17. the encoder-decoder on the split: seamless-m4t-medium at its published
+    widths, 2 + 2 layers, on four gloo ranks (data 2, model 2), 2 steps of
+    4 x 128, its losses within 1e-2 of one rank's on the card, each step's
+    bytes equal to ``analysis.roofline``'s count;
+18. xLSTM on the split: xlstm-125m at its published widths, 2 of 12 layers
+    (one mLSTM, one sLSTM), on two gloo ranks (data 1, model 2), 2 steps
+    of 2 x 128: the mLSTM by heads, the sLSTM by channels and its MLP by
+    width; the losses within 1e-2 of one rank's on the card, each step's
+    bytes equal to ``analysis.roofline``'s count (``sum_partials``,
+    ``gather_channels``, the "f" conjugates' ``grad_all_reduce``, no
+    ``gather_param@model``), no kernel launch.
 
 The line before the last is one JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -405,6 +421,11 @@ MOE_MESH_STEPS, MOE_MESH_BATCH, MOE_MESH_SEQ, MOE_MESH_RTOL = 2, 8, 64, 1e-2
 #: its losses against one rank's on the card within SHARDED_RTOL
 AUDIO_ARCH = "seamless-m4t-medium"
 AUDIO_MESH_LAYERS, AUDIO_MESH_STEPS, AUDIO_MESH_BATCH, AUDIO_MESH_SEQ = 2, 2, 4, 128
+#: phase 18: xlstm-125m at its published widths, 2 of its 12 layers (one
+#: mLSTM, one sLSTM), on (data 1, model 2): its mLSTM by heads, its sLSTM by
+#: channels, its MLP by width; 2 steps of a global batch of 2 x 128; its
+#: losses against one rank's on the card within SHARDED_RTOL
+XLSTM_MESH_LAYERS, XLSTM_MESH_STEPS, XLSTM_MESH_BATCH, XLSTM_MESH_SEQ = 2, 2, 2, 128
 #: serving on a mesh of gloo ranks that share the card: four prompts of 2048
 #: tokens into a cache of 2112 positions (2048 + 32 rounded up to a multiple
 #: of 64, a decode ShapeConfig's), 32 greedy steps. Each case: (arch, layers
@@ -418,11 +439,12 @@ AUDIO_MESH_LAYERS, AUDIO_MESH_STEPS, AUDIO_MESH_BATCH, AUDIO_MESH_SEQ = 2, 2, 4,
 #: qwen3-moe's one layer (its decode routes the global batch's 4 tokens, as
 #: the one-rank port's does). seamless: its 12 encoder and 12
 #: decoder layers, three attentions each, split by heads, its one-rank
-#: serve check's 0.15. xlstm: its vocabulary split only, the blocks
-#: whole on both ranks, so the logits differ by the head's column GEMMs
-#: alone: llama's 0.1; at 4 of its 12 layers (its sLSTM's loop over the
-#: prompt runs on both ranks of the one card), and its prefill's and first
-#: four greedy tokens must equal the one-rank port's
+#: serve check's 0.15. xlstm: its mLSTM by heads, its sLSTM by channels
+#: and its MLP by width, the vocabulary, the row products' float32 partials
+#: summed once: llama's 0.1; at 4 of its 12 layers (its sLSTM's loop over
+#: the prompt runs on both ranks of the one card, on half the channels),
+#: and its prefill's and first four greedy tokens must equal the one-rank
+#: port's. qwen3-moe's bf16 banks hold each rank's 64 of 128 experts
 SHARDED_SERVE = [
     ("llama3.2-1b", None, (2, 2), [("auto", None), ("sequence", None)], 0.1),
     ("hymba-1.5b", None, (1, 2), [("auto", None)], 0.15),
@@ -1489,9 +1511,28 @@ class _DispatchTap:
             setattr(self.module, n, f)
 
 
-def _dispatch_gap(torch, call) -> dict:
+class _WholeBanks:
+    """``dispatch_grouped``'s view of a MoE layer whose bfloat16 banks hold
+    the rank's experts only (the serving split's): its router and its banks
+    gathered over ``model`` (every rank of it builds one, in the same
+    order). For the check of the mesh dispatches alone."""
+
+    def __init__(self, p, mesh):
+        from repro_torch.comm import collectives
+
+        self.router = p.router
+        self.whole = tuple(collectives.gather_dim(b, mesh, "model", 0, op="check_banks")
+                           for b in p.banks())
+
+    def banks(self):
+        return self.whole
+
+
+def _dispatch_gap(torch, call, whole: dict) -> dict:
     """A mesh dispatch's output against ``dispatch_grouped`` on one rank, on
-    the same tokens at the same capacity: ``alltoall`` routes each model
+    the same tokens at the same capacity, with every expert (the rank's
+    banks gathered over ``model`` where they hold its own only; ``whole``
+    keeps them by layer): ``alltoall`` routes each model
     rank's S/n slice of the rows alone, ``allgather`` the slices of the
     row's model ranks together, gathered in (model rank, row, position)
     order. Every rank along ``model`` holds the same rows, so this rank's
@@ -1506,6 +1547,10 @@ def _dispatch_gap(torch, call) -> dict:
     p, x, y, cfg = call["p"], call["x"], call["y"], call["cfg"]
     mesh = call["mesh"]
     n = mesh.shape["model"]
+    if p.banks()[0].shape[0] != cfg.moe.num_experts:
+        if id(p) not in whole:
+            whole[id(p)] = _WholeBanks(p, mesh)
+        p = whole[id(p)]
     B_l, S, D = x.shape
     s_l = S // n
     if call["positions"]:
@@ -1563,16 +1608,17 @@ def serve_sharded_rank(spec: dict) -> dict:
     with _DispatchTap() as tap:
         out = serve_rank(spec, observe)
     per_run = len(tap.calls) // len(out["runs"])
+    whole: dict = {}
     for i, (run, c) in enumerate(zip(out["runs"], seen)):
         run["launches_prefill"] = c["prefill"]
         run["launches_check"] = {n: c["check"][n] - c["prefill"][n] for n in c["check"]}
         run["launches_decode"] = {n: c["decode"][n] - c["check"][n] for n in c["decode"]}
         run["flash_shapes"] = c["shapes"]
         calls = tap.calls[i * per_run:(i + 1) * per_run]
-        run["dispatch"] = [_dispatch_gap(torch, call) for call in calls]
+        run["dispatch"] = [_dispatch_gap(torch, call, whole) for call in calls]
         if calls:
             run["route_ids"] = calls[0]["ids"].cpu().numpy()
-    del tap
+    del tap, whole
     out["thread_errors"] = errors
     return out
 
@@ -1720,13 +1766,18 @@ def phase_serve_sharded(torch, checked: set) -> dict:
                 if cfg.family in SPLIT_FAMILIES:  # the split ran: its sums, no gathers
                     sent, pre = rec["sent_decode"], rec["sent_prefill"]
                     if cfg.family == "ssm":
-                        # xlstm: the vocabulary split alone; its blocks and
-                        # state are whole, so the state is gathered a step
-                        check("sum_partials@model" not in sent and "gather_seq@model" not in pre
+                        # xlstm: the mLSTM by heads (wo's sums), the sLSTM by
+                        # channels (its output's channels gathered), the
+                        # vocabulary; the state stays the rank's heads and
+                        # channels, so no gather_cache; no sequence split
+                        check("sum_partials@model" in sent and "gather_seq@model" not in pre
+                              and sent.get("gather_channels@model", 0) > 0
                               and sent.get("embed_sum@model", 0) > 0
                               and pre.get("embed_sum@model", 0) > 0
-                              and sent.get("gather_cache@model", 0) > 0,
-                              f"{label} rank {rank}: the vocabulary split sent {pre} + {sent}")
+                              and "gather_cache@model" not in sent
+                              and "channels=slice(" in rec["split"]
+                              and rec["split"].startswith("Split(heads=Heads("),
+                              f"{label} rank {rank}: the xlstm split sent {pre} + {sent}")
                     else:
                         check("sum_partials@model" in sent and "gather_cache@model" not in sent
                               and (rec["mode"] != "heads" or "all_gather@model" not in sent),
@@ -1750,6 +1801,15 @@ def phase_serve_sharded(torch, checked: set) -> dict:
                           f"(total {sum(sent.values())}, counted {sum(want_d.values())})")
                     check(pre == want_p and sent == want_d, f"{label} rank {rank}: bytes "
                           f"{pre} + {sent}, the roofline counts {want_p} + {want_d}")
+                if cfg.family == "moe":  # the serving banks: the rank's experts only
+                    E = cfg.moe.num_experts
+                    print(f"{label}: rank {rank}: bf16 bank copies hold "
+                          f"{rec['bank_experts']} experts a layer (E {E} over model "
+                          f"{n_model}); peak {rec['peak_memory_bytes'] / 2**30:.2f} GiB beside "
+                          f"10.68 (alltoall) / 10.53 (allgather) GiB measured with whole banks")
+                    check(rec["bank_experts"] == [E // n_model] * L and "experts=True"
+                          in rec["split"], f"{label} rank {rank}: bank copies hold "
+                          f"{rec['bank_experts']} experts, split {rec['split']}")
                 check(gap <= tol, f"{label} rank {rank}: first decode step differs from the "
                       f"one-rank port by {gap}")
                 check(cfg.family == "moe" or gap_pre <= tol,
@@ -2997,6 +3057,117 @@ def phase_train_audio_mesh(torch) -> dict:
     return dict(total)
 
 
+def _xlstm_mesh_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import serve
+
+    cfg = serve.cut_depth(get_config(XLSTM_ARCH), XLSTM_MESH_LAYERS)
+    shape = ShapeConfig("xlstm mesh", XLSTM_MESH_SEQ, XLSTM_MESH_BATCH, "train")
+    return cfg, shape, TrainConfig(warmup_steps=10, total_steps=TRAIN_STEPS)
+
+
+def xlstm_mesh_rank() -> dict:
+    """One rank of phase 18 (run by ``spawn``): xLSTM's training steps on
+    (data 1, model 2), its blocks split over model; each step's bytes by
+    ``op@axis`` beside ``analysis.roofline``'s count."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis import roofline
+    from repro_torch.comm import collectives
+    from repro_torch.configs.base import ShardingConfig
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.mesh import AbstractMesh, make_mesh
+    from repro_torch.models.pshard import model_split
+    from repro_torch.train.trainer import ReconfigurableTrainer
+
+    errors: list = []
+    threading.excepthook = lambda a: errors.append(f"{a.thread.name}: {a.exc_value!r}")
+    torch.cuda.set_device(0)
+    cfg, shape, tcfg = _xlstm_mesh_setup()
+    mesh = make_mesh((1, 2), ("data", "model"), device="cuda:0")
+    sh = ShardingConfig()
+    tr = ReconfigurableTrainer(cfg, shape, mesh, sharding=sh, tcfg=tcfg, transport="xla")
+    state = tr.init_state(SEED)
+    gen = batches_for(cfg, shape)
+    counted = dict(roofline.step_collectives(
+        cfg, shape, AbstractMesh(dict(mesh.shape), rank=mesh.rank), sh=sh, tcfg=tcfg))
+    _reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    records = []
+    for _ in range(XLSTM_MESH_STEPS):
+        sent0 = dict(collectives.SENT)
+        state, hist = tr.run(state, gen, 1)
+        records.append({"loss": hist[0]["loss"], "ms": tr.step_times[-1] * 1e3,
+                        "sent": {k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
+                                 if v > sent0.get(k, 0)}})
+    return {"rank": dist.get_rank(), "coords": dict(mesh.coords), "records": records,
+            "counted": counted, "launches": _all_counts(),
+            "split": repr(model_split(cfg, mesh).at(XLSTM_MESH_SEQ)),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "thread_errors": errors}
+
+
+def phase_train_xlstm_mesh(torch) -> dict:
+    """Phase 18: xLSTM trained on its blocks' split over model (the
+    mLSTM's heads, the sLSTM's channels, its MLP's width, the vocabulary) by
+    two gloo ranks on the card, against one rank's run of the same model
+    here. Returns the launches, summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.mesh import make_mesh, spawn
+    from repro_torch.train.trainer import ReconfigurableTrainer
+
+    t_phase = time.perf_counter()
+    cfg, shape, tcfg = _xlstm_mesh_setup()
+    tr = ReconfigurableTrainer(cfg, shape, make_mesh((1,), ("data",), device="cuda"), tcfg=tcfg)
+    _, hist = tr.run(tr.init_state(SEED), batches_for(cfg, shape), XLSTM_MESH_STEPS)
+    one_rank = [h["loss"] for h in hist]
+    del tr, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    why = "the ranks share one GPU; NCCL refuses two ranks on one device"
+    print(f"train xlstm mesh: two processes on cuda:0, gloo ({why}); {XLSTM_ARCH} at its "
+          f"published widths, {XLSTM_MESH_LAYERS} of its {get_config(XLSTM_ARCH).num_layers} "
+          f"layers (one mLSTM, one sLSTM), (data 1, model 2), global batch {XLSTM_MESH_BATCH} "
+          f"x {XLSTM_MESH_SEQ}, {XLSTM_MESH_STEPS} steps; one rank's losses {one_rank}")
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:xlstm_mesh_rank", 2, backend="gloo", timeout_s=600.0, reason=why)
+    wall = time.perf_counter() - t0
+    total: Counter = Counter()
+    for r in ranks:
+        rank = r["rank"]
+        check(not r["thread_errors"], f"rank {rank}: exceptions in threads")
+        total.update(r["launches"])
+        check(not any(r["launches"].values()), f"rank {rank}: launched kernels {r['launches']}")
+        check(r["split"].startswith("Split(heads=Heads(") and "channels=slice(" in r["split"]
+              and "d_ff=slice(" in r["split"] and "seq=None" in r["split"],
+              f"rank {rank}: split {r['split']}")
+        got = [rec["loss"] for rec in r["records"]]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(got, one_rank))
+        check(all(math.isfinite(l) for l in got) and diff <= SHARDED_RTOL,
+              f"rank {rank}: losses {got}, one rank {one_rank}")
+        for i, rec in enumerate(r["records"]):
+            sent = rec["sent"]
+            check(sent.get("sum_partials@model", 0) > 0
+                  and sent.get("gather_channels@model", 0) > 0
+                  and sent.get("grad_all_reduce@model", 0) > 0
+                  and "gather_param@model" not in sent,
+                  f"rank {rank} step {i}: the split sent {sent}")
+            check(sent == r["counted"], f"rank {rank} step {i}: sent {sent}, "
+                  f"analysis.roofline counts {r['counted']}")
+        print(f"train xlstm mesh: rank {rank} at {r['coords']}: losses {got} (max relative "
+              f"difference from one rank {diff:.3e}, tolerance {SHARDED_RTOL}); step ms "
+              f"{[round(rec['ms'], 3) for rec in r['records']]} (gloo through the host); peak "
+              f"{r['peak_memory_bytes'] / 2**30:.2f} GiB ({r['peak_memory_bytes']} bytes); "
+              f"split {r['split']}; bytes a step by op@axis {json.dumps(r['records'][0]['sent'])}"
+              " (equal to analysis.roofline's count)")
+    print(f"train xlstm mesh: launches over all ranks {json.dumps(dict(total))}; spawn to exit "
+          f"{wall:.3f} s; the phase {time.perf_counter() - t_phase:.3f} s; every process "
+          "exited 0")
+    return dict(total)
+
+
 def main() -> int:
     import torch
 
@@ -3036,6 +3207,7 @@ def main() -> int:
     paths["train xlstm 2 ranks"] = phase_train_xlstm_two(torch)
     paths["train moe mesh"] = phase_train_moe_mesh(torch)
     paths["train audio mesh"] = phase_train_audio_mesh(torch)
+    paths["train xlstm mesh"] = phase_train_xlstm_mesh(torch)
     names = ("quantize_pack", "unpack_dequant", "unpack_dequant_sum", "flash_attention",
              "ssm_scan_chunk")
     # every serve and train path for every kernel, zeros included; the

@@ -10,7 +10,13 @@ collective: the count from the layout and the split):
   step against a cache of 2112 positions;
 - training: qwen3-moe's smoke config on (data 2, model 2), FSDP, a global
   batch of 8 x 64, each mesh dispatch; seamless at its published widths,
-  2 + 2 layers, on (data 2, model 2), FSDP, 4 x 128.
+  2 + 2 layers, on (data 2, model 2), FSDP, 4 x 128; xlstm-125m at its
+  published widths, 2 layers (one mLSTM, one sLSTM), on (data 1, model 2),
+  2 x 128;
+- the serving working copies a rank makes of each serving path's model
+  (``launch.dryrun``'s count on a meta model: a copy the split reads as the
+  rank's part at 1/|model|, the moe banks' ``E/|model|`` experts among
+  them).
 
 Each line is one rank (rank 0, and the last rank of ``model`` where it
 differs) and prints the total and the bytes by ``op@axis`` as JSON.
@@ -31,8 +37,9 @@ def main() -> None:
     from repro_torch.comm.moe_dispatch import configure
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import ShapeConfig, ShardingConfig, TrainConfig
-    from repro_torch.launch import serve
+    from repro_torch.launch import dryrun, serve
     from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import registry
 
     moe = serve.cut_depth(get_config("qwen3-moe-235b-a22b"), 1)
     serving = [("qwen3-moe 1 layer alltoall", configure(moe, "alltoall"), (2, 2)),
@@ -47,6 +54,11 @@ def main() -> None:
                                                  sh=ShardingConfig())
                 print(f"serve {label} (data {data}, model {model}) rank {rank} {kind}: "
                       f"{sum(sent.values())} bytes {json.dumps(dict(sorted(sent.items())))}")
+        mesh = AbstractMesh({"pod": 1, "data": data, "model": model})
+        meta = registry.build(cfg, device="meta")
+        print(f"serve {label} (data {data}, model {model}) working copies a rank: "
+              f"{dryrun._working_bytes(meta, mesh, ShardingConfig())} bytes (whole: "
+              f"{sum(b.numel() * b.element_size() for b in meta.buffers())})")
     tcfg = TrainConfig(warmup_steps=10, total_steps=8)
     fsdp = ShardingConfig(fsdp=True)
     training = [(f"qwen3-moe smoke {impl}", configure(get_smoke_config("qwen3-moe-235b-a22b"),
@@ -55,11 +67,14 @@ def main() -> None:
     training.append(("seamless-m4t-medium 2 + 2 layers",
                      serve.cut_depth(get_config("seamless-m4t-medium"), 2),
                      ShapeConfig("t", 128, 4, "train")))
-    for label, cfg, shape in training:
+    training = [(label, cfg, shape, (2, 2), fsdp) for label, cfg, shape in training]
+    training.append(("xlstm-125m 2 layers", serve.cut_depth(get_config("xlstm-125m"), 2),
+                     ShapeConfig("t", 128, 2, "train"), (1, 2), ShardingConfig()))
+    for label, cfg, shape, (data, model), sh in training:
         for rank in (0, 1):
-            mesh = AbstractMesh({"data": 2, "model": 2}, rank=rank)
-            sent = roofline.step_collectives(cfg, shape, mesh, sh=fsdp, tcfg=tcfg)
-            print(f"train {label} (data 2, model 2) rank {rank} a step: "
+            mesh = AbstractMesh({"data": data, "model": model}, rank=rank)
+            sent = roofline.step_collectives(cfg, shape, mesh, sh=sh, tcfg=tcfg)
+            print(f"train {label} (data {data}, model {model}) rank {rank} a step: "
                   f"{sum(sent.values())} bytes {json.dumps(dict(sorted(sent.items())))}")
 
 

@@ -215,7 +215,8 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
     - the split's activations (:func:`_split_layer_train`), per layer of
       each stack (:func:`_split_stacks`: the encoder-decoder's encoder and
       decoder layers, each at its own length, and its encoder output's one
-      entry into the decoder's cross K/V) and microbatch: on the
+      entry into the decoder's cross K/V; xLSTM's layers by their kind) and
+      microbatch: on the
       sequence-parallel residual (|model| divides S) the
       gathers and reduce-scatters over S (``gather_seq``, ``scatter_seq``)
       and their backwards (``grad_scatter_seq``, ``grad_gather_seq``), else
@@ -267,12 +268,14 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
         split = split.at(shape.seq_len, _src_len(cfg, shape.seq_len))
         if cfg.family == "moe" and mesh_dispatch(cfg, mesh, rows, shape.seq_len, batch_split):
             split = split.with_experts()
+        # xLSTM's layers take no remat, as the reference's
+        remat = cfg.remat != "none" and cfg.family != "ssm"
         for layer_split, S, count, cross, group in _split_stacks(model, split, shape.seq_len):
             g = group_size(count, group)
             for i in range(count):
                 for _ in range(n_mb):  # under remat, all but a unit's last "g" run again
-                    _split_layer_train(out, cfg, layer_split, rows // n_mb, S,
-                                       cfg.remat != "none", last=(i + 1) % g == 0, cross=cross)
+                    _split_layer_train(out, cfg, layer_split, rows // n_mb, S, remat,
+                                       last=(i + 1) % g == 0, cross=cross, layer=i)
         for _ in range(n_mb):
             for fwd, bwd in _cross_in_ops(cfg, split, rows // n_mb, shape.seq_len):
                 _issue(out, fwd, mesh.shape["model"])
@@ -357,11 +360,13 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
 
 
 def _moe_layer(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int, batch_split: int,
-               seq: bool = False) -> None:
+               seq: bool = False, experts: bool = False) -> None:
     """One ``models.moe.moe_ffn`` call on ``rows`` rows of ``S`` positions
     (bfloat16 activations), its dispatch resolved as ``moe_ffn`` does; under
     the compute split's sequence-parallel residual (``seq``) on the rank's
-    ``S/|model|`` positions of them."""
+    ``S/|model|`` positions of them. ``experts``: the banks are the rank's
+    experts (serving), so ``grouped`` runs expert-parallel and sums its
+    float32 partials over ``model`` (``sum_partials``)."""
     from repro_torch.models.moe import capacity, mesh_dispatch
 
     D, E = cfg.d_model, cfg.moe.num_experts
@@ -392,6 +397,8 @@ def _moe_layer(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int, batch_spli
         for a in reversed(b_axes):
             out.all_gather("all_gather", a, mesh.shape[a], cur)
             cur *= mesh.shape[a]
+    if experts:  # the expert-parallel grouped's partial combines, every token routed
+        out.all_reduce("sum_partials", "model", n, rows * batch_split * S * D * F32)
 
 
 def _moe_layer_train(out: _Sent, cfg: ModelConfig, mesh, rows: int, S: int,
@@ -486,7 +493,8 @@ def _cross_in_ops(cfg: ModelConfig, split, rows: int, S: int) -> list:
     return []
 
 
-def _split_ops(cfg: ModelConfig, split, rows: int, S: int, cross: bool = False) -> list:
+def _split_ops(cfg: ModelConfig, split, rows: int, S: int, cross: bool = False,
+               layer: int = 0) -> list:
     """The collectives of one split layer on ``rows`` rows of ``S``
     positions, in the forward's order: each a pair (forward, backward) of
     ``(kind, op, nbytes)`` (kind a ``_Sent`` method; None where there is
@@ -503,7 +511,12 @@ def _split_ops(cfg: ModelConfig, split, rows: int, S: int, cross: bool = False) 
     every position (d_in), the split branches' outputs side by side, the
     MLP's. ``cross``: the encoder-decoder's decoder layer, whose cross
     attention follows the self-attention as a second attention (its K/V
-    from the encoder's output, :func:`_cross_in_ops`)."""
+    from the encoder's output, :func:`_cross_in_ops`). xLSTM (``layer``'s
+    kind; its residual is never split): an mLSTM split by heads enters
+    through the "f" and sums ``wo``; an sLSTM split by channels enters
+    through the "f" and gathers its output's channels (``gather_channels``,
+    bfloat16, its backward the rank's block), then its MLP's "f" and "g"
+    where its width splits."""
     from repro_torch.models.ssm import dt_rank
 
     m, D = split.mesh.shape["model"], cfg.d_model
@@ -524,7 +537,12 @@ def _split_ops(cfg: ModelConfig, split, rows: int, S: int, cross: bool = False) 
 
     heads, d_in = split.heads is not None, split.d_in is not None
     ops = []
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        if not split.is_slstm(layer):
+            return [f(D), g(D)] if heads else []
+        if split.channels is not None:
+            ops += [f(D), (("all_gather", "gather_channels", full * D // m * BF16), None)]
+    elif cfg.family == "hybrid":
         if split.seq is not None or heads or d_in:
             ops.append(f(D))
         if d_in:
@@ -555,20 +573,20 @@ def _issue(out: _Sent, op, m: int) -> None:
 
 
 def _split_layer(out: _Sent, cfg: ModelConfig, split, rows: int, S: int,
-                 cross: bool = False) -> None:
+                 cross: bool = False, layer: int = 0) -> None:
     """One split layer's forward collectives (:func:`_split_ops`), once."""
-    for fwd, _bwd in _split_ops(cfg, split, rows, S, cross):
+    for fwd, _bwd in _split_ops(cfg, split, rows, S, cross, layer):
         _issue(out, fwd, split.mesh.shape["model"])
 
 
 def _split_layer_train(out: _Sent, cfg: ModelConfig, split, rows: int, S: int,
-                       remat: bool, last: bool, cross: bool = False) -> None:
+                       remat: bool, last: bool, cross: bool = False, layer: int = 0) -> None:
     """One split layer in training: its forward's collectives, each run
     again where remat recomputes it (the recomputation stops at the last
     saved activation, so the layer's final "g", the MLP's, runs once in the
     last layer of a checkpointed unit), and the backward's."""
     m = split.mesh.shape["model"]
-    ops = _split_ops(cfg, split, rows, S, cross)
+    ops = _split_ops(cfg, split, rows, S, cross, layer)
     for i, (fwd, bwd) in enumerate(ops):
         trailing = split.d_ff is not None and i == len(ops) - 1
         for _ in range(2 if remat and not (trailing and last) else 1):
@@ -636,12 +654,19 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
     for a model computing every head, nothing for a split model's heads;
     sequence: the flash-decode combine's ``all_reduce_max`` and
     ``all_reduce``, also for the hybrid's rings where their slots are
-    split)."""
+    split). The moe family's banks are the rank's experts wherever |model|
+    divides E (``serving.steps.serve_split``): its ``grouped`` sums its
+    partial combines (``sum_partials``)."""
     from repro_torch import tree as T
     from repro_torch.models import registry
-    from repro_torch.models.pshard import model_split
     from repro_torch.models.sharding import NamedSharding, batch_axes, kv_partition_mode
-    from repro_torch.serving.steps import KV_LEAVES, cache_shardings, kept_slice
+    from repro_torch.serving.steps import (
+        KV_LEAVES,
+        cache_shardings,
+        kept_slice,
+        serve_split,
+        state_shardings,
+    )
 
     out = _Sent()
     b_axes = batch_axes(mesh)
@@ -651,7 +676,7 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
     batch_split = n_rows if dealt and cfg.family == "moe" else 1
     m = mesh.shape.get("model", 1)
     mode = kv_partition_mode(cfg, mesh, sh) if cfg.family != "ssm" else None
-    split = model_split(cfg, mesh, mode)
+    split = serve_split(cfg, mesh, sh)
     if shape.kind not in ("prefill", "decode"):
         raise ValueError(f"serve_collectives takes prefill or decode, not {shape.kind!r}")
     S = shape.seq_len if shape.kind == "prefill" else 1
@@ -667,19 +692,20 @@ def serve_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
         else:
             stacks = [(split, S, cfg.num_layers, False)]
         for layer_split, S_layer, count, cross in stacks:
-            for _ in range(count):
-                _split_layer(out, cfg, layer_split, rows, S_layer, cross)
+            for i in range(count):
+                _split_layer(out, cfg, layer_split, rows, S_layer, cross, layer=i)
         if split.vocab is not None:
             for fwd, _bwd in _vocab_ops(cfg, split, rows, S, train=False):
                 _issue(out, fwd, m)
     if cfg.family == "moe":
         for _ in range(cfg.num_layers):
             _moe_layer(out, cfg, mesh, rows, S, batch_split,
-                       seq=split is not None and split.seq is not None)
+                       seq=split is not None and split.seq is not None,
+                       experts=split is not None and split.experts)
     if shape.kind == "prefill":
         return out
     cache = registry.cache_shapes(cfg, shape)
-    specs = cache_shardings(cache, cfg, mesh, sh)
+    specs = state_shardings(cache_shardings(cache, cfg, mesh, sh), split)
     slot_layers = 0
     for (path, leaf), spec in zip(T.flatten_with_paths(cache), T.leaves(specs)):
         if not hasattr(leaf, "shape"):

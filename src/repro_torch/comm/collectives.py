@@ -66,7 +66,10 @@ that holds it (:func:`broadcast`, ``last_row``) and gathers the ranks'
 logits (``gather_logits``); the vocabulary-parallel loss sums its row
 maxima, gold logits and sums of exponentials over ``model`` (``loss_max``,
 ``loss_gold``, ``loss_sumexp``). A broadcast counts (n-1)·B on its source
-and nothing elsewhere.
+and nothing elsewhere. xLSTM's sLSTM, split by channels, all-gathers its
+output's channels into the residual (``gather_channels``, its backward the
+rank's own block), and the moe family's serving ``grouped`` on the rank's
+experts sums its float32 partial combines (``sum_partials``).
 """
 from __future__ import annotations
 
@@ -370,16 +373,16 @@ class _Gather(torch.autograd.Function):
 
 
 def gather_grad(shard: torch.Tensor, mesh, axis: str, dim: int, *,
-                downstream: str) -> torch.Tensor:
-    """:func:`gather_dim`, differentiable. Its backward: the rank's own block
-    of the cotangent where the gathered tensor feeds a replicated
-    computation (the reference's all-gather whose output every rank of the
-    axis uses alike), a reduce-scatter sum (``grad_reduce_scatter``) where
-    each rank uses it for its own part."""
+                downstream: str, op: str = "all_gather") -> torch.Tensor:
+    """:func:`gather_dim`, differentiable, counted as ``op``. Its backward:
+    the rank's own block of the cotangent where the gathered tensor feeds a
+    replicated computation (the reference's all-gather whose output every
+    rank of the axis uses alike), a reduce-scatter sum
+    (``grad_reduce_scatter``) where each rank uses it for its own part."""
     _check_downstream(downstream)
     if mesh.shape[axis] == 1:
         return shard
-    return _Gather.apply(shard, mesh, axis, dim, downstream, "all_gather")
+    return _Gather.apply(shard, mesh, axis, dim, downstream, op)
 
 
 class _AllReduce(torch.autograd.Function):

@@ -28,7 +28,10 @@ ranks (``launch.mesh.AbstractMesh``). For each cell it records:
   ``serving.steps.cache_shardings``. ``fits_16GB`` keeps the reference's
   meaning, so records compare; ``fits_device`` is against the H100's 80 GB.
   ``working_copy_bytes`` are the bfloat16 serving copies a serve step's
-  rank gathers in full (``serving.steps.lay_out``), outside the total.
+  rank makes (``serving.steps.lay_out``), outside the total: a copy of a
+  leaf the serving split reads as the rank's part (``serving.steps.serve_split``:
+  its heads, channels, rows of the vocabulary, the moe family's
+  ``E/|model|`` experts) at 1/|model|, any other in full.
 - ``roofline``: ``analysis.roofline.analyze`` on the H100 table, with the
   collective bytes the port's step sends (``roofline.step_collectives``,
   also under ``collectives`` by ``op@axis``: the compute split's of every
@@ -94,6 +97,22 @@ def input_specs(arch: str, shape_name: str):
 
 def _bytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+
+def _working_bytes(model, mesh, sh: ShardingConfig) -> int:
+    """The bytes of a serve step's bfloat16 working copies on one rank: each
+    ``<name>16`` buffer of the model's parameter ``<name>``, at 1/|model|
+    where the serving split reads that parameter as the rank's part."""
+    from repro_torch.serving.steps import serve_split
+
+    split = serve_split(model.cfg, mesh, sh)
+    m = mesh.shape.get("model", 1)
+    total = 0
+    for name, buf in model.named_buffers():
+        read = split.read_of(name[:-2]) if split is not None and name.endswith("16") else None
+        part = read is not None and (read.how == "block" or read.take is not None)
+        total += _bytes(buf) // (m if part else 1)
+    return total
 
 
 def _local_bytes(leaf: torch.Tensor, sharding: NamedSharding, dtype=None) -> int:
@@ -205,7 +224,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         outputs = cache + logits
         alias = 0  # the reference's decode does not donate its cache
     per_dev = args + max(0, outputs - alias)
-    working = 0 if train else sum(_bytes(b) for b in model.buffers())
+    working = 0 if train else _working_bytes(model, mesh, sh)
 
     sent = roofline.step_collectives(cfg, shape, mesh, sh=sh, transport=transport, tcfg=tcfg,
                                      model=model)

@@ -38,11 +38,17 @@ the global batch (its rows all-gathered), as the reference's global
 computation does. The load-balance aux loss is averaged over ``model``,
 then ``data``, as in the reference. In training under a mesh dispatch the
 split reads the expert banks as the rank's ``model`` block (``Split.experts``:
-gathered over the batch axes only); in serving the rank's experts are
-slices of the bfloat16 serving banks, which every rank holds whole for
-decode's ``grouped``; the reference gathers them over ``data`` inside the
-dispatch (``_gathered_weights``) because its banks stay sharded, which
-decode on one rank's whole forward cannot keep.
+gathered over the batch axes only). In serving, wherever |model| divides E,
+the split reads them so too: a rank's bfloat16 serving banks hold its
+``E/|model|`` experts only, as the reference keeps its banks sharded over
+``model`` and gathers them over ``data`` alone (``_gathered_weights``). The
+mesh dispatches then take those banks as they are, and ``grouped`` (decode
+always, a prefill wherever no mesh dispatch runs) becomes expert-parallel
+(:func:`dispatch_grouped_ep`): every rank of ``model`` routes the same
+tokens over all E experts at the same capacity, so that the drops are the
+whole-bank dispatch's, runs its own experts' capacity slots, combines its
+own experts' (token, slot) pairs into a float32 partial, and the partials
+are summed over ``model`` once (``sum_partials``), then rounded.
 
 All share the routing (``route``) and ``capacity``. The expert products are
 ``torch.bmm``/``torch.einsum`` in bfloat16, as the reference leaves its
@@ -93,6 +99,7 @@ The cache and decode attention are the dense family's (``DenseLM``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -267,6 +274,38 @@ def dispatch_grouped(p: MoeMLP, x2d: torch.Tensor, cfg: ModelConfig):
     return _gather_scatter_ffn(p, x2d, gates, ids, cfg, C), aux
 
 
+def _own_experts_partial(banks, x2d: torch.Tensor, gates, ids, cfg: ModelConfig, C: int,
+                         r: int, e_loc: int) -> torch.Tensor:
+    """(T, D) float32: the combine of the (token, slot) pairs kept for the
+    experts ``[r·e_loc, (r+1)·e_loc)`` that ``banks`` hold, the capacity
+    ``C`` assigned over all E experts (the other pairs weigh 0)."""
+    pos, keep = _positions_in_expert(ids, cfg.moe.num_experts, C)
+    keep_loc = keep & ((ids // e_loc) == r)
+    ids_loc = torch.where(keep_loc, ids - r * e_loc, 0)
+    x_sorted = _sorted_tokens(x2d, _slot_tokens(ids_loc, pos, keep_loc, e_loc, C, x2d.shape[0]))
+    return _combine(expert_ffn(banks, x_sorted, cfg), ids_loc, pos, gates, keep_loc, C)
+
+
+def dispatch_grouped_ep(p: MoeMLP, x2d: torch.Tensor, cfg: ModelConfig, mesh,
+                        axis: str = "model"):
+    """``dispatch_grouped`` on the rank's ``E/|axis|`` experts (``p``'s
+    banks hold them only), for serving: the same tokens routed on every rank
+    of ``axis`` over all E experts at the capacity of all of them, the
+    rank's experts' slots computed and its (token, slot) pairs combined into
+    a float32 partial, the partials summed over ``axis`` and rounded once.
+    x2d ``(T, D)``; returns (``(T, D)``, aux)."""
+    n, r = mesh.shape[axis], mesh.coords[axis]
+    E = cfg.moe.num_experts
+    e_loc = E // n
+    if E % n or p.banks()[0].shape[0] != e_loc:
+        raise ValueError(f"the rank's banks hold {p.banks()[0].shape[0]} experts; "
+                         f"{E} experts over {n} ranks")
+    gates, ids, aux = route(p.router.w, x2d, cfg)
+    y_part = _own_experts_partial(p.banks(), x2d, gates, ids, cfg,
+                                  capacity(x2d.shape[0], cfg), r, e_loc)
+    return collectives.sum_partials(y_part, mesh, axis, x2d.dtype), aux
+
+
 def _local_banks(p: MoeMLP, mesh, axis: str):
     """This rank's E/|axis| experts of the bfloat16 banks, whole in d_model
     (the reference's ``_gathered_weights``). The banks enter the dispatch
@@ -363,15 +402,9 @@ def dispatch_allgather(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh,
     banks = p.banks() if experts else _local_banks(p, mesh, axis)
     # (n*T_loc, D); each rank runs its own experts on it: the backward sums
     x_row = collectives.gather_grad(x_loc.to(COMPUTE), mesh, axis, 0, downstream="partial")
-    Tn = x_row.shape[0]
     gates, ids, aux = route(_router(p, mesh, axis), x_row.float(), cfg)
-    C = capacity(Tn, cfg)
-    pos, keep = _positions_in_expert(ids, E, C)
-    keep_loc = keep & ((ids // e_loc) == r)
-    ids_loc = torch.where(keep_loc, ids - r * e_loc, 0)
-    x_sorted = _sorted_tokens(x_row, _slot_tokens(ids_loc, pos, keep_loc, e_loc, C, Tn))
-    y_sorted = expert_ffn(banks, x_sorted, cfg)
-    y_part = _combine(y_sorted, ids_loc, pos, gates, keep_loc, C)  # (Tn, D)
+    y_part = _own_experts_partial(banks, x_row, gates, ids, cfg, capacity(x_row.shape[0], cfg),
+                                  r, e_loc)
     if positions:  # rows of x_row are (model rank, token): this rank's are block r
         y = collectives.scatter_seq(y_part[None], mesh, axis, x3d.dtype, op="reduce_scatter")
         return y.reshape(B_l, S, D), _mean_aux(aux, mesh, axis, data_axis)
@@ -415,22 +448,28 @@ def moe_ffn(p: MoeMLP, x3d: torch.Tensor, cfg: ModelConfig, mesh=None, *,
     them); under ``split``'s ``seq`` (a ``pshard.Split``) their ``(B_l,
     S/|model|, D)`` positions, and the output is those positions too.
     ``alltoall`` and ``allgather`` run where :func:`mesh_dispatch` says;
-    else they resolve to ``grouped``, as the reference's do."""
+    else they resolve to ``grouped``, as the reference's do: expert-parallel
+    (:func:`dispatch_grouped_ep`) where ``split`` reads the banks as the
+    rank's experts outside a mesh dispatch (serving)."""
     impl = cfg.moe.dispatch
     if impl not in DISPATCHES:
         raise ValueError(f"unknown moe dispatch {impl!r}")
     seq = split is not None and split.seq is not None
+    experts = split is not None and split.experts
     B_l, S, D = x3d.shape
     S_all = S * mesh.shape["model"] if seq else S
     on_mesh = mesh_dispatch(cfg, mesh, B_l, S_all, batch_split)
     if on_mesh is not None:
         fn = dispatch_alltoall if on_mesh == "alltoall" else dispatch_allgather
-        return fn(p, x3d, cfg, mesh, positions=seq,
-                  experts=split is not None and split.experts)
+        return fn(p, x3d, cfg, mesh, positions=seq, experts=experts)
     if seq:  # every position of the rank's rows; it keeps its own
-        y, aux = moe_ffn(p, split.gather(x3d), cfg, mesh, batch_split=batch_split)
+        y, aux = moe_ffn(p, split.gather(x3d), cfg, mesh, batch_split=batch_split,
+                         split=split.whole_seq())
         return split.own(y), _aux_once(aux, mesh.shape["model"])
-    fn = dispatch_dense if impl == "dense" else dispatch_grouped
+    if impl == "dense":
+        fn = dispatch_dense
+    else:
+        fn = functools.partial(dispatch_grouped_ep, mesh=mesh) if experts else dispatch_grouped
     if batch_split == 1:
         y, aux = fn(p, x3d.reshape(B_l * S, D), cfg)
         return y.reshape(B_l, S, D), aux

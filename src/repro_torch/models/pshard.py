@@ -43,13 +43,24 @@ a mesh dispatch the split reads the expert banks as the rank's ``model``
 block (``experts``). The audio family (the encoder-decoder) splits the
 heads of all three attentions (encoder self, decoder self, cross), both
 stacks' d_ff, each stack's residual over its own length (the encoder's
-split is ``Split.src``, by :meth:`Split.at`) and the vocabulary. The ssm
-family (xLSTM) splits the vocabulary only: the reference pins its residual
-by batch only (``shard_batch``), so ``seq`` is never set, and its blocks
-and state stay whole on every rank of ``model``. Its column products
-(``wq``/``wk``/``wv``, ``gate``/``up``, the SSM's ``in_proj``) take the
-rank's output block after Megatron's "f" (:meth:`Split.enter`: the
-identity, its backward a sum over ``model``); its
+split is ``Split.src``, by :meth:`Split.at`) and the vocabulary. In serving
+the moe family reads its expert banks as the rank's ``model`` block too
+wherever |model| divides E (``experts``, set by ``serving.steps.serve_split``):
+every dispatch then runs the rank's experts only. The ssm family (xLSTM)
+splits each block by the reference's parameter specs, each by its own
+divisibility: the mLSTM by heads (``heads``, where |model| divides H; where
+only H·hd divides, the reference's ``wq`` block would cut inside a head, so
+the mLSTM stays whole), the sLSTM by channels of D (``channels``; its
+diagonal recurrence ``r`` read as its columns of them) and its MLP by its
+width ``int(D·4/3)`` (``d_ff``), and the vocabulary. The reference pins its
+residual by batch only (``shard_batch``), so ``seq`` is never set. The
+mLSTM and the sLSTM share leaf names of unlike shapes (``wi`` is (D, H) in
+one, (D, D) in the other), so the reads are by layer kind
+(:meth:`Split.reads`' ``layer``). The column products
+(``wq``/``wk``/``wv``, ``gate``/``up``, the SSM's ``in_proj``, the xLSTM
+gates) take the rank's output block after Megatron's "f" (:meth:`Split.enter`:
+the identity, its backward a sum over ``model``); the sLSTM's channels of
+its output are all-gathered into the residual (:meth:`Split.join`); its
 row products (``wo``, ``down``, ``out_proj``, and ``x_proj``, whose input is
 the rank's channels) take the rank's input block, and their partial outputs
 are summed by the "g" (:meth:`Split.reduce`: a float32 sum of the bfloat16
@@ -210,6 +221,11 @@ _NORMS = ("ln1", "gn_attn", "gn_ssm", "lnx", "ln2")
 #: a layer's attentions: the decoder-only families' ``attn``, the
 #: encoder-decoder's ``attn`` (encoder), ``self_attn`` and ``cross_attn``
 _ATTNS = ("attn", "self_attn", "cross_attn")
+#: the xLSTM blocks' leaves read as the rank's block: the mLSTM's by heads,
+#: the sLSTM's gates by channels, the sLSTM's MLP by its width
+_MLSTM = ("wq.w", "wk.w", "wv.w", "wo_gate.w", "wi.w", "wi.b", "wf.w", "wf.b", "wo.w")
+_SLSTM = tuple(f"{g}.{leaf}" for g in ("wz", "wi", "wf", "wo_gate") for leaf in ("w", "b"))
+_FFN = ("ffn.gate.w", "ffn.up.w", "ffn.down.w")
 #: the leaves of each block that may stay whole, by their name in the layer
 _ATTN = tuple(f"{a}.{leaf}" for a in _ATTNS
               for leaf in ("wq.w", "wq.b", "wk.w", "wk.b", "wv.w", "wv.b", "wo.w"))
@@ -223,26 +239,31 @@ _SSM = tuple(f"ssm.{leaf}" for leaf in ("in_proj.w", "conv_w", "conv_b", "x_proj
 
 class Split:
     """One rank's compute split over ``model`` of a model of ``cfg``:
-    ``heads`` (or None: the attention is whole), ``d_ff`` and ``d_in`` (the
-    rank's block of the MLP's and the SSM's channels, or None), ``vocab``
-    (the rank's rows of the vocabulary, or None), ``seq`` (the rank's
-    positions of the residual stream in this call, or None: :meth:`at`),
-    ``experts`` (the moe family's expert banks read as the rank's ``model``
-    block: a training call whose dispatch runs on the mesh) and ``src`` (the
-    encoder-decoder's split of its encoder in this call, whose ``seq`` is
-    the rank's positions of the source, or None)."""
+    ``heads`` (or None: the attention, or xLSTM's mLSTM, is whole), ``d_ff``
+    and ``d_in`` (the rank's block of the MLP's and the SSM's channels, or
+    None; xLSTM's ``d_ff`` is its sLSTM's MLP), ``vocab`` (the rank's rows
+    of the vocabulary, or None), ``seq`` (the rank's positions of the
+    residual stream in this call, or None: :meth:`at`), ``experts`` (the moe
+    family's expert banks read as the rank's ``model`` block: a training
+    call whose dispatch runs on the mesh, and serving wherever |model|
+    divides E), ``src`` (the encoder-decoder's split of its encoder in this
+    call, whose ``seq`` is the rank's positions of the source, or None) and
+    ``channels`` (xLSTM's sLSTM: the rank's block of D, or None)."""
 
     def __init__(self, mesh, cfg: ModelConfig, heads: Optional[Heads],
                  d_ff: Optional[slice], d_in: Optional[slice],
                  vocab: Optional[slice] = None, seq: Optional[slice] = None,
-                 experts: bool = False, src: Optional["Split"] = None):
+                 experts: bool = False, src: Optional["Split"] = None,
+                 channels: Optional[slice] = None):
         if seq is not None and vocab is None:
             raise ValueError(f"the sequence-parallel residual needs the vocabulary split: "
                              f"|model| does not divide vocab_padded {cfg.vocab_padded}")
         self.mesh, self.cfg = mesh, cfg
-        self.heads, self.d_ff, self.d_in = heads, d_ff, d_in
+        self.heads, self.d_ff, self.d_in, self.channels = heads, d_ff, d_in, channels
         self.vocab, self.seq, self.experts, self.src = vocab, seq, experts, src
-        self._reads = self._layer_reads()
+        ssm = cfg.family == "ssm"  # xLSTM's reads by layer kind: mLSTM, sLSTM
+        self._reads = self._mlstm_reads() if ssm else self._layer_reads()
+        self._slstm_reads = self._slstm_layer_reads() if ssm else {}
         self._top = self._top_reads()
 
     def _with(self, **kw) -> "Split":
@@ -250,7 +271,7 @@ class Split:
         if all(fields[k] is getattr(self, k) or fields[k] == getattr(self, k) for k in fields):
             return self
         return Split(self.mesh, self.cfg, self.heads, self.d_ff, self.d_in, self.vocab,
-                     **fields)
+                     channels=self.channels, **fields)
 
     def at(self, S: int, S_src: Optional[int] = None) -> "Split":
         """This split for a call on ``S`` positions: ``seq`` by
@@ -269,7 +290,8 @@ class Split:
     def with_experts(self) -> "Split":
         """This split reading the expert banks as the rank's ``model`` block:
         the moe family's training call whose dispatch runs on the mesh
-        (``models.moe.mesh_dispatch``)."""
+        (``models.moe.mesh_dispatch``), and its serving wherever |model|
+        divides E."""
         return self._with(experts=True)
 
     def enter(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -308,6 +330,15 @@ class Split:
         if len(parts) == 1:
             return total
         return torch.split(total, [p.shape[-1] for p in parts], dim=-1)
+
+    def join(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's channels (B, S, D/|model|) of a block split by channels
+        (xLSTM's sLSTM) all-gathered over ``model`` into (B, S, D), for the
+        residual (``gather_channels``). Every rank repeats the residual's
+        computation on it, so the backward is the rank's own block of the
+        cotangent, with no sum."""
+        return collectives.gather_grad(x, self.mesh, AXIS, -1, downstream="replicated",
+                                       op="gather_channels")
 
     def embed(self, partial: torch.Tensor) -> torch.Tensor:
         """The ranks' vocabulary-parallel lookups (B, S, D) summed over
@@ -376,6 +407,22 @@ class Split:
             out.update({n: SHARED for n in whole if n not in out})
         return out
 
+    def _mlstm_reads(self) -> Dict[str, Read]:
+        """xLSTM's mLSTM layer: the rank's heads of every product."""
+        return {leaf: BLOCK for leaf in _MLSTM} if self.heads is not None else {}
+
+    def _slstm_layer_reads(self) -> Dict[str, Read]:
+        """xLSTM's sLSTM layer: its gates' and ``r``'s channels (``r`` is
+        replicated in the layout: its columns of the whole, a part whose
+        gradient is summed over ``model``), its MLP's block."""
+        out: Dict[str, Read] = {}
+        if self.channels is not None:
+            out.update({leaf: BLOCK for leaf in _SLSTM})
+            out["r"] = _narrow(-1, self.channels)
+        if self.d_ff is not None:
+            out.update({leaf: BLOCK for leaf in _FFN})
+        return out
+
     def _top_reads(self) -> Dict[str, Read]:
         out: Dict[str, Read] = {}
         if self.vocab is not None:
@@ -386,13 +433,23 @@ class Split:
                 out[name] = SHARED
         return out
 
-    def reads(self, prefix: Optional[str] = None) -> Dict[str, Read]:
+    def is_slstm(self, layer: int) -> bool:
+        """Whether layer ``layer`` is an sLSTM block (xLSTM's layers differ)."""
+        if self.cfg.family != "ssm":
+            return False
+        # imported here: models.xlstm imports this module
+        from repro_torch.models.xlstm import is_slstm
+
+        return is_slstm(layer, self.cfg)
+
+    def reads(self, prefix: Optional[str] = None, *, layer: int = 0) -> Dict[str, Read]:
         """The parameters that the split reads otherwise than whole, by their
-        name in a layer (``prefix`` None), or in the top-level module
-        ``prefix`` (``"embed."``, ``"final_norm."``, ``"lm_head."``; the
-        encoder-decoder's ``"src_proj."`` and ``"enc_norm."`` by ``src``)."""
+        name in a layer (``prefix`` None; xLSTM's by the kind of layer
+        ``layer``), or in the top-level module ``prefix`` (``"embed."``,
+        ``"final_norm."``, ``"lm_head."``; the encoder-decoder's
+        ``"src_proj."`` and ``"enc_norm."`` by ``src``)."""
         if prefix is None:
-            return self._reads
+            return self._slstm_reads if self.is_slstm(layer) else self._reads
         if self.src is not None and prefix.partition(".")[0] in SRC_PARAMS:
             return self.src.reads(prefix)
         return {n[len(prefix):]: r for n, r in self._top.items() if n.startswith(prefix)}
@@ -407,31 +464,53 @@ class Split:
             return self.src.read_of(name)
         if head not in STACKS:
             return self._top.get(name)
-        return self._reads.get(rest.partition(".")[2])
+        idx, _, leaf = rest.partition(".")
+        return self.reads(layer=int(idx)).get(leaf)
 
     def __repr__(self) -> str:
         extra = (", experts=True" if self.experts else "") + \
-            (f", src_seq={self.src.seq}" if self.src is not None else "")
+            (f", src_seq={self.src.seq}" if self.src is not None else "") + \
+            (f", channels={self.channels}" if self.channels is not None else "")
         return (f"Split(heads={self.heads}, d_ff={self.d_ff}, d_in={self.d_in}, "
                 f"vocab={self.vocab}, seq={self.seq}{extra})")
+
+
+def slstm_width(cfg: ModelConfig) -> int:
+    """The width of xLSTM's sLSTM MLP (the reference's ``f_up``; its config's
+    ``d_ff`` is 0)."""
+    return int(cfg.d_model * 4 / 3)
+
+
+def _mlstm_heads(cfg: ModelConfig, mesh) -> Optional[Heads]:
+    """The rank's mLSTM heads (its q, k and v alike), where |model| divides
+    H; else None (the reference's ``wq`` block would cut inside a head where
+    only H·hd divides)."""
+    m, r = _model(mesh)
+    if cfg.num_heads % m:
+        return None
+    hl = cfg.num_heads // m
+    return Heads(slice(r * hl, (r + 1) * hl), slice(r * hl, (r + 1) * hl), True)
 
 
 def model_split(cfg: ModelConfig, mesh, kv_mode: Optional[str] = None) -> Optional[Split]:
     """This rank's split of a model of ``cfg`` on ``mesh``, or None where
     |model| is 1 or nothing divides. By family: heads, d_ff and vocabulary
     (dense, vlm, audio), with d_in (hybrid); heads and vocabulary (moe: its
-    config's ``d_ff`` names no dense MLP); the vocabulary only (ssm).
-    ``kv_mode``: the serving KV partition (``"sequence"`` keeps the attention
-    whole); None in training. Its ``seq`` is None: a call on S positions
-    takes :meth:`Split.at`."""
+    config's ``d_ff`` names no dense MLP); the mLSTM's heads, the sLSTM's
+    channels and MLP width, and the vocabulary (ssm). ``kv_mode``: the
+    serving KV partition (``"sequence"`` keeps the attention whole); None in
+    training. Its ``seq`` is None: a call on S positions takes
+    :meth:`Split.at`."""
     if cfg.family not in SPLIT_FAMILIES or mesh is None or _model(mesh)[0] == 1:
         return None
-    heads = shard_heads(cfg, mesh, kv_mode) if cfg.family != "ssm" else None
-    d_ff = (shard_model_dim(cfg.d_ff, mesh)
-            if cfg.family in ("dense", "vlm", "hybrid", "audio") else None)
+    ssm = cfg.family == "ssm"
+    heads = _mlstm_heads(cfg, mesh) if ssm else shard_heads(cfg, mesh, kv_mode)
+    d_ff = (shard_model_dim(slstm_width(cfg) if ssm else cfg.d_ff, mesh)
+            if cfg.family in ("dense", "vlm", "hybrid", "audio", "ssm") else None)
     d_in = (shard_model_dim(cfg.ssm.expand * cfg.d_model, mesh)
             if cfg.family == "hybrid" else None)
+    channels = shard_model_dim(cfg.d_model, mesh) if ssm else None
     vocab = shard_vocab(cfg, mesh)
-    if heads is None and d_ff is None and d_in is None and vocab is None:
+    if heads is None and d_ff is None and d_in is None and vocab is None and channels is None:
         return None
-    return Split(mesh, cfg, heads, d_ff, d_in, vocab)
+    return Split(mesh, cfg, heads, d_ff, d_in, vocab, channels=channels)

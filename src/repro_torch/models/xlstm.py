@@ -25,13 +25,23 @@ float32, and generation needs no growth. The gate products run in float32
 ``L.linear(..., dtype=jnp.float32)``); the rest in bfloat16. This family
 runs no kernel.
 
-On a mesh whose ``model`` axis has more than one rank the embedding and the
-head are vocabulary-parallel (``pshard.Split.vocab``, the reference's table
-and head specs): the rank's rows' lookups summed over ``model``, the loss
-``layers.vocab_parallel_lm_loss`` of the rank's columns, the serving
-logits gathered. The blocks and the state stay whole on every rank of
-``model``: the reference pins the residual by batch only (``shard_batch``),
-so the split has no ``seq``.
+On a mesh whose ``model`` axis has more than one rank the model splits as
+the reference's parameter specs lay it out (``pshard.Split``), each block by
+its own divisibility. The embedding and the head are vocabulary-parallel
+(``Split.vocab``): the rank's rows' lookups summed over ``model``, the loss
+``layers.vocab_parallel_lm_loss`` of the rank's columns, the serving logits
+gathered. The mLSTM runs the rank's H/|model| heads (``Split.heads``): its
+input enters through the "f" (``Split.enter``), ``q``, ``k``, ``v``, the
+gates and the state ``C`` (B, H/|model|, hd, hd), ``n`` (B, H/|model|, hd)
+are the rank's heads', and ``wo`` is a row product whose float32 partials
+are summed once (``Split.reduce``). The sLSTM runs the rank's D/|model|
+channels (``Split.channels``): its gates' columns and ``r``'s, the state
+``c``/``n``/``h`` (B, D/|model|) (the recurrence is elementwise over
+channels), and the channels of its output all-gathered into the residual
+(``Split.join``); its MLP splits by its width as the dense MLP does
+(``Split.d_ff``). A block that |model| does not divide stays whole. The
+reference pins the residual by batch only (``shard_batch``), so the split
+has no ``seq``.
 """
 from __future__ import annotations
 
@@ -81,8 +91,21 @@ class MLSTM(nn.Module):
             lin.init(gen)
 
 
-def mlstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
-    H, hd = cfg.num_heads, cfg.head_dim_
+def _mlstm_split(split: Optional[Split]) -> Optional[Split]:
+    """``split`` where it splits the mLSTM by heads, else None (whole)."""
+    return split if split is not None and split.heads is not None else None
+
+
+def _slstm_split(split: Optional[Split]) -> Optional[Split]:
+    """``split`` where it splits the sLSTM's gates by channels, else None."""
+    return split if split is not None and split.channels is not None else None
+
+
+def mlstm_state(batch: int, cfg: ModelConfig, device=None, split: Optional[Split] = None) -> dict:
+    """The zero state of an mLSTM block: every head, or the rank's under
+    ``split``."""
+    sp, hd = _mlstm_split(split), cfg.head_dim_
+    H = cfg.num_heads if sp is None else sp.heads.q.stop - sp.heads.q.start
     return {"C": torch.zeros((batch, H, hd, hd), dtype=F32, device=device),
             "n": torch.zeros((batch, H, hd), dtype=F32, device=device)}
 
@@ -120,15 +143,19 @@ def _mlstm_chunk(q, k, v, i, logf, C0, n0):
 
 
 def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, state: Optional[dict] = None, *,
-                chunk: Optional[int] = None):
-    """x ``(B, S, D)`` -> (x + the block's output, new state)."""
+                chunk: Optional[int] = None, split: Optional[Split] = None):
+    """x ``(B, S, D)`` -> (x + the block's output, new state). Under
+    ``split``'s heads, ``p``'s products are the rank's blocks and the state
+    its heads'; ``wo``'s partial outputs are summed over ``model``."""
     B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim_
+    sp = _mlstm_split(split)
+    hd = cfg.head_dim_
     chunk = min(chunk or (cfg.xlstm.chunk_size if cfg.xlstm else 64), S)
-    state = state if state is not None else mlstm_state(B, cfg, x.device)
+    state = state if state is not None else mlstm_state(B, cfg, x.device, sp)
 
-    xn = p.ln(x)
-    q = p.wq(xn).reshape(B, S, H, hd)
+    xn = p.ln(x) if sp is None else sp.enter(p.ln(x))
+    q = p.wq(xn).reshape(B, S, -1, hd)
+    H = q.shape[2]
     k = p.wk(xn).reshape(B, S, H, hd)
     v = p.wv(xn).reshape(B, S, H, hd)
     i = torch.sigmoid(p.wi(xn, dtype=F32))
@@ -146,7 +173,8 @@ def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, state: Optional[dic
     h = torch.cat(hs, dim=1)[:, :S]
     o = torch.sigmoid(p.wo_gate(xn, dtype=F32)).reshape(B, S, H, hd)
     y = (h * o).to(x.dtype).reshape(B, S, H * hd)
-    return x + p.wo(y), {"C": C, "n": n}
+    out = p.wo(y) if sp is None else sp.reduce(p.wo.partial(y))
+    return x + out, {"C": C, "n": n}
 
 
 # ---------------------------------------------------------------------------
@@ -179,21 +207,31 @@ class SLSTM(nn.Module):
         self.ffn.init(gen)
 
 
-def slstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
-    z = torch.zeros((batch, cfg.d_model), dtype=F32, device=device)
+def slstm_state(batch: int, cfg: ModelConfig, device=None, split: Optional[Split] = None) -> dict:
+    """The initial state of an sLSTM block: every channel, or the rank's
+    under ``split``."""
+    sp = _slstm_split(split)
+    D = cfg.d_model if sp is None else sp.channels.stop - sp.channels.start
+    z = torch.zeros((batch, D), dtype=F32, device=device)
     return {"c": z, "n": z + 1e-6, "h": z.clone()}
 
 
-def slstm_apply(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: Optional[dict] = None):
+def slstm_apply(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: Optional[dict] = None,
+                split: Optional[Split] = None):
     """The sequential recurrence over time (the paper: sLSTM does not
-    parallelise), then the block's gated MLP."""
-    state = state if state is not None else slstm_state(x.shape[0], cfg, x.device)
-    xn = p.ln(x)
+    parallelise), then the block's gated MLP. Under ``split``'s channels
+    the gates, ``r`` and the state are the rank's channels, whose outputs
+    are all-gathered into the residual; under its ``d_ff`` the MLP is the
+    rank's block of its width."""
+    sp = _slstm_split(split)
+    state = state if state is not None else slstm_state(x.shape[0], cfg, x.device, sp)
+    xn = p.ln(x) if sp is None else sp.enter(p.ln(x))
     # every step's input contributions, float32, gates stacked (B, S, 4, D)
     pre = torch.stack([lin(xn, dtype=F32) for lin in (p.wz, p.wi, p.wf, p.wo_gate)], dim=2)
     hs, c, n, h = slstm_recurrence(pre, p.r, state["c"], state["n"], state["h"])
-    x = x + hs.to(x.dtype)
-    x = x + p.ffn(p.ln2(x))
+    y = hs.to(x.dtype)
+    x = x + (y if sp is None else sp.join(y))
+    x = x + p.ffn(p.ln2(x), split)
     return x, {"c": c, "n": n, "h": h}
 
 
@@ -236,9 +274,11 @@ class XlstmLM(DenseLM):
     def stacks(self) -> dict:
         return {}  # the layers stay a list, as the reference keeps them
 
-    def init_state(self, batch: int) -> dict:
+    def init_state(self, batch: int, split: Optional[Split] = None) -> dict:
+        """The zero state of every layer: whole, or the rank's heads and
+        channels under ``split``."""
         make = lambda i: (slstm_state if is_slstm(i, self.cfg) else mlstm_state)(  # noqa: E731
-            batch, self.cfg, self.device)
+            batch, self.cfg, self.device, split)
         return {"layers": [make(i) for i in range(self.cfg.num_layers)], "len": 0}
 
     def init_cache(self, batch: int, capacity: int) -> dict:
@@ -253,14 +293,19 @@ class XlstmLM(DenseLM):
         sharded model in training gathers each layer's parameters for its
         block (``gather``); serving (``gather=False``) reads the working
         copies that ``serving.steps.lay_out`` made. Under ``split`` the
-        embedding is its vocabulary split's."""
+        embedding is its vocabulary split's and each block computes the
+        rank's heads or channels, reading its parameters as the split does
+        (``Split.reads`` of the layer's kind)."""
         x = self._embed_inputs(tokens, None, split)
         states = []
         for idx, layer in enumerate(self.layers):
             st = state["layers"][idx] if state is not None else None
-            apply = slstm_apply if is_slstm(idx, self.cfg) else mlstm_apply
-            with self._gathered(layer, f"layers.{idx}.") if gather else nullcontext():
-                x, st = apply(layer, x, self.cfg, st)
+            reads = split.reads(layer=idx) if split is not None else None
+            with self._gathered(layer, f"layers.{idx}.", reads) if gather else nullcontext():
+                if is_slstm(idx, self.cfg):
+                    x, st = slstm_apply(layer, x, self.cfg, st, split)
+                else:
+                    x, st = mlstm_apply(layer, x, self.cfg, st, split=split)
             states.append(st)
         return self.final_norm(x), states
 

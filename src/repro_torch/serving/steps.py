@@ -11,18 +11,20 @@ process of its own and the split is explicit:
   copies of the matrices (``prepare``) and a float32 copy of each leaf the
   forward reads in float32 (the SSM's conv and ``A_log``, xLSTM's gates,
   the MoE router). Every family splits its compute over ``model``
-  (``models.pshard``, for the steps' KV mode; xLSTM its vocabulary only):
-  the working
-  copy of a leaf the split consumes is the rank's part of it (its ``model``
-  block gathered over the batch axes only; ``in_proj``'s channels of x and
-  z and ``x_proj``'s input rows cut from the gathered whole), so a rank
-  holds about 1/|model| of those layers' weights; where |model| divides
+  (``models.pshard``, for the steps' KV mode; xLSTM's mLSTM by heads, its
+  sLSTM by channels): the working copy of a leaf the split consumes is the
+  rank's part of it (its ``model`` block gathered over the batch axes
+  only; ``in_proj``'s channels of x and z, ``x_proj``'s input rows and the
+  sLSTM's ``r`` columns cut from the gathered whole), so a rank holds about
+  1/|model| of those layers' weights; where |model| divides
   ``vocab_padded`` the table's and the head's copies are the rank's rows
   and columns of the vocabulary (the tied llama table halves on |model|
-  2). Every other leaf's copy is gathered whole (the MoE banks too). The
-  MoE mesh dispatches run the rank's experts, slices of the whole serving
-  banks that decode's
-  ``grouped`` reads (``models.moe``).
+  2). Where |model| divides E the MoE banks' copies are the rank's
+  ``E/|model|`` experts (:func:`serve_split` sets ``Split.experts``): the
+  mesh dispatches run them as they are and ``grouped`` runs
+  expert-parallel, its float32 partials summed over ``model``
+  (``models.moe.dispatch_grouped_ep``). Every other leaf's copy is
+  gathered whole.
 - Batch rows go by ``data_spec``: each rank runs the forward on its rows of
   the global batch (all of them where the batch does not divide the batch
   axes); the ranks along ``model`` share their rows, and under the split
@@ -55,13 +57,20 @@ process of its own and the split is explicit:
   or by slots with the combine.
 - A split model's cache leaves stay its slices between steps
   (:func:`kept_slice`): its K/V, the SSM state of its channels (``ssm_h``,
-  ``ssm_conv``), and in heads mode the encoder-decoder's cross caches
-  (``xk``, ``xv``: the rank's KV heads, computed as such by its prefill).
-  The leaves that the model reads whole over ``model`` and whose spec
-  splits them are gathered over ``model`` for the step and cut to the slice
-  after (``gather_cache``): xLSTM's state (its blocks stay whole), and in
-  sequence mode the cross caches (split by source position there, while
-  the cross attention reads every position of them).
+  ``ssm_conv``), xLSTM's state of its heads (the mLSTM's ``C``, ``n``) and
+  channels (the sLSTM's ``c``, ``n``, ``h``), and in heads mode the
+  encoder-decoder's cross caches (``xk``, ``xv``: the rank's KV heads,
+  computed as such by its prefill). The reference's spec cuts the mLSTM's
+  ``C`` and ``n`` on ``hd``; a split by ``hd`` would need a collective in
+  every chunk (``q·k`` and ``C·q`` contract over it), so :class:`ServeSteps`
+  lays them out by the split's heads (:func:`state_shardings`) while
+  :func:`cache_shardings` stays the reference's. The leaves that the model
+  reads whole over ``model`` and whose spec splits them are gathered over
+  ``model`` for the step and cut to the slice after (``gather_cache``): a
+  whole xLSTM block's state (|model| does not divide its heads or
+  channels), and in sequence mode the cross caches (split by source
+  position there, while the cross attention reads every position of
+  them).
 
 ``serve_rank`` and ``serve_sharded`` serve one arch on a spawned mesh
 (``launch.mesh.spawn``): the serve launcher's ``--world``. Entry points take
@@ -100,12 +109,26 @@ CROSS_LEAVES = ("xk", "xv")
 SSM_LEAVES = ("ssm_h", "ssm_conv")
 
 
+def _xlstm_slice(split: Optional[Split], path) -> bool:
+    """Whether a split xLSTM computes the state leaf at ``path``
+    (``("layers", i, leaf)``) as its slice: an mLSTM's under a heads split,
+    an sLSTM's under a channels split."""
+    if split is None:
+        return False
+    if split.is_slstm(int(path[1])):
+        return split.channels is not None
+    return split.heads is not None
+
+
 def computed_slice(split: Optional[Split], path) -> bool:
     """Whether a model under ``split`` computes the cache leaf at ``path``
     as its slice: its KV heads (self and cross) under a heads split, its
-    SSM channels under a d_in split."""
+    SSM channels under a d_in split, xLSTM's state of its heads or
+    channels."""
     if split is None:
         return False
+    if split.cfg.family == "ssm":
+        return _xlstm_slice(split, path)
     return ((path[-1] in KV_LEAVES + CROSS_LEAVES and split.heads is not None)
             or (path[-1] in SSM_LEAVES and split.d_in is not None))
 
@@ -113,10 +136,11 @@ def computed_slice(split: Optional[Split], path) -> bool:
 def kept_slice(cfg: ModelConfig, split: Optional[Split], path, behind_slot: bool) -> bool:
     """Whether the cache leaf at ``path`` stays the rank's slice between
     decode steps (no ``gather_cache``): a K/V leaf behind the decode slot
-    (``behind_slot``), and every leaf of a split model but the cross caches
-    it does not compute as slices (sequence mode) and xLSTM's state."""
+    (``behind_slot``), xLSTM's state where its block is split, and every
+    leaf of another split model but the cross caches it does not compute as
+    slices (sequence mode)."""
     if cfg.family == "ssm":
-        return False
+        return _xlstm_slice(split, path)
     if path[-1] in KV_LEAVES and behind_slot:
         return True
     return split is not None and (path[-1] not in CROSS_LEAVES or computed_slice(split, path))
@@ -156,6 +180,22 @@ def cache_shardings(cache: Any, cfg: ModelConfig, mesh, sh: ShardingConfig):
     return T.unflatten(cache, [spec(path, leaf) for path, leaf in pairs])
 
 
+def state_shardings(specs: Any, split: Optional[Split]):
+    """``specs`` (:func:`cache_shardings`' tree) with a split mLSTM's ``C``
+    and ``n`` laid out by the split's heads (dim 1) in place of the
+    reference's ``hd`` (dim 2): the port computes a rank's heads, whose
+    state holds every ``hd`` of them. Any other leaf as it is."""
+    if split is None or split.cfg.family != "ssm" or split.heads is None:
+        return specs
+
+    def by_heads(path, spec: P) -> P:
+        if len(path) != 3 or path[0] != "layers" or split.is_slstm(int(path[1])):
+            return spec
+        return P(spec[0], "model", *([None] * (len(spec) - 2)))
+
+    return T.unflatten(specs, [by_heads(path, s) for path, s in T.flatten_with_paths(specs)])
+
+
 # ---------------------------------------------------------------------------
 # Parameters: blocks and working copies
 # ---------------------------------------------------------------------------
@@ -169,13 +209,20 @@ def _layout(model, mesh, sh: ShardingConfig) -> Layout:
 
 def serve_split(cfg: ModelConfig, mesh, sh: ShardingConfig) -> Optional[Split]:
     """The compute split of a model of ``cfg`` served on ``mesh`` in the KV
-    mode that ``sh`` gives (sequence mode keeps the attention whole)."""
+    mode that ``sh`` gives (sequence mode keeps the attention whole),
+    reading the MoE banks as the rank's experts wherever |model| divides E
+    (but for the ``dense`` dispatch, which reads every expert)."""
     mode = kv_partition_mode(cfg, mesh, sh) if cfg.family != "ssm" else None
-    return model_split(cfg, mesh, mode)
+    split = model_split(cfg, mesh, mode)
+    if (split is not None and cfg.moe is not None and cfg.moe.dispatch != "dense"
+            and cfg.moe.num_experts % mesh.shape["model"] == 0):
+        split = split.with_experts()
+    return split
 
 
 def _same_split(a: Optional[Split], b: Optional[Split]) -> bool:
-    key = lambda s: None if s is None else (s.heads, s.d_ff, s.d_in, s.vocab)  # noqa: E731
+    key = lambda s: None if s is None else (  # noqa: E731
+        s.heads, s.d_ff, s.d_in, s.vocab, s.channels, s.experts)
     return key(a) == key(b)
 
 
@@ -322,8 +369,8 @@ class ServeSteps:
         model.mesh = mesh
         heads = self.split is not None and self.split.heads is not None
         global_shapes = registry.cache_shapes(cfg, shape)
-        self.cache_sh = T.map(lambda s: NamedSharding(mesh, s),
-                              cache_shardings(global_shapes, cfg, mesh, sh))
+        self.cache_sh = T.map(lambda s: NamedSharding(mesh, s), state_shardings(
+            cache_shardings(global_shapes, cfg, mesh, sh), self.split))
         paths = [path for path, leaf in T.flatten_with_paths(global_shapes) if torch.is_tensor(leaf)]
         # the leaves the split model computes as its slices, and those that
         # stay its slices between steps
@@ -445,7 +492,8 @@ def serve_rank(spec: dict, observe=None) -> dict:
     prefill (``"start"``) and after each of its phases (``"prefill"``,
     ``"check"``, ``"decode"``), outside the timed spans. Returns the
     layout's time and bytes, and by run its compute split, working copies'
-    bytes (laid out again where the run's KV mode splits otherwise), tokens,
+    bytes (laid out again where the run's KV mode splits otherwise), the
+    experts each MoE layer's bfloat16 banks hold (``bank_experts``), tokens,
     logits, times, peak memory and the bytes it sent by ``op@axis``
     (``sent_prefill``, and ``sent_decode`` for the check step and the
     greedy steps)."""
@@ -489,7 +537,9 @@ def serve_rank(spec: dict, observe=None) -> dict:
             torch.cuda.reset_peak_memory_stats(dev)
         rec = {"kv_partition": kv, "moe_dispatch": dispatch, "mode": steps.mode,
                "kv": steps.kv.name if steps.kv is not None else None,
-               "split": repr(steps.split), "working_bytes": working_bytes(model)}
+               "split": repr(steps.split), "working_bytes": working_bytes(model),
+               "bank_experts": [m.gate16.shape[0] for m in model.modules()
+                                if getattr(m, "gate16", None) is not None]}
         observe(i, "start")
         s0 = dict(collectives.SENT)
         t0 = time.perf_counter()

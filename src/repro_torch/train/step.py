@@ -18,14 +18,17 @@ block of every parameter, moment and chunnel-state leaf that the reference's
 gathers each layer's parameters for its forward (``sharding.Layout``); the
 backward leaves each rank its block of the gradient, summed over ``data``
 where the parameter is split on it. Under the compute split over ``model``
-(``models.pshard``: every family, xLSTM by its vocabulary only) a leaf the
-split consumes is gathered over the batch axes only and yields its block's
-gradient directly; a leaf it reads as a shared part yields its block of
-the gradient's sum over ``model`` (its gather's reduce-scatter). Each
-gradient is summed over ``model`` once, by the read or the collective that
-takes its input (the moe router under a mesh dispatch by ``moe._router``
-alone, never also as a shared read); the step then only averages equal
-values over ``model`` (:func:`_agree_over`).
+(``models.pshard``: every family, xLSTM's mLSTM by heads and sLSTM by
+channels) a leaf the split consumes is gathered over the batch axes only
+and yields its block's gradient directly; a leaf it reads as a shared part
+yields its block of the gradient's sum over ``model`` (its gather's
+reduce-scatter), or, where the layout replicates it (the sLSTM's ``r``,
+read as its columns of the rank's channels), the whole sum (its read's
+``replicated``). Each gradient is summed over ``model`` once, by the read or
+the collective that takes its input (the moe router under a mesh dispatch
+by ``moe._router`` alone, never also as a shared read; a whole block's
+input, the xLSTM norms' too, by the "f" after it); the step then only
+averages equal values over ``model`` (:func:`_agree_over`).
 
 The reference's partitioner averages the gradient over every batch axis that
 the stack leaves automatic; the port has none, so the step does it itself:
@@ -266,7 +269,7 @@ def _agree_over(grads: dict, mesh, axis: str, layout) -> dict:
     Under the compute split over ``model`` those leaves' gradients are
     equal up to rounding too: the "f" conjugates sum their inputs'
     cotangents over ``model``, and a replicated leaf that the ranks read in
-    parts (the SSM's ``conv_b``, ``dt_bias``, ``D``), on their own
+    parts (the SSM's ``conv_b``, ``dt_bias``, ``D``, the sLSTM's ``r``), on their own
     positions (the norms' scales, the moe router and banks of ``grouped``
     on the rows gathered over S) or through a mesh dispatch (the router)
     sums its own. This mean sums nothing a second time."""

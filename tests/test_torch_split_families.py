@@ -12,7 +12,9 @@ rules, and training on gloo ranks against ``jax.grad`` of the reference.
   ``shard_activations`` does, the vocabulary where the table's spec names
   ``model``; audio the same, with d_ff where ``shard_model_dim`` splits it
   and the encoder's residual over the source by the same rule; ssm the
-  vocabulary only (``shard_batch`` pins nothing on S).
+  mLSTM's heads where the reference's ``shard_heads`` splits them, the
+  sLSTM's channels where |model| divides D, its MLP where it divides the
+  MLP's width, and the vocabulary (``shard_batch`` pins nothing on S).
 - Training on (data 2, model 2), from the reference's parameters:
   ``qwen3-moe-smoke`` under ``alltoall``, ``allgather`` and ``grouped``,
   ``seamless-smoke`` on 16 positions (a source of 4, split) and on 12 (a
@@ -117,8 +119,10 @@ def test_model_split_decides_by_the_reference_rules(jax, monkeypatch, arch, smok
         if split.vocab is not None:
             per = cfg.vocab_padded // m
             assert split.vocab == slice(r * per, (r + 1) * per)
-        if cfg.family == "ssm":
-            assert split.heads is None and split.d_ff is None
+        if cfg.family == "ssm":  # the mLSTM's heads, the sLSTM's channels and MLP
+            assert (split.heads is not None) == want["q"]
+            assert (split.channels is not None) == (cfg.d_model % m == 0)
+            assert (split.d_ff is not None) == (pshard.slstm_width(cfg) % m == 0)
         else:
             assert (split.heads is not None) == want["q"]
             assert (split.heads is not None and split.heads.kv_block) == want["k"]
@@ -164,7 +168,14 @@ def test_the_split_reads_the_families_leaves():
     # the router enters the mesh dispatch through its own sum over model
     assert experts.read_of("layers.0.moe.router.w") is None
     ssm = pshard.model_split(get_smoke_config(SSM), mesh).at(16)
-    assert ssm.seq is None and ssm.reads() == {}
+    assert ssm.seq is None
+    # by layer kind: the mLSTM's wi (D, H) by heads, the sLSTM's (D, D) by
+    # channels; the sLSTM's r its columns; its MLP (width 85) whole
+    assert ssm.read_of("layers.0.wi.w") is pshard.BLOCK
+    assert ssm.read_of("layers.1.wi.w") is pshard.BLOCK
+    assert ssm.read_of("layers.1.r").how == "shared"
+    assert ssm.read_of("layers.1.ffn.up.w") is None
+    assert ssm.read_of("layers.0.ln.scale") is None
     assert ssm.read_of("embed.table") is pshard.BLOCK
 
 

@@ -4,8 +4,9 @@ sends, on gloo ranks.
 
 - Serving on (data 1, model 2) in heads mode, from seed 0: ``seamless-smoke``
   (a prompt of 8 tokens over a source of 2 frames: both residuals split),
-  ``qwen3-moe-smoke`` under ``grouped`` and ``xlstm-smoke`` (the vocabulary
-  split only). The greedy tokens of a prefill and four decode steps equal
+  ``qwen3-moe-smoke`` under ``grouped`` (the rank's experts) and
+  ``xlstm-smoke`` (the mLSTM by heads, the sLSTM by channels, the
+  vocabulary). The greedy tokens of a prefill and four decode steps equal
   the one-rank port's, and each step's logits are within
   ``test_torch_serve_sharded.py``'s ATOL/RTOL of it; the split's working
   copies of the attention weights are the rank's heads.
@@ -23,7 +24,8 @@ sends, on gloo ranks.
   slice); no heads-mode decode all-gathers the attention's output; audio's
   heads-mode decode sends no ``gather_cache@model`` (its cross caches are
   the rank's KV heads), its sequence-mode decode gathers them (they are cut
-  by source position there).
+  by source position there); xlstm's decode sends no ``gather_cache@model``
+  either (its state is the rank's heads and channels) but its ``wo`` sums.
 """
 import traceback
 from collections import Counter
@@ -238,8 +240,9 @@ def test_split_serve_greedy_tokens_equal_one_rank(two_ranks, case):
     for r in two_ranks:
         rec = r[f"serve {case}"]
         assert "vocab=slice(" in rec["split"]
-        if cfg.family == "ssm":
-            assert rec["split"].startswith("Split(heads=None") and "seq=None" in rec["split"]
+        if cfg.family == "ssm":  # the mLSTM's heads, the sLSTM's channels
+            assert rec["split"].startswith("Split(heads=Heads") and "seq=None" in rec["split"]
+            assert "channels=slice(" in rec["split"]
         else:
             assert rec["mode"] == "heads" and rec["split"].startswith("Split(heads=Heads")
             # the working copy of wq: the rank's query heads
@@ -299,3 +302,5 @@ def test_what_the_split_steps_do_not_send(four_ranks):
         assert r["serve audio heads"]["prefill"]["gather_seq@model"] > 0
         ssm = r["serve ssm"]
         assert ssm["decode"]["embed_sum@model"] > 0 and "gather_seq@model" not in ssm["prefill"]
+        assert "gather_cache@model" not in ssm["decode"] and ssm["decode"]["sum_partials@model"] > 0
+        assert ssm["decode"]["gather_channels@model"] > 0
