@@ -136,7 +136,9 @@ Phases, each of which exits non-zero on any failed check:
    phase 10 (n_blocks 1,501,224, block 256) with n = 2 and n = 4, at n = 1
    (the error feedback's dequantize), a ragged tail, block 64 and an offset
    view (the scalar route); then timed at n = 2 and 4 beside the plain
-   version and the bound of the card's memory rate;
+   version and the bound of the card's memory rate. Then, with
+   ``quantize_pack``, checked and timed in the same way at the wire of a
+   rank's own shard of phase 12 (b)'s gradient (192,161,792 floats, n = 2);
 10. training on one rank: ``python -m repro_torch.launch.train --arch
     llama3.2-1b --steps 8 --batch 8 --seq 128 --transport xla --ckpt <tmp>
     --ckpt-every 4`` through its ``main``, at the full published config (16
@@ -174,10 +176,20 @@ Phases, each of which exits non-zero on any failed check:
     parameters are bit-equal across ``pod`` after every step (checksums of
     the blocks of the two ranks that differ only in ``pod``), and each
     compressed step launches 12 ``quantize_pack`` and 12
-    ``unpack_dequant_sum`` on each rank, all vector b256 (the gradient each
-    rank quantizes is the full logical one, gathered over ``model``). It
-    prints ms/step, the bytes each rank sent per step by axis, and each
-    rank's peak memory;
+    ``unpack_dequant_sum`` on each rank, all vector b256: each rank reduces
+    its own shard of the gradient (``train.gradshard``; every leaf is own
+    at these widths, so none is gathered over ``model``), 192,161,792
+    floats, 750,632 blocks on the wire: of its launches, one of each (the
+    wire's) is at that size, counted by the wrappers' ``size_launches``,
+    the rest at the residuals' leaf blocks. Each step's bytes equal
+    ``analysis.roofline``'s, with no ``gather_grad`` or ``gather_state``;
+    at the second psum and the second compressed step the transport's
+    output and new residual blocks are bit-equal to the rank's slices of
+    the whole-tree path (every leaf gathered, the transport on the logical
+    flat vector, kernels on both sides; ``gradshard.whole_tree``, run after
+    the step's counters are read). It prints ms/step, the bytes each rank
+    sent per step by axis, the check's seconds and peak memory, and each
+    rank's peak memory outside the checks;
 6b. analysis (after phase 6): llama3.2-1b's decode_32k cell priced by the
     dry run on the meta device for the 16x16 mesh (``repro_torch.launch.dryrun
     .lower_cell``, the reference's one-cell test), its record's keys and
@@ -381,6 +393,9 @@ RESTART_RTOL = 1e-6
 #: model 2); its losses against one rank's, relative (the order of the sums
 #: differs: bf16 products summed over other blocks)
 SHARDED_WORLD, SHARDED_A_STEPS, SHARDED_B_STEPS, SHARDED_RTOL = 4, 3, 2, 1e-2
+#: a rank's own shard of that gradient on (pod 2, model 2): its floats (the
+#: 10,240 replicated ones included) and the wire's blocks of 256
+RANK_NUMEL, RANK_N_BLOCKS = 192_161_792, 750_632
 #: the hybrid phase: hymba-1.5b at its published config on one rank
 HYMBA_TRAIN_STEPS, HYMBA_PARAMS = 4, 1_663_080_000
 #: phase 14: the vlm, audio, ssm and moe families trained on one rank at
@@ -1887,9 +1902,11 @@ def phase_serve_sharded(torch, checked: set) -> dict:
 
 def phase_sum_kernel(torch) -> dict:
     """``unpack_dequant_sum`` against its plain version on the card, then
-    timed at the two-rank phase's gradient."""
+    timed at the two-rank phase's gradient and at the wire of a rank's own
+    shard of the sharded phase's (pod 2, model 2), where ``quantize_pack`` is
+    checked and timed too."""
     from repro_torch.kernels.quantize.quantize import (launch_sum, quantize_pack,
-                                                       unpack_dequant_sum,
+                                                       quantize_pack_ref, unpack_dequant_sum,
                                                        unpack_dequant_sum_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -1926,14 +1943,43 @@ def phase_sum_kernel(torch) -> dict:
               "bit-equal")
         return err
 
+    def rank_quantize() -> dict:
+        """``quantize_pack`` at a rank's own shard against its plain version,
+        then timed."""
+        x = torch.randn((RANK_N_BLOCKS, 256), generator=gen, device="cuda") * GRAD_SCALE
+        nq = x.numel()
+        check(nq == RANK_NUMEL, f"{nq} floats")
+        packed = quantize_pack(x)
+        err = (packed.int() - quantize_pack_ref(x).int()).abs().max().item()
+        check(err == 0, f"quantize_pack at a rank's shard != plain: max byte diff {err}")
+        ms = time_ms(torch, lambda: quantize_pack(x))
+        plain_ms = time_ms(torch, lambda: quantize_pack_ref(x), reps=5, group=2)
+        io = 4 * nq + packed.numel()
+        bytes_ms = io / hw("hbm_bw") * 1e3
+        ops_ms = OPS_PER_ELEM["quantize_pack"] * nq / hw("peak_flops_f32") * 1e3
+        bound = max(bytes_ms, ops_ms)
+        print(f"time quantize_pack at a rank's shard ({nq} floats, {RANK_N_BLOCKS} blocks of "
+              f"256): {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound:.4f} ms, {io} bytes; "
+              f"{io / ms / 1e6:.1f} GB/s, {bound / ms:.1%} of the bound); byte-equal to plain")
+        return {"floats": nq, "n_blocks": RANK_N_BLOCKS, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": io, "max_abs_err": err}
+
     errs = []
     res = {}
-    for n in (2, 4, 1):
-        codes, scales = gathered(n, SUM_N_BLOCKS, 256)
-        errs.append(check_case(f"gradient n={n}", codes, scales, "vector"))
+    # (key, n, n_blocks): the two-rank phase's gradient, n = 2, 4 and 1; a
+    # rank's own shard of the sharded phase's, n = 2
+    for key, n, n_blocks in ((2, 2, SUM_N_BLOCKS), (4, 4, SUM_N_BLOCKS), (1, 1, SUM_N_BLOCKS),
+                             ("rank", 2, RANK_N_BLOCKS)):
+        if key == "rank":
+            res["rank quantize_pack"] = rank_quantize()
+        codes, scales = gathered(n, n_blocks, 256)
+        err = check_case(f"gradient n={n}" if key != "rank" else "a rank's shard n=2",
+                         codes, scales, "vector")
+        errs.append(err)
         if n == 1:
             continue
-        out = torch.empty(SUM_N_BLOCKS * 256, dtype=torch.float32, device="cuda")
+        out = torch.empty(n_blocks * 256, dtype=torch.float32, device="cuda")
         ms = time_ms(torch, lambda: unpack_dequant_sum(codes, scales))
         vec_ms = time_ms(torch, lambda: launch_sum("vector", codes, scales, out))
         plain_ms = time_ms(torch, lambda: unpack_dequant_sum_ref(codes, scales), reps=5, group=2)
@@ -1941,12 +1987,12 @@ def phase_sum_kernel(torch) -> dict:
         flops = (2 * n - 1) * out.numel()
         bytes_ms, ops_ms = io / hw("hbm_bw") * 1e3, flops / hw("peak_flops_f32") * 1e3
         bound = max(bytes_ms, ops_ms)
-        res[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                  "bytes": io, "flops": flops, "vector_entry_ms": vec_ms}
+        res[key] = {"floats": out.numel(), "n_blocks": n_blocks, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "bytes": io, "flops": flops, "vector_entry_ms": vec_ms, "max_abs_err": err}
         print(f"time unpack_dequant_sum n={n} (codes {tuple(codes.shape)}): {ms:.4f} ms "
               f"(the vector entry point alone {vec_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
-              f"{bound:.4f} ms by {res[n]['bound_by']}: {io} bytes, {flops} flops; "
+              f"{bound:.4f} ms by {res[key]['bound_by']}: {io} bytes, {flops} flops; "
               f"{io / ms / 1e6:.1f} GB/s, {bound / ms:.1%} of the bound)")
         del codes, scales, out
         torch.cuda.empty_cache()
@@ -2310,6 +2356,7 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
     from repro_torch.kernels.quantize.quantize import (quantize_pack, unpack_dequant,
                                                        unpack_dequant_sum)
     from repro_torch.launch.mesh import AbstractMesh, make_mesh
+    from repro_torch.train.gradshard import whole_tree
     from repro_torch.train.trainer import HostSpec, ReconfigurableTrainer
 
     errors: list = []
@@ -2322,27 +2369,67 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
     wrappers = {"quantize_pack": quantize_pack, "unpack_dequant": unpack_dequant,
                 "unpack_dequant_sum": unpack_dequant_sum}
 
-    def one_step(tr, state, label, records):
+    def one_step(tr, state, label, records, check_whole=False):
         for w in wrappers.values():
             w.launches = 0
             w.route_launches.clear()
+            w.size_launches.clear()
         mesh = tr.mesh
         counted = dict(roofline.step_collectives(
             cfg, shape, AbstractMesh(dict(mesh.shape), rank=mesh.rank), sh=tr.sharding,
             transport=tr.transport_name, tcfg=tcfg))
+        taken = {}
+        if check_whole:  # keep the transport's inputs and outputs of this step
+            ch = tr.chunnels[0]
+            apply = ch.apply
+
+            def spy(tree, st, ctx):
+                out, new = apply(tree, st, ctx)
+                taken.update(tree=tree, state=st, ctx=ctx, new=new,
+                             out=T.map(lambda x: x.clone(), out))
+                return out, new
+
+            ch.apply = spy
         sent0 = dict(collectives.SENT)
         state, hist = tr.run(state, gen, 1)
         sent = {k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
                 if v - sent0.get(k, 0)}
+        launches = {n: w.launches for n, w in wrappers.items()}
+        routes = {n: {f"{r} b{b}": c for (r, b), c in w.route_launches.items()}
+                  for n, w in wrappers.items()}
+        at_rank_shape = {n: w.size_launches[RANK_NUMEL] for n, w in wrappers.items()}
+        whole = None
+        if check_whole:  # after the counters' window: the whole-tree path
+            del ch.apply
+            torch.cuda.synchronize()
+            # the run's peak so far, then the check's own: the check gathers
+            # every leaf, which the step does not
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ref_out, (ref_new,) = whole_tree((ch,), taken["tree"], (taken["state"],),
+                                             taken["ctx"])
+            torch.cuda.synchronize()
+            equal = lambda a, b: all(torch.equal(x, y) for x, y in  # noqa: E731
+                                     zip(T.leaves(a), T.leaves(b)))
+            whole = {"out_equal": equal(taken["out"], ref_out),
+                     "state_equal": equal(taken["new"], ref_new),
+                     "n_leaves": len(T.leaves(ref_out)), "s": time.perf_counter() - t0,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+            taken.clear()
+            del ref_out, ref_new
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
         records.append({
             "label": label, "transport": tr.transport_name, "step": state.step,
             "loss": hist[0]["loss"], "ms": tr.step_times[-1] * 1e3,
             "sent_by_axis": collectives.sent_by_axis(sent), "sent": sent, "counted": counted,
-            "launches": {n: w.launches for n, w in wrappers.items()},
-            "routes": {n: {f"{r} b{b}": c for (r, b), c in w.route_launches.items()}
-                       for n, w in wrappers.items()},
-            "checksums": _block_checksums(torch, state.params)})
+            "launches": launches, "routes": routes, "at_rank_shape": at_rank_shape,
+            "checksums": _block_checksums(torch, state.params), "whole": whole})
         return state
+
+    peaks: list = []  # the peaks read before each whole-tree check
 
     # (a) FSDP over data, tensor parallelism over model, xla
     mesh_a = make_mesh((2, 2), ("data", "model"), device="cuda:0")
@@ -2364,6 +2451,8 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
     del tr, state
     gc.collect()
     torch.cuda.empty_cache()
+    peak_a = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
 
     # (b) (a)'s checkpoint restored onto (pod 2, model 2); psum, 2PC, compressed
     mesh_b = make_mesh((2, 2), ("pod", "model"), device="cuda:0")
@@ -2376,16 +2465,20 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
     restore_s = time.perf_counter() - t0
     restored = _block_checksums(torch, tr.gathered_state(state).params)
     records_b: list = []
-    for _ in range(SHARDED_B_STEPS):
-        state = one_step(tr, state, "b psum", records_b)
+    # the last step of each transport held to the whole-tree path (the
+    # compressed one with the residuals of the step before)
+    for i in range(SHARDED_B_STEPS):
+        state = one_step(tr, state, "b psum", records_b, i == SHARDED_B_STEPS - 1)
     state = tr.reconfigure(state, "compressed_int8")
-    for _ in range(SHARDED_B_STEPS):
-        state = one_step(tr, state, "b compressed_int8", records_b)
+    for i in range(SHARDED_B_STEPS):
+        state = one_step(tr, state, "b compressed_int8", records_b, i == SHARDED_B_STEPS - 1)
     out.update({"coords_b": dict(mesh_b.coords), "restored_at": at,
                 "restored_equal": restored == saved, "restore_s": restore_s,
                 "records_b": records_b, "reconfig_log": tr.reconfig_log,
                 "n_leaves": len(T.leaves(tr.state_sh.comm)),
-                "thread_errors": errors, "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+                "thread_errors": errors, "peak_a_bytes": peak_a,
+                "peak_b_bytes": max(peaks + [torch.cuda.max_memory_allocated()])})
+    out["peak_memory_bytes"] = max(peak_a, out["peak_b_bytes"])
     return out
 
 
@@ -2424,6 +2517,8 @@ def phase_train_sharded(torch) -> dict:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0}
+    checked_whole: set = set()
+    at_shape = {"quantize_pack": 0, "unpack_dequant_sum": 0}  # measured, (b)'s steps
     for r in ranks:
         rank = r["rank"]
         check(not r["thread_errors"], f"rank {rank}: exceptions in threads {r['thread_errors']}")
@@ -2432,8 +2527,10 @@ def phase_train_sharded(torch) -> dict:
               f"rank {rank}: holds {r['held']} parameter bytes, a quarter is {quarter}")
         print(f"train sharded (a), rank {rank} at {r['coords_a']}: holds {r['held']} of "
               f"{r['whole']} parameter bytes ({r['held'] / r['whole']:.6f}; leaves that do "
-              f"not split four ways: {r['undivided']} bytes); peak memory "
-              f"{r['peak_memory_bytes'] / 2**30:.2f} GiB ({r['peak_memory_bytes']} bytes)")
+              f"not split four ways: {r['undivided']} bytes); peak memory outside the "
+              f"whole-tree checks {r['peak_memory_bytes'] / 2**30:.2f} GiB "
+              f"({r['peak_memory_bytes']} bytes): (a) {r['peak_a_bytes']}, (b) "
+              f"{r['peak_b_bytes']} bytes")
         got = [rec["loss"] for rec in r["records_a"]]
         diff = max(abs(a - b) / abs(b) for a, b in zip(got, one_rank))
         check(diff <= SHARDED_RTOL, f"rank {rank}: (a) losses {got}, one rank {one_rank}")
@@ -2465,6 +2562,40 @@ def phase_train_sharded(torch) -> dict:
                   f"rank {rank} step {rec['step']}: the split sent {sent}")
             check(sent == rec["counted"], f"rank {rank} step {rec['step']} ({rec['label']}): "
                   f"sent {sent}, analysis.roofline counts {rec['counted']}")
+            if rec["label"].startswith("b "):
+                # each rank reduces its own shard: nothing of the gradient or
+                # its state gathered, its own floats (or blocks) over pod
+                gathered = [k for k in sent if k.startswith(("gather_grad", "gather_state"))]
+                check(not gathered, f"rank {rank} step {rec['step']}: gathered {gathered}")
+                key, want = (("all_gather@pod", RANK_N_BLOCKS * 260) if compressed
+                             else ("all_reduce@pod", RANK_NUMEL * 4 + 8))
+                check(sent.get(key) == want, f"rank {rank} step {rec['step']}: {key} "
+                      f"{sent.get(key)}, want {want}")
+                # the wire's one launch of each at the rank's shape; the
+                # residuals' at their leaves' blocks
+                at = rec["at_rank_shape"]
+                want_at = {"quantize_pack": int(compressed), "unpack_dequant": 0,
+                           "unpack_dequant_sum": int(compressed)}
+                check(at == want_at, f"rank {rank} step {rec['step']}: launches at "
+                      f"{RANK_NUMEL} floats {at}, want {want_at}")
+                print(f"train sharded (b), rank {rank} step {rec['step']} ({rec['label']}): "
+                      f"all_reduce@pod {sent.get('all_reduce@pod', 0)}, all_gather@pod "
+                      f"{sent.get('all_gather@pod', 0)} bytes; {sum(sent.values())} in all, "
+                      f"equal to analysis.roofline's; launches at {RANK_NUMEL} floats "
+                      f"{json.dumps(at)}")
+                for name in at_shape:
+                    at_shape[name] += at[name]
+            if rec["whole"] is not None:
+                w = rec["whole"]
+                check(w["out_equal"] and w["state_equal"],
+                      f"rank {rank} step {rec['step']} ({rec['label']}): own shard against the "
+                      f"whole-tree path: output equal {w['out_equal']}, residual equal "
+                      f"{w['state_equal']}")
+                print(f"train sharded (b), rank {rank} step {rec['step']} ({rec['label']}): "
+                      f"output and residual blocks of {w['n_leaves']} leaves bit-equal to the "
+                      f"whole-tree path; check {w['s']:.3f} s, its peak memory "
+                      f"{w['peak_bytes'] / 2**30:.2f} GiB ({w['peak_bytes']} bytes)")
+                checked_whole.add(rec["label"])
             for name in total:
                 total[name] += rec["launches"][name]
         print(f"train sharded (b), rank {rank} at {r['coords_b']}: restored step "
@@ -2481,6 +2612,9 @@ def phase_train_sharded(torch) -> dict:
                           f"{b['rank']})")
                 pairs += 1
     check(pairs == 2, f"{pairs} pod pairs")
+    check(checked_whole == {"b psum", "b compressed_int8"},
+          f"the whole-tree check ran at {checked_whole}")
+    total["at a rank's shape"] = at_shape
     r0 = ranks[0]
     for rec in r0["records_a"] + r0["records_b"]:
         others = [rr["ms"] for r in ranks[1:] for rr in r["records_a"] + r["records_b"]
@@ -3235,6 +3369,11 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": None,
                         "launches_by_path": by_path[name], "launches_by_route": by_route[name],
                         "blocks": blocks})
+    # the wire at a rank's own shard of the sharded phase's gradient, with
+    # its launches there (one a compressed step and rank)
+    at_shape = paths["train sharded"]["at a rank's shape"]
+    kernels[0]["rank_shape"] = {**dsum["rank quantize_pack"],
+                                "launches": at_shape["quantize_pack"]}
     # the n-way dequantize-sum: its numbers at n = 2 (the two-rank path's
     # gradient) on top, n = 4 beside; launches of the two training paths
     # that compress
@@ -3246,7 +3385,9 @@ def main() -> int:
                     "max_abs_err": dsum["max_abs_err"],
                     **{k: dsum[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                     "library_ms": None, "launches_by_path": by_path["unpack_dequant_sum"],
-                    "n4": {k: dsum[4][k] for k in ("ms", "plain_ms", "bound_ms", "bytes")}})
+                    "n4": {k: dsum[4][k] for k in ("ms", "plain_ms", "bound_ms", "bytes")},
+                    "rank_shape": {**dsum["rank"],
+                                   "launches": at_shape["unpack_dequant_sum"]}})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # B3's launches: every serve path's; its numbers at llama's prefill on
     # top, this slice's shapes under "cases", each with the launches of its

@@ -158,21 +158,26 @@ def train_layout(model, mesh, sh: ShardingConfig, transport: str):
     return chunnels, specs
 
 
-def _transport_bytes(out: _Sent, ch, mesh, numel: int) -> None:
+def _transport_bytes(out: _Sent, ch, mesh, numel: int, lengths=None) -> None:
     """The transport ``ch``'s collectives on a flat float32 gradient of
-    ``numel`` elements (``comm.collectives``' schedules)."""
+    ``numel`` elements (``comm.collectives``' schedules); ``lengths``: the
+    hierarchical wire's elements in each of the reference's chunks, where
+    the gradient is a rank's view (``train.gradshard``)."""
     from repro_torch.comm.collectives import dcn_bytes_factor
 
     name = type(ch).__name__
     if name in ("GradHierarchical", "GradHierCompressed"):
         nf, fast, slow = mesh.shape[ch.fast_axis], ch.fast_axis, ch.slow_axis
-        shard = (numel + (-numel) % nf) // nf
-        out.sends("reduce_scatter", fast, nf - 1, shard * F32)
-        if name == "GradHierarchical":
-            out.all_reduce("all_reduce", slow, mesh.shape[slow], shard * F32)
+        if lengths is None:
+            width = mine = (numel + (-numel) % nf) // nf
         else:
-            _compressed(out, slow, mesh.shape[slow], shard, ch.block)
-        out.all_gather("all_gather", fast, nf, shard * F32)
+            width, mine = max(lengths), lengths[mesh.coords[fast]]
+        out.sends("reduce_scatter", fast, nf - 1, width * F32)
+        if name == "GradHierarchical":
+            out.all_reduce("all_reduce", slow, mesh.shape[slow], mine * F32)
+        else:
+            _compressed(out, slow, mesh.shape[slow], mine, ch.block)
+        out.all_gather("all_gather", fast, nf, width * F32)
         return
     n = mesh.shape[ch.axis]
     if name == "GradPsum":
@@ -231,8 +236,10 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
       microbatch (:func:`_moe_layer_train`);
     - the mean over the batch axes the transport leaves automatic
       (``all_reduce``) and the agreement over ``model`` (``grad_agree``);
-    - with a transport: the gradient's and its state's gathers
-      (``gather_grad``, ``gather_state``) and the transport's own schedule;
+    - with a transport, on the rank's own shard of the gradient (its plan,
+      ``train.gradshard``): the gathers of the leaves whose blocks are not
+      whole blocks of its wire (``gather_grad``) and its own schedule on the
+      rank's view;
     - AdamW's norm (``grad_norm``) and ZeRO-1 gather (``zero1_gather``);
     - the metrics' mean (``all_reduce``)."""
     from repro_torch import tree as T
@@ -242,6 +249,7 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
     from repro_torch.models.pshard import model_split
     from repro_torch.models.sharding import Layout, NamedSharding, per_layer
     from repro_torch.models.stacking import group_size
+    from repro_torch.train.gradshard import GradShards
     from repro_torch.train.step import _zero1_pod
 
     cfg = model.cfg
@@ -323,23 +331,20 @@ def train_collectives(model, mesh, sh: ShardingConfig = ShardingConfig(), *,
         if rep:
             out.all_reduce("grad_agree", a, mesh.shape[a], sum(local[n] for n in rep) * F32)
 
-    if chunnels:
-        for name in shapes:
-            cur = local[name]
-            for _dim, axis in reversed(layout.splits[name]):
-                out.all_gather("gather_grad", axis, mesh.shape[axis], cur * F32)
-                cur *= mesh.shape[axis]
-        ef = [ch for ch in chunnels if getattr(ch, "error_feedback", False)]
-        for _ in ef:  # the error-feedback residuals, laid out by the parameters' specs
-            for leaf, spec in zip(T.leaves(shapes_tree), T.leaves(specs)):
-                sharding = NamedSharding(mesh, spec)
-                cur = local_numel(sharding, tuple(leaf.shape))
-                for _dim, axis in reversed(sharding.splits(leaf.dim())):
-                    out.all_gather("gather_state", axis, mesh.shape[axis], cur * F32)
-                    cur *= mesh.shape[axis]
-        numel = sum(math.prod(s) for s in shapes.values())
+    if chunnels:  # on the rank's own shard, by each transport's plan
+        shards = GradShards.of_layout(layout, stacks) if any(layout.splits.values()) else None
         for ch in chunnels:
-            _transport_bytes(out, ch, mesh, numel)
+            if shards is None:  # the step hands the transports whole leaves
+                _transport_bytes(out, ch, mesh, sum(math.prod(s) for s in shapes.values()))
+                continue
+            plan = shards.plan(*ch.frame(mesh))
+            for shape, sharding, own in zip(plan.shapes, plan.shardings, plan.own):
+                cur = local_numel(sharding, shape)
+                for _dim, axis in ([] if own else reversed(sharding.splits(len(shape)))):
+                    out.all_gather("gather_grad", axis, mesh.shape[axis], cur * F32)
+                    cur *= mesh.shape[axis]
+            _transport_bytes(out, ch, mesh, plan.numel,
+                             plan.chunk_lengths() if plan.chunks > 1 else None)
 
     # AdamW: the norm's squares over each group of axes, then ZeRO-1
     groups = {tuple(a for _, a in layout.splits[n]) for n in shapes}

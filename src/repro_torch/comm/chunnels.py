@@ -17,7 +17,12 @@ partitioner); the others take control of their axes (``manual_axes``) and
 place the collectives of ``repro_torch.comm.collectives`` themselves. The
 int8 transports take ``device=`` as every entry point of the port does: on
 the GPU their wire runs the Hopper kernels ``quantize_pack`` and
-``unpack_dequant_sum``, on the CPU their plain versions.
+``unpack_dequant_sum``, on the CPU their plain versions. On a mesh that
+splits the gradient the step hands a transport the rank's blocks and
+``ctx["shards"]`` (``train.gradshard.GradShards``): the float32 ones reduce
+the blocks as they are, the int8 ones by their plan for their ``frame``,
+which gathers only the leaves whose blocks are not whole blocks of the
+wire.
 
 ``WanLinkChunnel`` is the "compressed + reliable" option a region's Select
 moves to when its link turns lossy: float batches ride the int8 block wire
@@ -192,6 +197,12 @@ class StepChunnel(Chunnel):
     def init_state(self, grads_shape):
         return ()
 
+    def frame(self, mesh) -> tuple:
+        """(block, chunks) of the wire's frame on ``mesh``: the blocks its
+        values are quantized in, over how many chunks of the flat vector.
+        The float32 transports are elementwise: (1, 1)."""
+        return (1, 1)
+
     def apply(self, tree, state, ctx: dict):
         raise NotImplementedError
 
@@ -234,6 +245,13 @@ def init_grad_states(chunnels, grads_shape):
 
 def _div(tree, n):
     return T.map(lambda g: g / n, tree)
+
+
+def _plan(ch: StepChunnel, ctx: dict):
+    """``ch``'s plan of the rank's own shard of the gradient
+    (``train.gradshard``), or None where the step hands it whole leaves."""
+    shards = ctx.get("shards")
+    return None if shards is None else shards.plan(*ch.frame(ctx["mesh"]))
 
 
 # ---------------------------------------------------------------------------
@@ -400,17 +418,27 @@ class GradCompressed(StepChunnel):
         return T.map(lambda s: torch.zeros(s.shape, dtype=torch.float32, device=self.device),
                      grads_shape)
 
+    def frame(self, mesh) -> tuple:
+        return (self.block, 1)
+
     def apply(self, tree, state, ctx):
         mesh = ctx["mesh"]
         n = mesh.shape[self.axis]
-        if self.error_feedback and state != ():
+        ef = self.error_feedback and state != ()
+        if ef:  # elementwise: on the rank's blocks, before any gather
             tree = T.map(lambda g, r: g.to(torch.float32) + r, tree, state)
-        out = collectives.compressed_tree(tree, mesh, self.axis, block=self.block)
+        plan = _plan(self, ctx)
+        view = plan.gather(tree) if plan is not None else tree
+        out = collectives.compressed_tree(view, mesh, self.axis, block=self.block)
         new_state = state
-        if self.error_feedback and state != ():
+        if ef:
             # residual of OUR contribution (what we failed to transmit), one
-            # quantize and one dequantize per leaf
-            new_state = T.map(lambda g: quantize_error(g, block=self.block), tree)
+            # quantize and one dequantize per leaf (an own leaf's block is
+            # whole blocks of the leaf)
+            new_state = T.map(lambda g: quantize_error(g, block=self.block), view)
+        if plan is not None:
+            out = plan.cut(out)
+            new_state = plan.cut(new_state) if ef else new_state
         return _div(out, n), new_state
 
 
@@ -446,12 +474,19 @@ class GradHierCompressed(StepChunnel):
                 wire_ratio=int8_wire_ratio(self.block)),
             switch_blip_s=REJIT_BLIP_S)
 
+    def frame(self, mesh) -> tuple:
+        return (self.block, mesh.shape[self.fast_axis])
+
     def apply(self, tree, state, ctx):
         mesh = ctx["mesh"]
         n = mesh.shape[self.slow_axis] * mesh.shape[self.fast_axis]
+        plan = _plan(self, ctx)
+        view = plan.gather(tree) if plan is not None else tree
+        # a view is reduce-scattered by the reference's chunks of the flat vector
         out = collectives.hierarchical_compressed_tree(
-            tree, mesh, self.fast_axis, self.slow_axis, block=self.block)
-        return _div(out, n), state
+            view, mesh, self.fast_axis, self.slow_axis, block=self.block,
+            lengths=plan.chunk_lengths() if plan is not None else None)
+        return _div(plan.cut(out) if plan is not None else out, n), state
 
 
 @dataclass

@@ -18,7 +18,11 @@ Where the reference runs inside a ``shard_map`` over named axes, these take
 the rank's :class:`repro_torch.launch.mesh.Mesh` and an axis name; a tree's
 leaves are the rank's local values. A tree is flattened in the reference's
 leaf order (``repro_torch.tree``), so the flat vector, and with it every
-block the int8 wire quantizes, has the reference's boundaries.
+block the int8 wire quantizes, has the reference's boundaries. On a mesh
+that splits the gradient the tree is a rank's view of it
+(``train.gradshard``): its blocks of the leaves whose blocks are whole
+blocks of the wire, the rest whole, so its flat vector is whole blocks of
+the reference's, in order.
 
 Backends. Under ``nccl`` the tensors stay on the GPU and the framework's
 all-reduce, all-gather and reduce-scatter run. Under ``gloo`` every tensor
@@ -595,16 +599,32 @@ def ring_tree(tree, mesh, axis: str):
     return _unflatten(ring_allreduce(flat, mesh, axis), tree, leaves)
 
 
-def _hierarchical(flat: torch.Tensor, mesh, fast_axis: str, slow):
+def _hierarchical(flat: torch.Tensor, mesh, fast_axis: str, slow, lengths=None):
     """RS(fast) -> ``slow(shard)`` -> AG(fast), with the reference's padding
-    of the flat vector to a multiple of |fast|."""
+    of the flat vector to a multiple of |fast|. ``lengths``: the rank's
+    vector is its view of a larger one (``train.gradshard``), and
+    ``lengths[d]`` of its elements, in order, lie in the reference's chunk
+    ``d``: each chunk is a row, padded to the longest, and the rank at index
+    ``d`` along ``fast_axis`` reduces its row's ``lengths[d]`` elements."""
     n_fast = mesh.shape[fast_axis]
-    pad = (-flat.shape[0]) % n_fast
-    xp = torch.nn.functional.pad(flat, (0, pad))
-    shard = reduce_scatter(xp.reshape(n_fast, -1), mesh, fast_axis)
-    shard = slow(shard)
-    full = all_gather(shard, mesh, fast_axis)
-    return full.reshape(-1)[:flat.shape[0]]
+    if lengths is None:
+        pad = (-flat.shape[0]) % n_fast
+        xp = torch.nn.functional.pad(flat, (0, pad))
+        shard = reduce_scatter(xp.reshape(n_fast, -1), mesh, fast_axis)
+        shard = slow(shard)
+        full = all_gather(shard, mesh, fast_axis)
+        return full.reshape(-1)[:flat.shape[0]]
+    if len(lengths) != n_fast or sum(lengths) != flat.shape[0]:
+        raise ValueError(f"chunk lengths {tuple(lengths)} for {flat.shape[0]} elements over "
+                         f"{fast_axis} ({n_fast})")
+    width = max(lengths)
+    rows = flat.new_zeros((n_fast, width))
+    for d, part in enumerate(torch.split(flat, list(lengths))):
+        rows[d, :part.shape[0]] = part
+    mine = lengths[mesh.coords[fast_axis]]
+    shard = slow(reduce_scatter(rows, mesh, fast_axis)[:mine])
+    full = all_gather(torch.nn.functional.pad(shard, (0, width - mine)), mesh, fast_axis)
+    return torch.cat([full[d, :lengths[d]] for d in range(n_fast)])
 
 
 def hierarchical_tree(tree, mesh, fast_axis: str, slow_axis: str):
@@ -644,9 +664,13 @@ def compressed_tree(tree, mesh, slow_axis: str, *, block: int = 256):
 
 
 def hierarchical_compressed_tree(tree, mesh, fast_axis: str, slow_axis: str, *,
-                                 block: int = 256):
-    """Beyond-paper combination: RS(fast) -> compressed AR(slow) -> AG(fast)."""
+                                 block: int = 256, lengths=None):
+    """Beyond-paper combination: RS(fast) -> compressed AR(slow) -> AG(fast).
+    ``lengths``: ``tree`` is a rank's view, its elements in each of the
+    reference's chunks (:func:`_hierarchical`), so that each chunk's blocks
+    start where the reference's do."""
     flat, leaves = _flatten(tree)
     out = _hierarchical(flat, mesh, fast_axis,
-                        lambda s: compressed_allgather_sum(s, mesh, slow_axis, block=block))
+                        lambda s: compressed_allgather_sum(s, mesh, slow_axis, block=block),
+                        lengths)
     return _unflatten(out, tree, leaves)

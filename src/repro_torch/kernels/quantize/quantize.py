@@ -23,8 +23,9 @@ else. Each kernel has two routes, each its own C entry point: ``vector`` for
 blocks that are powers of two from 4 to 1024 when every pointer starts at a
 16-byte boundary, ``scalar`` for the rest (:func:`route`). ``launches`` on
 each wrapper counts its kernel launches; ``route_launches`` counts them by
-``(route, block)``. Both counts are bumped under one lock, because a wire
-may encode in one thread while another decodes (``WanGateway``).
+``(route, block)`` and ``size_launches`` by the floats of one rank's flat
+vector (``n_blocks * block``). The counts are bumped under one lock, because
+a wire may encode in one thread while another decodes (``WanGateway``).
 """
 from __future__ import annotations
 
@@ -91,13 +92,15 @@ def launch(kernel: str, which: str, src: torch.Tensor, dst: torch.Tensor,
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, which: str, block: int) -> None:
-    """One launch of ``wrapper``'s kernel by route ``which`` at ``block``,
-    added to ``wrapper.launches`` and ``wrapper.route_launches`` under a
-    lock, so that threads launching at once lose no count."""
+def count_launch(wrapper, which: str, block: int, floats: int = 0) -> None:
+    """One launch of ``wrapper``'s kernel by route ``which`` at ``block`` on
+    ``floats`` floats a rank, added to ``wrapper.launches``,
+    ``wrapper.route_launches`` and ``wrapper.size_launches`` under a lock,
+    so that threads launching at once lose no count."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.route_launches[(which, block)] += 1
+        wrapper.size_launches[floats] += 1
 
 
 def packed_nbytes(n_blocks: int, block: int) -> int:
@@ -141,12 +144,13 @@ def quantize_pack(x2d: torch.Tensor) -> torch.Tensor:
                       device=x2d.device)
     which = route(block, x2d, out)
     launch("quantize_pack", which, x2d, out, n_blocks, block)
-    count_launch(quantize_pack, which, block)
+    count_launch(quantize_pack, which, block, n_blocks * block)
     return out
 
 
 quantize_pack.launches = 0
 quantize_pack.route_launches = Counter()
+quantize_pack.size_launches = Counter()
 
 
 def unpack_dequant(packed: torch.Tensor, n_blocks: int, block: int) -> torch.Tensor:
@@ -164,12 +168,13 @@ def unpack_dequant(packed: torch.Tensor, n_blocks: int, block: int) -> torch.Ten
     out = torch.empty(n_blocks * block, dtype=torch.float32, device=packed.device)
     which = route(block, packed, out)
     launch("unpack_dequant", which, packed, out, n_blocks, block)
-    count_launch(unpack_dequant, which, block)
+    count_launch(unpack_dequant, which, block, n_blocks * block)
     return out
 
 
 unpack_dequant.launches = 0
 unpack_dequant.route_launches = Counter()
+unpack_dequant.size_launches = Counter()
 
 
 def unpack_dequant_sum_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -217,9 +222,10 @@ def unpack_dequant_sum(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tenso
     out = torch.empty(n_blocks * block, dtype=torch.float32, device=codes.device)
     which = route(block, codes, scales, out)
     launch_sum(which, codes, scales, out)
-    count_launch(unpack_dequant_sum, which, block)
+    count_launch(unpack_dequant_sum, which, block, n_blocks * block)
     return out
 
 
 unpack_dequant_sum.launches = 0
 unpack_dequant_sum.route_launches = Counter()
+unpack_dequant_sum.size_launches = Counter()

@@ -35,17 +35,22 @@ the stack leaves automatic; the port has none, so the step does it itself:
 a leaf split over the axis was summed by its gather's backward and is
 divided by the axis size, any other leaf is all-reduced to the mean. With
 the ``xla`` transport (no chunnel) that is the whole sync. Any other
-transport takes its ``manual_axes`` and averages over them itself, on the
-reference's logical gradient: each leaf's blocks are gathered over ``data``
-and ``model`` (counted as ``gather_grad``), the stack runs on the full tree
-in the reference's layout (``stacking.stack_layers``: layer leaves stacked,
-reference leaf order), so the flat vector it flattens, and every block its
-int8 wire quantizes, is the reference's; each rank keeps its block of the
-result (and of the chunnel state). A transport that takes an axis manual
-(the hierarchical ones take ``data``) sees the parameters replicated over
-it, as the reference's ``shard_map`` replicates them inside: its layout
-drops that axis from the specs. Loss and metrics are averaged over the
-batch axes.
+transport takes its ``manual_axes`` and averages over them itself, as the
+reference's does inside its ``shard_map``: on the rank's own shard of the
+gradient. The stack runs on the tree in the reference's layout
+(``stacking.stack_layers``: layer leaves stacked, reference leaf order) of
+the rank's blocks, with ``ctx["shards"]`` (``train.gradshard.GradShards``):
+a float32 transport reduces the blocks as they are (it is elementwise); an
+int8 one adds its residuals to them first, then gathers over ``data`` and
+``model`` (``gather_grad``) only the leaves whose blocks are not whole
+blocks of its wire (none at the published widths), so that every block it
+quantizes, and every leaf block its error feedback quantizes, is the
+reference's; each rank keeps its block of the result and of the chunnel
+state, laid out as the reference's ``shardings_for`` lays it out. A
+transport that takes an axis manual (the hierarchical ones take ``data``)
+sees the parameters replicated over it, as the reference's ``shard_map``
+replicates them inside: its layout drops that axis from the specs. Loss and
+metrics are averaged over the batch axes.
 
 Reconfiguring the transport builds the step again with another stack, and
 the trainer lays the state out again by its shardings: state (params,
@@ -72,6 +77,7 @@ from repro_torch.models import registry
 from repro_torch.models.sharding import P, Layout, NamedSharding, per_layer
 from repro_torch.models.stacking import stack_layers, unstack_layers
 from repro_torch.optim import adamw
+from repro_torch.train.gradshard import GradShards
 
 
 class TrainState(NamedTuple):
@@ -295,7 +301,8 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
     n_mb = max(tcfg.microbatches, 1)
     layout = model_layout(state_sh) if state_sh is not None else model.layout
     shards = adam_shards(state_sh)
-    comm_sh = state_sh.comm if state_sh is not None else None
+    if grad_chunnels and layout is not None and any(layout.splits.values()):
+        ctx["shards"] = GradShards.of_layout(layout, stacks)
 
     def grads_of(batch, batch_split: int) -> torch.Tensor:
         """Backward of the local batch's mean loss into the parameters'
@@ -324,15 +331,9 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
         for a in shared:
             grads = _agree_over(grads, mesh, a, layout)
         comm = state.comm
-        if grad_chunnels:
-            if layout is not None:  # the transports see the logical gradient
-                grads = {n: layout.full(n, g) for n, g in grads.items()}
-                comm = gathered(comm, comm_sh)
+        if grad_chunnels:  # on the rank's own shard (ctx["shards"])
             tree, comm = apply_grad_stack(grad_chunnels, stack_layers(grads, stacks), comm, ctx)
             grads = unstack_layers(tree, stacks)
-            if layout is not None:
-                grads = {n: layout.local(n, g) for n, g in grads.items()}
-                comm = place(comm, comm_sh)
         params, opt, metrics = adamw.update(grads, state.opt, state.params,
                                             lr_fn(state.step), tcfg, shards)
         for p in state.params.values():

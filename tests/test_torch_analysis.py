@@ -169,6 +169,9 @@ RUNS = {
     "train data2 model2 xla": ((2, 2), ("data", "model"), ("train", ARCH, "xla")),
     "train pod2 model2 compressed": ((2, 2), ("pod", "model"),
                                      ("train", ARCH, "compressed_int8")),
+    # the transports on a rank's own shard of the gradient (FSDP on data)
+    "train pod2 model2 psum": ((2, 2), ("pod", "model"), ("train", ARCH, "psum")),
+    "train pod2 data2 psum": ((2, 2), ("pod", "data"), ("train", ARCH, "psum")),
     "serve heads": ((2, 2), ("data", "model"), ("serve", ARCH, "heads")),
     "serve sequence": ((2, 2), ("data", "model"), ("serve", ARCH, "sequence")),
     "serve moe alltoall": ((2, 2), ("data", "model"), ("serve", MOE, "alltoall")),

@@ -10,6 +10,11 @@ calls, and returns what the checks below read:
   (``data``, ``pod``);
 - (pod 2, model 2): the first run's checkpoint restored onto this other
   sharding, then ``psum`` and a 2PC switch to ``compressed_int8``;
+- (pod 2, model 2), ``compressed_int8`` with its wire at block 16, the step
+  built by ``make_train_step`` as the trainer builds it: every leaf of the
+  smoke model is then own (``train.gradshard``), so the transport runs on
+  each rank's own shard end to end; the reference trainer runs the same
+  wire;
 - the reference's ``test_restore_with_resharding`` on (data 2, model 2).
 
 Each scenario: its losses within 2e-2 (relative) of the reference trainer's
@@ -53,8 +58,33 @@ SCENARIOS = {
     "pod2_data2_psum": ((2, 2), ("pod", "data"), ("psum",), (STEPS,)),
     "pod2_model2_psum_compressed": ((2, 2), ("pod", "model"), ("psum", "compressed_int8"),
                                     (STEPS // 2, STEPS // 2)),
+    "pod2_model2_compressed_b16": ((2, 2), ("pod", "model"), ("compressed_int8",), (STEPS,)),
 }
+#: scenario -> the int8 wire's block where it is not the trainer's 256
+WIRE_BLOCK = {"pod2_model2_compressed_b16": 16}
 RTOL = 2e-2
+
+
+class _WireTrainer(ReconfigurableTrainer):
+    """The trainer with its ``compressed_int8`` wire at ``block``: the
+    chunnel replaced and the step built again by ``make_train_step``."""
+
+    block = 256
+
+    def _build_step(self) -> None:
+        import dataclasses
+
+        from repro_torch.train import step as step_mod
+
+        super()._build_step()
+        if self.transport_name != "compressed_int8" or self.block == self.chunnels[0].block:
+            return
+        self.chunnels = (dataclasses.replace(self.chunnels[0], block=self.block),)
+        self.state_sh = step_mod.shardings_for(self.model, self.mesh, self.sharding,
+                                               self.chunnels)
+        self._layout = step_mod.model_layout(self.state_sh)
+        self.step_fn = step_mod.make_train_step(self.model, self.tcfg, self.chunnels, self.mesh,
+                                                self.state_sh)
 
 
 def _checksums(tensors: dict) -> dict:
@@ -82,10 +112,13 @@ def _scenario(name, ref_params, ckpt_dir, restore_from=None) -> dict:
     shape, axes, transports, steps = SCENARIOS[name]
     mesh = make_mesh(shape, axes, device="cpu")
     cfg = get_smoke_config(ARCH)
-    tr = ReconfigurableTrainer(cfg, SHAPE, mesh, tcfg=TCFG, transport=transports[0],
-                               ckpt_dir=ckpt_dir, hosts=[HostSpec(0, list(transports) + ["xla"])])
+    trainer = type("Trainer", (_WireTrainer,), {"block": WIRE_BLOCK.get(name, 256)})
+    tr = trainer(cfg, SHAPE, mesh, tcfg=TCFG, transport=transports[0],
+                 ckpt_dir=ckpt_dir, hosts=[HostSpec(0, list(transports) + ["xla"])])
     state = tr.init_state(params=ref_params)
-    out = {"coords": dict(mesh.coords), "restored": None}
+    out = {"coords": dict(mesh.coords), "restored": None,
+           "wire_blocks": [ch.block for ch in tr.chunnels if hasattr(ch, "block")],
+           "own": _own_leaves(tr)}
     if restore_from is not None:  # another mesh's checkpoint, then a fresh run
         from repro_torch.checkpoint.ckpt import Checkpointer
 
@@ -118,6 +151,18 @@ def _scenario(name, ref_params, ckpt_dir, restore_from=None) -> dict:
     return out
 
 
+def _own_leaves(tr) -> list:
+    """Whether each gradient leaf is own under the trainer's int8 wire (its
+    plan, ``train.gradshard``); empty for a float32 transport."""
+    from repro_torch.train.gradshard import GradShards
+
+    layout = tr._layout
+    if layout is None or not any(hasattr(ch, "block") for ch in tr.chunnels):
+        return []
+    plan = GradShards.of_layout(layout, tr.model.stacks()).plan(*tr.chunnels[0].frame(tr.mesh))
+    return list(plan.own)
+
+
 def _resharding_restore(shared: str) -> list:
     """The reference's ``test_restore_with_resharding``: a (4, 4) leaf saved
     whole, restored onto (data 2, model 2) with ``P("data", None)``."""
@@ -142,7 +187,7 @@ def _rank_scenarios(shared: str, ref_params: dict, names: tuple) -> dict:
     out = {}
     dirs = {n: str(Path(shared) / n) for n in SCENARIOS}
     for name in names:
-        restore = dirs["data2_model2_xla"] if name.startswith("pod2_model2") else None
+        restore = dirs["data2_model2_xla"] if name == "pod2_model2_psum_compressed" else None
         try:
             out[name] = _scenario(name, ref_params, dirs[name], restore)
         except Exception:
@@ -156,7 +201,7 @@ def _rank_scenarios(shared: str, ref_params: dict, names: tuple) -> dict:
 
 #: the scenarios of this file (``test_torch_sharded_zero1.py`` runs the
 #: third on another worker, with these tests)
-NAMES = ("data2_model2_xla", "pod2_model2_psum_compressed")
+NAMES = ("data2_model2_xla", "pod2_model2_psum_compressed", "pod2_model2_compressed_b16")
 
 
 @pytest.fixture(scope="module")
@@ -219,8 +264,9 @@ def reference(names):
         # jax.set_mesh scopes the mesh for jit on jax 0.9, over any mesh an
         # earlier test left set process-wide (tests/test_substrate.py does)
         with (jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else compat.use_mesh(mesh)):
-            tr = RefTrainer(cfg, SHAPE, mesh, tcfg=tcfg, transport=transports[0],
-                            hosts=[RefHost(0, list(transports) + ["xla"])])
+            tr = _ref_trainer(RefTrainer, WIRE_BLOCK.get(name))(
+                cfg, SHAPE, mesh, tcfg=tcfg, transport=transports[0],
+                hosts=[RefHost(0, list(transports) + ["xla"])])
             shapes = tr.model.param_shapes()
             flat = lambda tree: jax.tree_util.tree_flatten_with_path(  # noqa: E731
                 tree, is_leaf=lambda x: hasattr(x, "shard_shape"))[0]
@@ -238,6 +284,22 @@ def reference(names):
                 losses += [float(h["loss"]) for h in hist]
         out[name] = {"losses": losses, "blocks": blocks}
     return out
+
+
+def _ref_trainer(base, block):
+    """The reference trainer class, its int8 wire at ``block`` (None: as
+    it is)."""
+    if block is None:
+        return base
+    from repro.comm.chunnels import make_transport
+
+    class Trainer(base):
+        def _transport_chunnels(self, name):
+            if name != "compressed_int8":
+                return super()._transport_chunnels(name)
+            return (make_transport(name, axis="pod", block=block),)
+
+    return Trainer
 
 
 def _ref_block(blocks: dict, name: str) -> tuple:
@@ -272,7 +334,9 @@ def test_losses_match_one_rank_run(four_ranks, one_rank, scenario):
     """The layout changes no result beyond the order of the sums: the steps
     under an exact transport within 1e-4 (relative) of one rank's (2.3e-5 seen)."""
     _, _, transports, steps = SCENARIOS[scenario]
-    exact = steps[0] if "compressed_int8" in transports else STEPS
+    # the steps before the first lossy (int8) one
+    lossy = [i for i, t in enumerate(transports) if t == "compressed_int8"]
+    exact = sum(steps[:lossy[0]]) if lossy else STEPS
     for out in four_ranks:
         np.testing.assert_allclose(out[scenario]["losses"][:exact], one_rank[:exact], rtol=1e-4)
 
@@ -284,16 +348,18 @@ def test_blocks_equal_slices_of_gathered_state(four_ranks, scenario):
 
 def test_params_bit_equal_across_pod(four_ranks, names):
     """After every step, the two ranks that differ only in ``pod`` hold
-    bit-equal parameter blocks."""
+    bit-equal parameter blocks (two pairs in each scenario with a pod
+    axis)."""
     pairs = 0
-    for scenario in (n for n in names if n.startswith("pod")):
+    pod_scenarios = [n for n in names if n.startswith("pod")]
+    for scenario in pod_scenarios:
         for a in four_ranks:
             for b in four_ranks:
                 ca, cb = a[scenario]["coords"], b[scenario]["coords"]
                 if ca["pod"] < cb["pod"] and all(ca[k] == cb[k] for k in ca if k != "pod"):
                     assert a[scenario]["checksums"] == b[scenario]["checksums"]
                     pairs += 1
-    assert pairs == 2
+    assert pairs == 2 * len(pod_scenarios)
 
 
 def test_blocks_have_reference_shard_shapes(four_ranks, reference, scenario):
@@ -353,3 +419,11 @@ def test_restore_with_resharding(four_ranks):
         d = rank // 2  # (data 2, model 2), row-major
         np.testing.assert_array_equal(np.asarray(out["resharding"]), full[2 * d:2 * d + 2])
 
+
+def test_block_16_wire_runs_on_own_shards(four_ranks):
+    """The block-16 scenario's wire is at block 16, and every leaf of the
+    smoke model is own under it on every rank: no leaf is gathered."""
+    for out in four_ranks:
+        rec = out["pod2_model2_compressed_b16"]
+        assert rec["wire_blocks"] == [16]
+        assert len(rec["own"]) == 11 and all(rec["own"])
