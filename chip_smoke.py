@@ -66,17 +66,26 @@ Phases, each of which exits non-zero on any failed check:
    its decode step (C = 1), a d_in of 300, a chunk that is a strided view of
    a longer sequence, two half chunks against one whole, and a = 1 against
    a float64 sum, each within 1e-5; then timed beside the plain version and
-   the bound of the card's memory rate;
+   the bound of the card's memory rate, its decode step beside
+   ``torch.addcmul`` (the one PyTorch call of its function at C = 1) with
+   the wrapper's host time a call. Then B4 redesigned, the serving route:
+   the fused ``selective_scan`` against ``selective_scan_ref`` on the card,
+   y and h_last compared with ``torch.equal``, at hymba's prefill (dt, x 4 x
+   2048 x 3200, N 16, B and C bf16 column views of an x_proj output), a
+   rank's channels on model 2 (d_in 1600, B and C float32), a decode step
+   from a carried state and 300 steps; each timed beside the plain version
+   and its bound (bytes, or float32 operations) with its expf count at
+   MUFU.EX2's rate, the decode step's wrapper host time a call too;
 8. hybrid serving path: ``python -m repro_torch.launch.serve --arch
    hymba-1.5b --batch 4 --prompt-len 2048 --gen 32`` through its ``main``, at
    the full published config (32 layers, d_model 1600, 25 heads and 5 KV
    heads of 64, 29 of them with a 1024 window; 1,663,080,000 float32
    parameters drawn from a seed), with the flash and SSM-scan kernels'
    counters set to 0 just before and read just after: one flash launch per
-   layer of the prefill and none in decode, one scan launch per chunk of 256
-   per layer of the prefill and one per layer of each decode step (256 +
-   32 x 32). Then the checks of phase 6, the plain side also scanning with
-   the scan's plain version, warm timings and a profile;
+   layer of the prefill and none in decode, one ``selective_scan`` launch
+   per layer of the prefill and per layer of each decode step (32 + 32 x
+   32) and no ``ssm_scan_chunk``. Then the checks of phase 6, the plain side
+   also scanning with the scan's plain version, warm timings and a profile;
 8b. the other four families' serving paths, each as phase 6 through the
    launcher's ``main`` with 4 prompts of 2048 tokens and 32 greedy decode
    steps, the kernels' counters set to 0 just before and read just after:
@@ -116,8 +125,9 @@ Phases, each of which exits non-zero on any failed check:
    greedy steps. Each rank's counters are set to 0 just before each run's
    prefill and read after it, after a check decode step on seeded tokens
    (from a copy of the prefill's cache) and after the greedy steps: one B3
-   launch per attention layer in the prefill, none in decode; hymba's B4
-   256 times a prefill and 32 times a step. Checked against the one-rank
+   launch per attention layer in the prefill, none in decode; hymba's
+   ``selective_scan`` 32 times a prefill and 32 times a step, its
+   ``ssm_scan_chunk`` never. Checked against the one-rank
    port on the same batch and seed (a model built here): the check step's
    logits and, but for the moe family (whose mesh dispatch routes each
    rank's tokens at its own capacity), the prefill's last logits, within a
@@ -252,8 +262,9 @@ Phases, each of which exits non-zero on any failed check:
     ``gather_channels``, the "f" conjugates' ``grad_all_reduce``, no
     ``gather_param@model``), no kernel launch.
 
-The line before the last is one JSON object of the kernels' numbers; the
-last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
+Each phase prints its seconds (``phase <name>: ... s``) and a line before
+the kernels' lists them all. The line before the last is one JSON object
+of the kernels' numbers; the last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -501,6 +512,19 @@ def hw(key: str) -> float:
     from repro_torch.launch.mesh import HW
 
     return HW[key]
+
+
+#: seconds of each phase of ``main``, in order
+PHASE_S: dict = {}
+
+
+def _clock(label: str, phase, *args):
+    """``phase(*args)``, its seconds kept under ``label`` and printed."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_S[label] = time.perf_counter() - t0
+    print(f"phase {label}: {PHASE_S[label]:.1f} s")
+    return out
 
 
 def fail(msg: str) -> None:
@@ -1169,15 +1193,143 @@ def phase_ssm_scan(torch) -> dict:
           f"{plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms by {case['bound_by']}: {io} "
           f"bytes, {flops} flops; {io / ms / 1e6:.1f} GB/s, {case['bound_ms'] / ms:.1%} of the "
           "bound)")
+    # the decode step: at C = 1 the chunk's function is one PyTorch call
+    a, bx, h0 = decode
+    lib_ms = time_ms(torch, lambda: torch.addcmul(bx[:, 0], a[:, 0], h0))
+    io, flops = 4 * (3 * a.numel() + 2 * h0.numel()), 2 * a.numel()
+    bytes_ms, ops_ms = io / hw("hbm_bw") * 1e3, flops / hw("peak_flops_f32") * 1e3
+    res["cases"]["decode step"] = {
+        "ms": decode_ms, "plain_ms": decode_plain_ms, "library_ms": lib_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+        else "operations", "max_abs_err": errs[1], "bytes": io, "flops": flops,
+        "shape": list(a.shape), "host_us": _host_us(torch, lambda: ssm_scan_chunk(a, bx, h0))}
+    print(f"time ssm_scan_chunk decode step {tuple(a.shape)}: {decode_ms:.4f} ms, "
+          f"torch.addcmul(bx, a, h0) (its library call) {lib_ms:.4f} ms; wrapper host time "
+          f"{res['cases']['decode step']['host_us']:.1f} us a call")
+    res["fused"] = _clock("selective scan", phase_selective_scan, torch,
+                          res["cases"]["decode step"])
     return res
 
 
-def _wrappers():
-    """The serving path's kernel wrappers, by name."""
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_scan_chunk
+def _host_us(torch, fn, calls: int = 200) -> float:
+    """The host's microseconds a call of ``fn`` (the launch's enqueue, not
+    the kernel): the calls back to back, timed before the synchronise."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
 
-    return {"flash_attention": flash_attention, "ssm_scan_chunk": ssm_scan_chunk}
+
+def fused_inputs(torch, gen, batch, S, d_in, bc_dtype, h0=None):
+    """Inputs as ``ssm_apply`` hands them to ``selective_scan``: dt the
+    softplus of a normal below 0, x silu of a normal in bf16, B and C
+    column views of an x_proj output (batch, S, 100 + 2N) (hymba's dt_rank
+    100) in ``bc_dtype``, A = -(1..N) (the S4D-real start), h0 zero or the
+    given state, D = 1."""
+    F = torch.nn.functional
+    dt = F.softplus(torch.randn((batch, S, d_in), generator=gen, device="cuda") - 3.0)
+    x = F.silu(torch.randn((batch, S, d_in), generator=gen, device="cuda")).to(torch.bfloat16)
+    proj = torch.randn((batch, S, 100 + 2 * SSM_N), generator=gen, device="cuda").to(bc_dtype)
+    A = -torch.arange(1, SSM_N + 1, dtype=torch.float32, device="cuda").expand(
+        d_in, SSM_N).contiguous()
+    if h0 is None:
+        h0 = torch.zeros((batch, d_in, SSM_N), device="cuda")
+    return (dt, x, proj[..., 100:100 + SSM_N], proj[..., 100 + SSM_N:], A, h0,
+            torch.ones(d_in, device="cuda"))
+
+
+def fused_bound(args) -> dict:
+    """The least time of one call: each input read once and each output
+    written once, against the card's memory rate; seven float32 operations
+    per (b, t, d, n) (dt A, its exp, dt x B, a h, + bx, h C, the sum) and
+    three per (b, t, d) (dt x, D x, + D x) against the float32 rate. The
+    exp counts one operation here; its MUFU.EX2 rate is printed beside."""
+    dt, x, Bm, Cm, A, h0, D = args
+    Bsz, S, d_in = dt.shape
+    N = A.shape[1]
+    io = (sum(t.numel() * t.element_size() for t in (dt, x, Bm, Cm, A, h0, D))
+          + 4 * (Bsz * S * d_in + Bsz * d_in * N))
+    ops = 7 * Bsz * S * d_in * N + 3 * Bsz * S * d_in
+    bytes_ms, ops_ms = io / hw("hbm_bw") * 1e3, ops / hw("peak_flops_f32") * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": io, "flops": ops, "exps": Bsz * S * d_in * N}
+
+
+def phase_selective_scan(torch, chunk_decode: dict) -> dict:
+    """B4 redesigned: the fused ``selective_scan`` against its plain
+    version (``selective_scan_ref``) on the card, y and h_last bit-equal, at
+    hymba's prefill, a rank's channels (model 2: d_in / 2, B and C float32
+    as after the x_proj sum), a decode step from a carried state and 300
+    steps (not a multiple of 256); then each timed beside the plain version
+    and the bound, the decode step's host time a call too."""
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan, selective_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    B, bf16, f32 = SERVE_BATCH, torch.bfloat16, torch.float32
+    prefix = fused_inputs(torch, gen, B, 16, SSM_D_IN, bf16)
+    carried = selective_scan_ref(*prefix)[1]
+    cases = {"prefill": fused_inputs(torch, gen, B, SERVE_PROMPT, SSM_D_IN, bf16),
+             SSM_LOCAL: fused_inputs(torch, gen, B, SERVE_PROMPT, SSM_D_IN // 2, f32),
+             "decode step": fused_inputs(torch, gen, B, 1, SSM_D_IN, bf16, h0=carried),
+             "S 300": fused_inputs(torch, gen, B, 300, SSM_D_IN, bf16, h0=carried)}
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+                            "nounits"], capture_output=True, text=True).stdout.strip()
+    mhz = float(clock) if clock.replace(".", "", 1).isdigit() else None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, args in cases.items():
+        check(all(not t.is_contiguous() for t in args[2:4]), "B and C must be views")
+        n0 = selective_scan.launches
+        got = selective_scan(*args)
+        check(selective_scan.launches == n0 + 1, "selective_scan: one launch per call")
+        want = selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        shape = f"dt {tuple(args[0].shape)}, N {SSM_N}, B/C {str(args[2].dtype)[6:]}"
+        print(f"kernel check selective_scan {label} ({shape}): y and h_last bit-equal to "
+              f"selective_scan_ref {equal}, max abs err {err}")
+        check(equal and got[0].shape == args[0].shape and got[1].shape == args[5].shape,
+              f"selective_scan {label}: differs from its plain version by {err}")
+        ms = time_ms(torch, lambda: selective_scan(*args))
+        reps = (3, 1) if args[0].shape[1] > 1 else (21, 5)
+        plain_ms = time_ms(torch, lambda: selective_scan_ref(*args), reps=reps[0],
+                           group=reps[1])
+        case = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "max_abs_err": err,
+                "shape": list(args[0].shape) + [SSM_N], **fused_bound(args)}
+        # the exponentials at MUFU.EX2's 16 a clock and SM, at the max SM clock
+        case["exp_bound_ms"] = (case["exps"] / (sms * 16 * mhz * 1e6) * 1e3 if mhz
+                                else None)
+        exp_ms = f"{case['exp_bound_ms']:.4f} ms" if mhz else "not measured (no SM clock)"
+        line = (f"time selective_scan {label} ({shape}): {ms:.4f} ms (plain {plain_ms:.4f} "
+                f"ms; bound {case['bound_ms']:.4f} ms by {case['bound_by']}: {case['bytes']} "
+                f"bytes, {case['flops']} flops; {case['bound_ms'] / ms:.1%} of the bound; "
+                f"{case['exps']} expf, {exp_ms} at MUFU.EX2's rate on {sms} SMs at {clock} "
+                "MHz)")
+        if label == "decode step":
+            case["host_us"] = _host_us(torch, lambda: selective_scan(*args))
+            line += (f"; wrapper host time {case['host_us']:.1f} us a call, beside the chunk "
+                     f"kernel's decode step: {chunk_decode['ms']:.4f} ms, host "
+                     f"{chunk_decode['host_us']:.1f} us a call")
+        print(line)
+        out[label] = case
+    return out
+
+
+def _wrappers():
+    """The serving path's kernel wrappers, by name (the chunk scan too, to
+    show that no path launches it)."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan, ssm_scan_chunk
+
+    return {"flash_attention": flash_attention, "selective_scan": selective_scan,
+            "ssm_scan_chunk": ssm_scan_chunk}
 
 
 def _counts() -> dict:
@@ -1254,11 +1406,12 @@ def phase_serve(torch, arch: str, n_params: int, tol: float, layers=None) -> dic
     L = cfg.num_layers
     # one flash launch per attention of the prefill: one a layer, none in
     # xlstm, three a decoder layer of the encoder-decoder (encoder, self,
-    # cross, 12 each); one scan launch per chunk of 256 per layer in
-    # prefill, one per layer and decode step
+    # cross, 12 each); one fused scan launch per layer in prefill and per
+    # layer and decode step; no chunk scan
     flash = {"ssm": 0, "audio": 3 * L}.get(fam, L)
-    scans = -(-SERVE_PROMPT // SSM_CHUNK) * L if hybrid else 0
-    want_main = {"flash_attention": flash, "ssm_scan_chunk": scans + SERVE_GEN * L * hybrid}
+    scans = L * hybrid
+    want_main = {"flash_attention": flash, "selective_scan": scans + SERVE_GEN * scans,
+                 "ssm_scan_chunk": 0}
     argv = ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
             str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
     if layers is not None:
@@ -1277,8 +1430,8 @@ def phase_serve(torch, arch: str, n_params: int, tol: float, layers=None) -> dic
     by_shape = {_shape_key(*key): n for key, n in flash_fn.shape_launches.items()}
     print(f"serve {arch}: launches {json.dumps(launches)} (want {json.dumps(want_main)}: "
           f"{flash} flash launches in the prefill and none in decode"
-          + (f"; one scan per {SSM_CHUNK}-token chunk and layer of the prefill, one per "
-             f"layer and decode step" if hybrid else "")
+          + ("; one selective_scan per layer of the prefill and per layer and decode step, "
+             "no ssm_scan_chunk" if hybrid else "")
           + f"); flash launches by shape {json.dumps(by_shape)}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"({torch.cuda.max_memory_allocated()} bytes)")
@@ -1304,7 +1457,7 @@ def phase_serve(torch, arch: str, n_params: int, tol: float, layers=None) -> dic
     with (_Routes() if moe else nullcontext()) as routes:
         cache, logits = model.prefill(prompt, **extra)
     got = _since(n0)
-    check(got == {"flash_attention": flash, "ssm_scan_chunk": scans},
+    check(got == {"flash_attention": flash, "selective_scan": scans, "ssm_scan_chunk": 0},
           f"one prefill launched {got}")
     # the plain side: dense attention, and the scan's plain version
     model.attn_impl = "xla_dense"
@@ -1313,8 +1466,7 @@ def phase_serve(torch, arch: str, n_params: int, tol: float, layers=None) -> dic
     n0 = _counts()
     with (_Routes() if moe else nullcontext()) as routes_plain:
         _, logits_plain = model.prefill(prompt, **extra)
-    check(_since(n0) == {"flash_attention": 0, "ssm_scan_chunk": 0},
-          "the plain prefill launched a kernel")
+    check(not any(_since(n0).values()), "the plain prefill launched a kernel")
     model.attn_impl = "pallas"
     if hybrid:
         model.ssm_impl = "pallas"
@@ -1359,7 +1511,7 @@ def phase_serve(torch, arch: str, n_params: int, tol: float, layers=None) -> dic
     n0 = _counts()
     _, logits_step = model.decode_step(grown, tokens[:, SERVE_PROMPT:])
     got = _since(n0)
-    check(got == {"flash_attention": 0, "ssm_scan_chunk": L * hybrid},
+    check(got == {"flash_attention": 0, "selective_scan": scans, "ssm_scan_chunk": 0},
           f"one decode step launched {got}")
     check(bool(torch.isfinite(logits_step).all()), "non-finite decode logits")
     del grown
@@ -1718,7 +1870,7 @@ def phase_serve_sharded(torch, checked: set) -> dict:
         wall = time.perf_counter() - t0
         L = cfg.num_layers
         hybrid = cfg.family == "hybrid"
-        scans = -(-SERVE_PROMPT // SSM_CHUNK) * L if hybrid else 0
+        scans = L * hybrid
         # a prefill's attentions: the encoder-decoder's encoder, decoder
         # self and cross attention; none in xlstm
         attns = {"audio": cfg.encdec.enc_layers + 2 * cfg.encdec.dec_layers if cfg.encdec
@@ -1733,9 +1885,10 @@ def phase_serve_sharded(torch, checked: set) -> dict:
         for i, (kv, dispatch) in enumerate(runs):
             label = f"serve sharded {arch} {kv}" + (f" {dispatch}" if dispatch else "")
             recs = [r["runs"][i] for r in ranks]
-            want_pre = {"flash_attention": attns, "ssm_scan_chunk": scans}
-            want_chk = {"flash_attention": 0, "ssm_scan_chunk": L * hybrid}
-            want_dec = {"flash_attention": 0, "ssm_scan_chunk": SERVE_GEN * L * hybrid}
+            want_pre = {"flash_attention": attns, "selective_scan": scans, "ssm_scan_chunk": 0}
+            want_chk = {"flash_attention": 0, "selective_scan": scans, "ssm_scan_chunk": 0}
+            want_dec = {"flash_attention": 0, "selective_scan": SERVE_GEN * scans,
+                        "ssm_scan_chunk": 0}
             gaps = []
             for r, rec in zip(ranks, recs):
                 rank = r["rank"]
@@ -1888,8 +2041,9 @@ def phase_serve_sharded(torch, checked: set) -> dict:
             paths[label] = {
                 "flash_attention": sum(sum(rec[k]["flash_attention"] for k in (
                     "launches_prefill", "launches_check", "launches_decode")) for rec in recs),
-                "ssm_scan_chunk": sum(sum(rec[k]["ssm_scan_chunk"] for k in (
-                    "launches_prefill", "launches_check", "launches_decode")) for rec in recs),
+                **{name: sum(sum(rec[k][name] for k in (
+                    "launches_prefill", "launches_check", "launches_decode")) for rec in recs)
+                   for name in ("selective_scan", "ssm_scan_chunk")},
                 "flash by shape": {_shape_key(*k): n for k, n in sum(
                     (Counter(rec["flash_shapes"]) for rec in recs), Counter()).items()}}
             _check_sharded_flash(torch, arch, cfg, shapes, checked)
@@ -3315,35 +3469,42 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is missing: {e}", file=sys.stderr)
         return 2
     threading.excepthook = _record_thread_error
-    smi = phase_backend(torch, backend)
+    t_main = time.perf_counter()
+    smi = _clock("backend", phase_backend, torch, backend)
     print(f"memory rate used for the bound: H100 SXM {hw('hbm_bw') / 1e12} TB/s "
           "(repro_torch.launch.mesh.HW)")
-    timed = phase_kernels(torch)
+    timed = _clock("quantize kernels", phase_kernels, torch)
     flash_build_report(backend)
-    flash = phase_flash(torch)
-    launches, by_route, batches = phase_main_path(torch)
-    phase_profile(torch, batches)
-    paths = {"connection": dict(launches), "wan": phase_wan(torch)}
-    paths["serve llama3.2-1b"] = phase_serve(torch, "llama3.2-1b", 1_235_814_400, LOGITS_TOL)
-    phase_analysis(torch, smi, paths["serve llama3.2-1b"]["warm prefill ms"])
-    scan = phase_ssm_scan(torch)
-    paths["serve hymba-1.5b"] = phase_serve(torch, "hymba-1.5b", 1_663_080_000,
-                                            HYMBA_LOGITS_TOL)
+    flash = _clock("flash attention", phase_flash, torch)
+    launches, by_route, batches = _clock("connection", phase_main_path, torch)
+    _clock("connection profile", phase_profile, torch, batches)
+    paths = {"connection": dict(launches), "wan": _clock("wan", phase_wan, torch)}
+    paths["serve llama3.2-1b"] = _clock("serve llama3.2-1b", phase_serve, torch, "llama3.2-1b",
+                                        1_235_814_400, LOGITS_TOL)
+    _clock("analysis", phase_analysis, torch, smi, paths["serve llama3.2-1b"]["warm prefill ms"])
+    scan = _clock("ssm scan", phase_ssm_scan, torch)
+    paths["serve hymba-1.5b"] = _clock("serve hymba-1.5b", phase_serve, torch, "hymba-1.5b",
+                                       1_663_080_000, HYMBA_LOGITS_TOL)
     for arch, n_params, tol, layers in NEW_SERVE:
-        paths[f"serve {arch}"] = phase_serve(torch, arch, n_params, tol, layers)
-    paths.update(phase_serve_sharded(torch, flash["checked"]))
-    dsum = phase_sum_kernel(torch)
-    paths["train 1 rank"] = phase_train_one(torch, 1_235_814_400)
-    paths["train 2 ranks"] = phase_train_two(torch)
-    paths["train sharded"] = phase_train_sharded(torch)
-    paths["train hymba"] = phase_train_hymba(torch)
-    paths["train families"] = phase_train_families(torch)
-    paths["train xlstm 2 ranks"] = phase_train_xlstm_two(torch)
-    paths["train moe mesh"] = phase_train_moe_mesh(torch)
-    paths["train audio mesh"] = phase_train_audio_mesh(torch)
-    paths["train xlstm mesh"] = phase_train_xlstm_mesh(torch)
+        paths[f"serve {arch}"] = _clock(f"serve {arch}", phase_serve, torch, arch, n_params,
+                                        tol, layers)
+    paths.update(_clock("serve sharded", phase_serve_sharded, torch, flash["checked"]))
+    dsum = _clock("dequantize-sum", phase_sum_kernel, torch)
+    for path, phase, args in (("train 1 rank", phase_train_one, (1_235_814_400,)),
+                              ("train 2 ranks", phase_train_two, ()),
+                              ("train sharded", phase_train_sharded, ()),
+                              ("train hymba", phase_train_hymba, ()),
+                              ("train families", phase_train_families, ()),
+                              ("train xlstm 2 ranks", phase_train_xlstm_two, ()),
+                              ("train moe mesh", phase_train_moe_mesh, ()),
+                              ("train audio mesh", phase_train_audio_mesh, ()),
+                              ("train xlstm mesh", phase_train_xlstm_mesh, ())):
+        paths[path] = _clock(path, phase, torch, *args)
+    print("phase seconds (ssm scan includes selective scan):",
+          json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}),
+          f"main {time.perf_counter() - t_main:.1f} s")
     names = ("quantize_pack", "unpack_dequant", "unpack_dequant_sum", "flash_attention",
-             "ssm_scan_chunk")
+             "selective_scan", "ssm_scan_chunk")
     # every serve and train path for every kernel, zeros included; the
     # connection and WAN paths where the kernel ran
     by_path = {name: {path: n.get(name, 0) for path, n in paths.items()
@@ -3402,17 +3563,33 @@ def main() -> int:
                     "launches": sum(n["flash_attention"] for n in serve_paths),
                     **{k: flash[k] for k in keys}, "launches_by_path": by_path["flash_attention"],
                     "cases": flash["cases"]})
-    # B4's case at a rank's channels: the launches of the hymba mesh path,
-    # every one of them on its d_in / 2 channels
-    scan["cases"][SSM_LOCAL]["launches"] = sum(
-        n["ssm_scan_chunk"] for path, n in paths.items()
+    # B4's serving route, the fused scan: its numbers at hymba's prefill on
+    # top with the one-rank prefill's launches (one a layer), the decode
+    # step with the one-rank decode's and the rank's channels with the hymba
+    # mesh path's (every one of them on its d_in / 2 channels)
+    fused = scan["fused"]
+    one = paths["serve hymba-1.5b"]["selective_scan"]
+    fused["prefill"]["launches"] = one // (SERVE_GEN + 1)
+    fused["decode step"]["launches"] = one - fused["prefill"]["launches"]
+    fused["S 300"]["launches"] = 0
+    fused[SSM_LOCAL]["launches"] = sum(
+        n["selective_scan"] for path, n in paths.items()
         if path.startswith("serve sharded hymba-1.5b"))
-    check(scan["cases"][SSM_LOCAL]["launches"] > 0, "the hymba mesh path launched no scan")
+    check(fused[SSM_LOCAL]["launches"] > 0, "the hymba mesh path launched no selective_scan")
+    kernels.append({"name": "selective_scan", "route": "cuda", "source": SSM_SOURCE,
+                    "replaces": SSM_REPLACES,
+                    "launches": sum(n["selective_scan"] for n in serve_paths),
+                    **{k: fused["prefill"][k] for k in keys},
+                    "launches_by_path": by_path["selective_scan"],
+                    "cases": {label: c for label, c in fused.items() if label != "prefill"}})
+    # the chunk scan, the TPU kernel's literal counterpart: checked and timed
+    # above, launched by no path since the fused scan took its place
+    scan["cases"][SSM_LOCAL]["launches"] = scan["cases"]["decode step"]["launches"] = 0
     kernels.append({"name": "ssm_scan_chunk", "route": "cuda", "source": SSM_SOURCE,
                     "replaces": SSM_REPLACES,
                     "launches": sum(n["ssm_scan_chunk"] for n in serve_paths),
                     **{k: scan[k] for k in keys}, "launches_by_path": by_path["ssm_scan_chunk"],
-                    "cases": scan["cases"]})
+                    "serving_route": "selective_scan", "cases": scan["cases"]})
     check(not THREAD_ERRORS, f"exceptions in threads: {THREAD_ERRORS}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

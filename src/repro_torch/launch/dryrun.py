@@ -17,9 +17,10 @@ ranks (``launch.mesh.AbstractMesh``). For each cell it records:
   scan; decode attends the whole cache on one device and the MoE layers
   route the rank's rows on one device (the mesh dispatch's gathers and
   expert split are not in the count); the recurrences over time, the
-  plain SSM scan and xLSTM's sLSTM, elementwise and so 0 FLOPs to the
-  counter, are counted so without running their loops on meta tensors
-  (``kernels.ssm_scan.ssm_scan_chunk_ref``,
+  plain SSM scan (with its contraction with C, taken in n order) and
+  xLSTM's sLSTM, elementwise and so 0 FLOPs to the counter, are counted so
+  without running their loops on meta tensors
+  (``kernels.ssm_scan.selective_scan_ref``,
   ``models.xlstm.slstm_recurrence``). The record says so (``count``). ``bytes accessed`` is null: the counter counts no bytes.
 - ``memory``: one rank's bytes from the layout's local shapes: the
   parameters' blocks (``registry.param_specs``), for a train cell the AdamW

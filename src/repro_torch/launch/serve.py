@@ -18,7 +18,8 @@ from ``PRNGKey(0)``) on ``--device`` (``cuda`` by default, which raises
 without a GPU), with attention in prefill by ``--attn-impl`` (``pallas``,
 the Hopper flash-attention kernel, by default: every prefill attention of
 the dense, moe, vlm, hybrid and audio families); the hybrid family's SSM
-layers scan with the Hopper SSM-scan kernel. ``--layers N`` serves the
+layers run the Hopper kernel ``selective_scan``, one launch a layer in
+prefill and in each decode step. ``--layers N`` serves the
 first N layers of the published config (a cut of depth, for a model whose
 weights exceed one card; each stack of the encoder-decoder).
 

@@ -45,8 +45,9 @@ rank holds ring slots ``[r·cap/m, (r+1)·cap/m)``, and ``decode_step``'s
 
 Two Selects can be switched on a built model: ``attn_impl`` (prefill
 attention, ``pallas`` = the Hopper flash-attention kernel) and ``ssm_impl``
-(each chunk's scan, ``pallas`` = the Hopper SSM-scan kernel, by default;
-``jnp`` = its plain version).
+(the SSM branch's whole-sequence scan, ``pallas`` = the Hopper kernel
+``selective_scan``, by default, once a layer in prefill and in each decode
+step; ``jnp`` = its plain version).
 """
 from __future__ import annotations
 

@@ -1,16 +1,21 @@
 """Selective state-space (mamba-style) core of hymba's SSM branch, in PyTorch.
 
 The counterpart of ``src/repro/models/ssm.py``. Diagonal SSM:
-``h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t``, ``y_t = C_t . h_t + D x_t``,
-computed chunk by chunk with the carried state passed from one chunk to the
-next. Each chunk's scan is a Select named after the reference's ``impl``
-argument (which the reference never reads):
+``h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t``, ``y_t = C_t . h_t + D x_t``.
+The reference computes it chunk by chunk, the state carried from one chunk
+to the next; the port runs the whole sequence through one call of a Select
+named after the reference's ``impl`` argument (which the reference never
+reads):
 
 ``pallas``  the slot of the reference's TPU scan kernel; here it is the
-            hand-written Hopper kernel (``repro_torch.kernels.ssm_scan``),
-            and its plain version on CPU tensors. The port's default.
-``jnp``     the plain PyTorch version of the same chunk scan, so that the
-            kernel can be held to it on the card.
+            hand-written Hopper kernel ``selective_scan``
+            (``repro_torch.kernels.ssm_scan``): exp(dt A), dt x B, the scan,
+            the contraction with C and D x in one launch a layer, prefill
+            and decode; its plain version on CPU tensors. The port's
+            default.
+``jnp``     ``selective_scan_ref``, the plain PyTorch version of the same
+            function (``chunk`` steps of a and bx at a time), so that the
+            kernel can be held to it on the card; training's route.
 
 Cast points are the reference's: the projections multiply in bfloat16, the
 causal conv multiplies and sums its taps in bfloat16, dt, a, bx, the state
@@ -28,8 +33,8 @@ columns of x and of z, ``conv_w``, ``conv_b``, ``x_proj``'s input rows,
 ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and ``out_proj``'s input rows);
 ``ssm_apply(..., split=)`` sums ``x_proj``'s partial output over ``model``
 (and, as every rank's channels read the sum, its cotangent too) and returns ``out_proj``'s partial output for the caller to sum. The scan,
-and B4 under ``pallas``, run on (B, chunk, d_in/|model|, N), and the state
-carries (B, d_in/|model|, N) and (B, K-1, d_in/|model|).
+``selective_scan`` under ``pallas``, runs on the rank's d_in/|model|
+channels, and the state carries (B, d_in/|model|, N) and (B, K-1, d_in/|model|).
 """
 from __future__ import annotations
 
@@ -40,11 +45,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.kernels.ssm_scan.ssm_scan import ssm_scan_chunk, ssm_scan_chunk_ref
+from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan, selective_scan_ref
 from repro_torch.models.layers import Linear, _param, truncated_normal_
 
-#: the chunk scan by ``impl`` name
-SCANS = {"jnp": ssm_scan_chunk_ref, "pallas": ssm_scan_chunk}
+#: the whole-sequence scan by ``impl`` name
+SCANS = {"jnp": selective_scan_ref, "pallas": selective_scan}
 
 
 def dt_rank(d_model: int, s: SSMConfig) -> int:
@@ -115,15 +120,15 @@ def _causal_conv(x, w, b, tail):
 
 def ssm_apply(p: SSM, x: torch.Tensor, s: SSMConfig, state: Optional[SSMState] = None, *,
               chunk: int = 256, impl: str = "pallas", split=None):
-    """x (B, S, D) bfloat16 -> (y (B, S, D), new state). The sequence is
-    padded to whole chunks with a = 1 and bx = 0, so the carried state is
-    the one at the last real token. ``split`` (a ``pshard.Split`` of the
-    channels; ``p`` holds the rank's working tensors): ``x_proj``'s partial
-    output is summed over ``model`` and ``y`` is this rank's float32 partial
-    output of ``out_proj`` (``Linear.partial``), for the caller to sum."""
+    """x (B, S, D) bfloat16 -> (y (B, S, D), new state). The scan runs the
+    S steps in one call; ``chunk`` is the plain version's (the steps of a
+    and bx it holds at a time), which moves no rounding. ``split`` (a
+    ``pshard.Split`` of the channels; ``p`` holds the rank's working
+    tensors): ``x_proj``'s partial output is summed over ``model`` and ``y``
+    is this rank's float32 partial output of ``out_proj``
+    (``Linear.partial``), for the caller to sum."""
     if impl not in SCANS:
         raise ValueError(f"unknown SSM scan impl {impl!r}; known: {sorted(SCANS)}")
-    scan = SCANS[impl]
     B, S, D = x.shape
     N = s.state_dim
     if state is None:
@@ -140,24 +145,9 @@ def ssm_apply(p: SSM, x: torch.Tensor, s: SSMConfig, state: Optional[SSMState] =
     dt_in, Bmat, Cmat = proj.split([dt_rank(D, s), N, N], dim=-1)
     dt = F.softplus(p.dt_proj(dt_in).float() + p.dt_bias)  # (B, S, d_in)
     A = -torch.exp(p.A_log)  # (d_in, N)
-    a = (dt[..., None] * A).exp_()  # (B, S, d_in, N)
-    bx = (dt * xs.float())[..., None] * Bmat.float()[..., None, :]
-
-    pad = (-S) % chunk
-    if pad:
-        a = F.pad(a, (0, 0, 0, 0, 0, pad), value=1.0)
-        bx = F.pad(bx, (0, 0, 0, 0, 0, pad))
-        Cmat = F.pad(Cmat, (0, 0, 0, pad))
-    Cf = Cmat.float()
-    h = state.h.float()
-    ys = []
-    for start in range(0, S + pad, chunk):
-        # a chunk of a and bx is a view: the kernel reads it through its
-        # batch stride. Contracting with C inside the chunk keeps the state
-        # sequence to one chunk at a time.
-        h_seq, h = scan(a[:, start:start + chunk], bx[:, start:start + chunk], h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", h_seq, Cf[:, start:start + chunk]))
-    y = torch.cat(ys, dim=1)[:, :S] + p.D * xs.float()
+    # B and C go in as views of proj: the kernel reads them through their
+    # strides
+    y, h = SCANS[impl](dt, xs, Bmat, Cmat, A, state.h.float(), p.D, chunk)
     y = y.to(x.dtype) * F.silu(z)
     out = p.out_proj(y) if split is None else p.out_proj.partial(y)
     return out, SSMState(h=h, conv=conv_tail)
@@ -166,4 +156,4 @@ def ssm_apply(p: SSM, x: torch.Tensor, s: SSMConfig, state: Optional[SSMState] =
 def ssm_decode(p: SSM, x: torch.Tensor, s: SSMConfig, state: SSMState, *,
                impl: str = "pallas", split=None):
     """Single-token recurrence. x: (B, 1, D)."""
-    return ssm_apply(p, x, s, state, chunk=1, impl=impl, split=split)
+    return ssm_apply(p, x, s, state, impl=impl, split=split)

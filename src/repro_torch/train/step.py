@@ -338,6 +338,11 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
                                             lr_fn(state.step), tcfg, shards)
         for p in state.params.values():
             p.grad = None
+        # a step's frames can outlive it (the first step's are held through
+        # a lazy import made inside its checkpointed forward, until the
+        # cyclic collector runs): they must not hold a set of gradients
+        # into the next step's backward
+        del grads
         values = _mean_over(torch.stack([loss, metrics["grad_norm"].to(loss.device)]),
                             mesh, batch_axes + shared).tolist()
         return (TrainState(params, opt, comm, state.step + 1),

@@ -36,17 +36,20 @@ def flatten_with_paths(tree) -> List[Tuple[Tuple[Any, ...], Any]]:
     """(path, leaf) for every leaf, in the reference's order; a path is the
     tuple of dict keys, field names and indices from the root."""
     out: list = []
-
-    def walk(node, path):
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for k, child in zip(kids[0], kids[1]):
-            walk(child, path + (k,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _walk(node, path, out) -> None:
+    # module level, not a closure: a nested recursive function is a
+    # reference cycle, which would keep ``out`` and its leaves (a step's
+    # gradients) alive until the cyclic collector runs
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for k, child in zip(kids[0], kids[1]):
+        _walk(child, path + (k,), out)
 
 
 def leaves(tree) -> list:
@@ -56,17 +59,18 @@ def leaves(tree) -> list:
 def unflatten(like, new_leaves) -> Any:
     """A tree of ``like``'s structure holding ``new_leaves`` in leaf order."""
     it = iter(new_leaves)
-
-    def build(node):
-        kids = _children(node)
-        if kids is None:
-            return next(it)
-        return kids[2]([build(child) for child in kids[1]])
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, it) is not it:
         raise ValueError("more leaves than the tree has")
     return out
+
+
+def _build(node, it):
+    # module level for the reason of ``_walk``
+    kids = _children(node)
+    if kids is None:
+        return next(it)
+    return kids[2]([_build(child, it) for child in kids[1]])
 
 
 def map(fn: Callable, tree, *rest):

@@ -144,8 +144,9 @@ class TestSSM:
             close(st.conv, rst.conv)
 
     def test_impls_and_chunking_agree(self, pair):
-        """On CPU tensors both scan impls run the plain version; the chunk
-        length moves only the float32 state's rounding."""
+        """On CPU tensors both scan impls run the plain version; its chunk
+        length (the steps of a and bx it holds at a time) moves no rounding:
+        it scans step by step and contracts each step with C in n order."""
         _, _, _, s, m = pair
         x = torch.randn(B, 37, self.D, generator=torch.Generator().manual_seed(0)).bfloat16()
         with torch.no_grad():
@@ -153,7 +154,7 @@ class TestSSM:
             y2, st2 = tssm.ssm_apply(m, x, s, chunk=8, impl="jnp")
             y3, st3 = tssm.ssm_apply(m, x, s, chunk=256)
             assert torch.equal(y, y2) and torch.equal(st.h, st2.h)
-            torch.testing.assert_close(st3.h, st.h, atol=1e-6, rtol=1e-5)
+            assert torch.equal(y3, y) and torch.equal(st3.h, st.h)
             with pytest.raises(ValueError, match="unknown SSM scan impl"):
                 tssm.ssm_apply(m, x, s, impl="cuda")
 
@@ -314,26 +315,28 @@ def test_wrong_family_raises():
 @pytest.mark.cuda
 def test_kernels_in_the_model_on_card():
     """On the card, the smoke model's prefill and a decode step launch the
-    scan kernel once per chunk and layer, and give the very logits of the
-    scan's plain version (the kernel is bit-equal to it); the flash kernel
-    stays within the serving tolerance of dense attention."""
+    fused scan kernel once per layer each (300 tokens in one launch), the
+    chunk kernel never, and give the very logits of the scan's plain version
+    (the kernel is bit-equal to it); the flash kernel stays within the
+    serving tolerance of dense attention."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_scan_chunk
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan, ssm_scan_chunk
 
     cfg = tconfigs.get_smoke_config(ARCH).replace(attn_impl="pallas")
     model = build(cfg, device="cuda", seed=4)
     tokens = torch.randint(0, cfg.vocab_size, (B, 300), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(0))
-    n0 = ssm_scan_chunk.launches
+    n0, c0 = selective_scan.launches, ssm_scan_chunk.launches
     cache, logits = model.prefill(tokens)
-    assert ssm_scan_chunk.launches == n0 + 2 * cfg.num_layers  # 300 tokens: 2 chunks
+    assert selective_scan.launches == n0 + cfg.num_layers
     _, step = model.decode_step(model.grow_cache(cache, 1), tokens[:, :1])
-    assert ssm_scan_chunk.launches == n0 + 3 * cfg.num_layers
+    assert selective_scan.launches == n0 + 2 * cfg.num_layers
     model.ssm_impl = "jnp"
     cache_p, logits_p = model.prefill(tokens)
     _, step_p = model.decode_step(model.grow_cache(cache_p, 1), tokens[:, :1])
-    assert ssm_scan_chunk.launches == n0 + 3 * cfg.num_layers
+    assert selective_scan.launches == n0 + 2 * cfg.num_layers
+    assert ssm_scan_chunk.launches == c0
     assert torch.equal(logits, logits_p) and torch.equal(step, step_p)
     model.attn_impl = "xla_dense"
     _, logits_d = model.prefill(tokens)

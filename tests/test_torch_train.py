@@ -429,3 +429,57 @@ def test_synthetic_data_bit_equal_to_reference(host, vocab, seq):
         for k in a:
             assert a[k].dtype == b[k].dtype
             np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("walk", ["flatten_with_paths", "leaves", "map"])
+def test_tree_walks_leave_no_reference_cycle(walk):
+    """The port's tree helpers free what they walked as soon as their
+    results go: a reference cycle (a nested recursive closure) would keep
+    the leaves, a step's whole gradient, until the cyclic collector runs."""
+    import gc
+    import weakref
+
+    leaf = torch.ones(4)
+    tree = {"a": [leaf, torch.zeros(2)], "b": (torch.zeros(1),)}
+    ref = weakref.ref(leaf)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        out = {"flatten_with_paths": lambda: T.flatten_with_paths(tree),
+               "leaves": lambda: T.leaves(tree),
+               "map": lambda: T.map(lambda x: x, tree)}[walk]()
+        del out, tree, leaf
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def test_steps_keep_no_gradients_alive(monkeypatch):
+    """After training, no step's gradients are alive, even with the cyclic
+    collector off: a step's frames may outlive it (the first step's are held
+    through a lazy import in its checkpointed forward), so the step must not
+    keep its gradients in them."""
+    import gc
+    import weakref
+
+    from repro_torch.train import step as step_mod
+
+    refs: list = []
+    update = adamw.update
+
+    def recording(grads, *args, **kwargs):
+        refs.append([weakref.ref(g) for g in T.leaves(grads)])
+        return update(grads, *args, **kwargs)
+
+    monkeypatch.setattr(step_mod.adamw, "update", recording)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        launch_train.main(["--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
+                           "--seq", "16", "--transport", "xla"])
+        assert len(refs) == 3
+        assert [sum(r() is not None for r in step) for step in refs] == [0, 0, 0]
+    finally:
+        if enabled:
+            gc.enable()
