@@ -1,0 +1,9 @@
+"""mlp_act_ms.prefill: device time per batch of the operations launched
+inside the program's span ``model.mlp_act`` (the MLP's ``activation(gate) *
+u``), in the profiled stretch (each operation put down to its innermost
+``model.*`` span)."""
+from portbench import spans
+
+
+def read(run):
+    return spans.region_ms(run.stretch, "model.mlp_act")

@@ -1,0 +1,8 @@
+"""norm_ms.prefill: device time per batch of the operations launched inside
+the program's span ``model.norm`` (``apply_norm``), in the profiled stretch
+(each operation put down to its innermost ``model.*`` span)."""
+from portbench import spans
+
+
+def read(run):
+    return spans.region_ms(run.stretch, "model.norm")

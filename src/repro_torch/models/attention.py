@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.obs.ranges import spanned
 
 NEG_INF = -1e30
 IMPLS = ("xla_dense", "xla_chunked", "pallas")
@@ -94,6 +95,7 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: Optional[int] = N
     return out.transpose(1, 2).to(q.dtype)
 
 
+@spanned("model.attention")
 def attention(q, k, v, *, impl: str = "xla_chunked", causal: bool = True,
               window: Optional[int] = None, chunk: int = 1024, q_offset=0, kv_len=None):
     if impl == "xla_dense":

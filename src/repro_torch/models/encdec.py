@@ -58,6 +58,7 @@ from repro_torch.models.layers import COMPUTE, MLP, Embedding, Linear, Norm, rop
 from repro_torch.models.pshard import Split
 from repro_torch.models.stacking import apply_stack
 from repro_torch.models.transformer import Attention, DenseLM
+from repro_torch.obs.ranges import spanned
 
 CACHE_KEYS = ("k", "v", "xk", "xv")
 
@@ -278,6 +279,7 @@ class EncDecLM(DenseLM):
         return {"k": zeros(capacity), "v": zeros(capacity), "xk": zeros(src),
                 "xv": zeros(src), "len": 0}
 
+    @spanned("serve.prefill")
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, frames: torch.Tensor):
         """The encoder over ``frames`` ``(B, S_src, E)``, then the decoder

@@ -62,6 +62,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import COMPUTE, MLP, Norm, rope_cos_sin
 from repro_torch.models.pshard import Split
 from repro_torch.models.transformer import Attention, DenseLM
+from repro_torch.obs.ranges import spanned
 
 
 class HymbaLayer(nn.Module):
@@ -205,6 +206,7 @@ class HymbaLM(DenseLM):
                                      else c[n].clone() for n in ("k", "v")}))
         return {"layers": layers, "len": cache["len"]}
 
+    @spanned("serve.prefill")
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
         """Process the whole prompt ``(B, S)``; return the cache of its S

@@ -29,6 +29,8 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.obs.ranges import spanned
+
 COMPUTE = torch.bfloat16
 
 
@@ -76,12 +78,12 @@ class Linear(nn.Module):
         (the reference's ``linear(..., dtype=jnp.float32)``, xlstm's gates);
         TF32 stays off, PyTorch's default."""
         if dtype == torch.float32:
-            y = x.float() @ self.w
+            y = _product(x.float(), self.w)
             return y if self.b is None else y + self.b
         if self.w16 is None:  # training: cast inside the graph
-            y = x.to(COMPUTE) @ self.w.to(COMPUTE)
-            return y if self.b is None else y + self.b.to(COMPUTE)
-        y = x.to(COMPUTE) @ self.w16
+            y = _product(x.to(COMPUTE), _cast(self.w))
+            return y if self.b is None else y + _cast(self.b)
+        y = _product(x.to(COMPUTE), self.w16)
         return y if self.b16 is None else y + self.b16
 
     def partial(self, x: torch.Tensor) -> torch.Tensor:
@@ -92,6 +94,17 @@ class Linear(nn.Module):
         The bias, if any, is the caller's to add once."""
         w = self.w16 if self.w16 is not None else self.w.to(COMPUTE)
         return x.to(COMPUTE).float() @ w.float()
+
+
+@spanned("model.linear.cast")
+def _cast(w: torch.Tensor) -> torch.Tensor:
+    """A float32 weight's bfloat16 copy inside the training graph."""
+    return w.to(COMPUTE)
+
+
+@spanned("model.linear.matmul")
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w
 
 
 class Norm(nn.Module):
@@ -115,6 +128,7 @@ class Norm(nn.Module):
         return apply_norm(x, self.scale, self.bias, eps=self.eps)
 
 
+@spanned("model.norm")
 def apply_norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
                eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
@@ -164,6 +178,13 @@ def activation(x: torch.Tensor, act: str) -> torch.Tensor:
     return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
 
 
+@spanned("model.mlp_act")
+def glu(gate: Optional[torch.Tensor], u: torch.Tensor, act: str) -> torch.Tensor:
+    """The MLP's activation: ``activation(gate) * u``, or ``activation(u)``
+    for the two-matrix MLP (``gate`` None)."""
+    return activation(gate, act) * u if gate is not None else activation(u, act)
+
+
 class MLP(nn.Module):
     """SwiGLU / GeGLU (gated, three matrices) or the classic two-matrix MLP."""
 
@@ -191,8 +212,7 @@ class MLP(nn.Module):
         if split is not None:
             x = split.enter(x)
         u = self.up(x)
-        h = activation(self.gate(x), self.act) * u if self.gate is not None else \
-            activation(u, self.act)
+        h = glu(self.gate(x) if self.gate is not None else None, u, self.act)
         return self.down(h) if split is None else split.reduce(self.down.partial(h))
 
 
@@ -208,6 +228,7 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 
+@spanned("model.rope")
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """The split-halves rotation (``x1, x2 = split(x, 2)``, not interleaved
     pairs) in float32, cast back to x's dtype."""
@@ -226,8 +247,7 @@ def mask_padded_vocab(logits: torch.Tensor, real_vocab: int) -> torch.Tensor:
     if V == real_vocab:
         return logits
     idx = torch.arange(V, device=logits.device)
-    return torch.where(idx < real_vocab, logits,
-                       torch.tensor(-1e30, dtype=logits.dtype, device=logits.device))
+    return logits.masked_fill(idx >= real_vocab, -1e30)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -264,7 +284,7 @@ def chunked_lm_loss(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
     computes unchunked.
     """
     B, S, _ = h.shape
-    head16 = head_w.to(COMPUTE)
+    head16 = _cast(head_w)
     if chunk is None or chunk >= S:
         return softmax_cross_entropy(h.to(COMPUTE) @ head16, labels, real_vocab)
     if S % chunk:
@@ -337,7 +357,7 @@ def vocab_parallel_lm_loss(h: torch.Tensor, head_w: torch.Tensor, labels: torch.
     every rank. The mean is over all B·S tokens; the cotangent of ``h`` is
     this rank's columns' part of the sum over ``axis``."""
     B, S, _ = h.shape
-    head16 = head_w.to(COMPUTE)
+    head16 = _cast(head_w)
     if chunk is None or chunk >= S:
         return _vocab_chunk_loss_sum(h, head16, labels, vocab.start, real_vocab, mesh,
                                      axis) / (B * S)

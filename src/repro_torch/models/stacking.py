@@ -42,6 +42,8 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.obs.ranges import spanned
+
 
 #: the 2-D products whose outputs ``"dots"`` keeps: ``aten.mm`` and
 #: ``aten.addmm`` (a ``Linear`` on (B, S, D) folds into one); ``bmm`` and
@@ -56,16 +58,25 @@ def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.MUST_SAVE if op in DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+@spanned("model.remat")
+def _unit(fn: Callable, *args):
+    """``fn(*args)``, a unit that ``remat`` checkpoints: the span holds its
+    forward and, in backward, its recomputation, so that the recomputed
+    operations no finer span holds are not put down to the backward range
+    open when autograd first unpacks one of the unit's saved tensors."""
+    return fn(*args)
+
+
 def remat(fn: Callable, policy: str) -> Callable:
     """``fn`` recomputed in backward (``"full"``), recomputed but for its
     2-D products' outputs (``"dots"``), or kept (``"none"``)."""
     if policy == "none":
         return fn
     if policy == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+        return lambda *args: checkpoint(_unit, fn, *args, use_reentrant=False)
     if policy == "dots":
         return lambda *args: checkpoint(
-            fn, *args, use_reentrant=False,
+            _unit, fn, *args, use_reentrant=False,
             context_fn=lambda: create_selective_checkpoint_contexts(dots_policy))
     raise ValueError(f"remat policy {policy!r}: use 'none', 'full' or 'dots'")
 

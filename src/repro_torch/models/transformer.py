@@ -75,6 +75,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.pshard import Split, model_split
 from repro_torch.models.sharding import Layout
 from repro_torch.models.stacking import apply_stack
+from repro_torch.obs.ranges import spanned
 
 
 class Attention(nn.Module):
@@ -392,6 +393,7 @@ class DenseLM(nn.Module):
         ``batch_split``."""
         return layer.mlp(layer.ln2(h), split)
 
+    @spanned("serve.prefill")
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None, *,
                 batch_split: int = 1):
@@ -414,10 +416,8 @@ class DenseLM(nn.Module):
                                window=cfg.sliding_window, chunk=cfg.attn_chunk)
             x = x + self._attn_out(layer.attn, o, split)
             x = x + self._ffn(layer, x, batch_split, split)
-            ks.append(k.to(COMPUTE))
-            vs.append(v.to(COMPUTE))
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": S}
-        return cache, self._last_logits(x, split)
+            _keep_kv(ks, vs, k, v)
+        return _stack_kv(ks, vs, S), self._last_logits(x, split)
 
     def _last_logits(self, x: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
         """The logits of the last position of the residual ``x`` (under
@@ -457,6 +457,19 @@ class DenseLM(nn.Module):
             x = x + self._attn_out(layer.attn, o, split)
             x = x + self._ffn(layer, x, batch_split, split)
         return {"k": cache["k"], "v": cache["v"], "len": pos + 1}, self._last_logits(x, split)
+
+
+@spanned("model.kv_cache")
+def _keep_kv(ks: list, vs: list, k: torch.Tensor, v: torch.Tensor) -> None:
+    """A prefill layer's K and V, in the compute type, for the cache."""
+    ks.append(k.to(COMPUTE))
+    vs.append(v.to(COMPUTE))
+
+
+@spanned("model.kv_cache")
+def _stack_kv(ks: list, vs: list, S: int) -> dict:
+    """The prefill's cache: every layer's K and V stacked on a leading axis."""
+    return {"k": torch.stack(ks), "v": torch.stack(vs), "len": S}
 
 
 def grow_cache(cache: dict, extra: int) -> dict:

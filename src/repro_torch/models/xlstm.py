@@ -56,6 +56,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import MLP, Linear, Norm, truncated_normal_
 from repro_torch.models.pshard import Split
 from repro_torch.models.transformer import DenseLM
+from repro_torch.obs.ranges import spanned
 
 F32 = torch.float32
 
@@ -328,6 +329,7 @@ class XlstmLM(DenseLM):
             return self._lm_loss(self.hidden_states(batch["tokens"], split), batch["labels"],
                                  loss_chunk, split)
 
+    @spanned("serve.prefill")
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
         """The whole prompt ``(B, S)`` from the zero state; returns the state

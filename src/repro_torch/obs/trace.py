@@ -3,10 +3,11 @@
 Design constraints (docs/architecture.md §10):
 
 * **Off-by-default cheap.** Every instrumentation site in the hot path is
-  guarded by a single ``if TRACER.enabled:`` attribute read; the disabled
-  path allocates nothing and is gated in ``benchmarks/bench_overhead.py``
-  at <3% of a batch-send's cost. Enabled tracing must stay <10% at
-  batch=64, which is why the data plane records compact tuples
+  guarded by a single ``if TRACER.enabled:`` attribute read (the torch
+  sites of ``obs/ranges.py`` also ask torch whether a profiler records);
+  the disabled path allocates nothing and builds no autograd node, held to
+  that by ``tests/test_torch_trace_ranges.py``. Enabled tracing must stay
+  <10% at batch=64, which is why the data plane records compact tuples
   (:meth:`Tracer.record_batch`) instead of full spans.
 * **Lock-free rings.** Finished records land in a per-thread
   ``deque(maxlen=...)`` reached through ``threading.local`` — appends are
@@ -26,7 +27,9 @@ Design constraints (docs/architecture.md §10):
   endpoints and threads.
 
 Everything here is stdlib-only so any core module may import ``TRACER``
-without cycles.
+without cycles. ``obs/ranges.py`` puts the port's torch code on the
+profiler's clock: its sites are spans of ``TRACER`` and, while a torch
+profiler records, profiler ranges.
 """
 from __future__ import annotations
 

@@ -76,6 +76,7 @@ from repro_torch.launch.mesh import BATCH_AXES
 from repro_torch.models import registry
 from repro_torch.models.sharding import P, Layout, NamedSharding, per_layer
 from repro_torch.models.stacking import stack_layers, unstack_layers
+from repro_torch.obs.ranges import span
 from repro_torch.optim import adamw
 from repro_torch.train.gradshard import GradShards
 
@@ -315,27 +316,38 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
         total = torch.zeros((), dtype=torch.float32, device=mesh.device)
         for i in range(n_mb):
             mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            loss = registry.loss(model, mb, batch_split=batch_split)
-            (loss / n_mb).backward()
+            with span("train.forward"):
+                loss = registry.loss(model, mb, batch_split=batch_split)
+            scaled = loss / n_mb
+            with span("train.backward"):
+                scaled.backward()
             total = total + loss.detach() / n_mb
         return total
 
     def step_fn(state: TrainState, batch) -> tuple:
-        local = local_rows(batch, mesh)
+        with span("train.step"):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch) -> tuple:
+        with span("train.feed"):
+            local = local_rows(batch, mesh)
         for p in state.params.values():
             p.grad = None
         loss = grads_of(local, batch["tokens"].shape[0] // local["tokens"].shape[0])
         grads = {n: p.grad for n, p in state.params.items()}
-        for a in auto:  # what the reference's partitioner averages
-            grads = _mean_auto(grads, mesh, a, layout)
-        for a in shared:
-            grads = _agree_over(grads, mesh, a, layout)
-        comm = state.comm
-        if grad_chunnels:  # on the rank's own shard (ctx["shards"])
-            tree, comm = apply_grad_stack(grad_chunnels, stack_layers(grads, stacks), comm, ctx)
-            grads = unstack_layers(tree, stacks)
-        params, opt, metrics = adamw.update(grads, state.opt, state.params,
-                                            lr_fn(state.step), tcfg, shards)
+        with span("train.grad_sync"):  # the transport's seam
+            for a in auto:  # what the reference's partitioner averages
+                grads = _mean_auto(grads, mesh, a, layout)
+            for a in shared:
+                grads = _agree_over(grads, mesh, a, layout)
+            comm = state.comm
+            if grad_chunnels:  # on the rank's own shard (ctx["shards"])
+                tree, comm = apply_grad_stack(grad_chunnels, stack_layers(grads, stacks), comm,
+                                              ctx)
+                grads = unstack_layers(tree, stacks)
+        with span("train.optimizer"):
+            params, opt, metrics = adamw.update(grads, state.opt, state.params,
+                                                lr_fn(state.step), tcfg, shards)
         for p in state.params.values():
             p.grad = None
         # a step's frames can outlive it (the first step's are held through
@@ -343,8 +355,9 @@ def make_train_step(model, tcfg: TrainConfig, grad_chunnels: Sequence[StepChunne
         # cyclic collector runs): they must not hold a set of gradients
         # into the next step's backward
         del grads
-        values = _mean_over(torch.stack([loss, metrics["grad_norm"].to(loss.device)]),
-                            mesh, batch_axes + shared).tolist()
+        with span("train.metrics"):
+            values = _mean_over(torch.stack([loss, metrics["grad_norm"].to(loss.device)]),
+                                mesh, batch_axes + shared).tolist()
         return (TrainState(params, opt, comm, state.step + 1),
                 {"loss": values[0], "grad_norm": values[1]})
 
