@@ -149,12 +149,23 @@ Phases, each of which exits non-zero on any failed check:
    version and the bound of the card's memory rate. Then, with
    ``quantize_pack``, checked and timed in the same way at the wire of a
    rank's own shard of phase 12 (b)'s gradient (192,161,792 floats, n = 2);
+9b. AdamW's two kernels a leaf (not a TPU kernel: the reference leaves
+    AdamW to XLA) at llama3.2-1b's 146 leaves at full width (1,235,814,400
+    float32 parameters, float32 gradients, bfloat16 moments): one
+    ``optim.adamw.update`` on the card (a ``sumsq`` and an ``adamw_step``
+    launch a leaf, one ``norm_scale``, every leaf on the kernel route)
+    bit-equal to the plain route leaf by leaf (p, m and v against
+    ``g.mul_(scale)`` then ``_leaf_update`` at the card's scale), its norm
+    within 1e-6 (relative) of ``global_norm``; then the whole update, the
+    ``sumsq`` pass and the ``adamw_step`` pass timed beside their plain
+    versions and their bounds by bytes (24, 4 and 20 a parameter);
 10. training on one rank: ``python -m repro_torch.launch.train --arch
     llama3.2-1b --steps 8 --batch 8 --seq 128 --transport xla --ckpt <tmp>
     --ckpt-every 4`` through its ``main``, at the full published config (16
     layers, 1,235,814,400 float32 parameters from seed 0), every kernel
     counter set to 0 just before and read just after (no kernel runs on
-    this path: one rank builds no transport chunnel); every loss finite.
+    this path but AdamW's: one rank builds no transport chunnel); every
+    loss finite.
     Then the step-4 checkpoint restored into a trainer built again, steps
     4-7 run again, their losses equal to the uninterrupted run's; one warm
     step profiled;
@@ -165,7 +176,7 @@ Phases, each of which exits non-zero on any failed check:
     the hosts offering [psum, compressed_int8]: 3 steps of psum, a 2PC
     reconfiguration to compressed_int8, 3 steps of it, save, restore and 1
     more step. Each rank's counters are set to 0 before each step and read
-    after it: no kernel in a psum step; in each compressed step 12
+    after it: no quantize kernel in a psum step; in each compressed step 12
     ``quantize_pack`` and 12 ``unpack_dequant_sum`` launches (the flat
     gradient's, at n = 2, and one per reference leaf for the error
     feedback, at n = 1), all on the vector route at block 256. The
@@ -197,9 +208,15 @@ Phases, each of which exits non-zero on any failed check:
     output and new residual blocks are bit-equal to the rank's slices of
     the whole-tree path (every leaf gathered, the transport on the logical
     flat vector, kernels on both sides; ``gradshard.whole_tree``, run after
-    the step's counters are read). It prints ms/step, the bytes each rank
-    sent per step by axis, the check's seconds and peak memory, and each
-    rank's peak memory outside the checks;
+    the step's counters are read). (c) A mesh of (pod 2, data 2), FSDP on,
+    ``psum``, 1 step from the seed: the moments on their ZeRO-1 blocks
+    (the FSDP dim split further over ``pod``), some of them narrowed out of
+    the parameter's block on its second dim, which AdamW's kernels take as
+    rows of one stride; the losses within 1e-2 of the one-rank run, the
+    bytes ``analysis.roofline``'s, the parameters bit-equal across ``pod``.
+    It prints ms/step, the bytes each rank sent per step by axis, the
+    check's seconds and peak memory, and each rank's peak memory outside
+    the checks;
 6b. analysis (after phase 6): llama3.2-1b's decode_32k cell priced by the
     dry run on the meta device for the 16x16 mesh (``repro_torch.launch.dryrun
     .lower_cell``, the reference's one-cell test), its record's keys and
@@ -212,8 +229,8 @@ Phases, each of which exits non-zero on any failed check:
     repro_torch.launch.train --arch hymba-1.5b --steps 4 --batch 8 --seq 128
     --transport xla`` through its ``main``, at the full published config
     (1,663,080,000 parameters), every kernel counter set to 0 just before
-    and read just after (none launches: training scans with the plain
-    version and attends with ``xla_chunked``), every loss finite; ms/step
+    and read just after (none launches but AdamW's: training scans with the
+    plain version and attends with ``xla_chunked``), every loss finite; ms/step
     and peak memory printed;
 14. training the vlm, audio, ssm and moe families on one rank at their
     published widths, each through ``repro_torch.launch.train.main`` with
@@ -224,7 +241,7 @@ Phases, each of which exits non-zero on any failed check:
     128) and qwen3-moe-235b-a22b **reduced** to 1 of its 94 layers at the
     published widths (3,733,467,136; 8 x 128; ``grouped`` on one rank).
     Every kernel counter set to 0 just before and read just after (none
-    launches: ``xla_chunked`` attention, the plain scans), every loss
+    launches but AdamW's: ``xla_chunked`` attention, the plain scans), every loss
     finite; first and warm ms/step, tokens/s and peak memory printed, and
     one warm step of the same trainer built again profiled (idle share).
     Before each, the card against the CPU: one model drawn on the card from
@@ -249,7 +266,7 @@ Phases, each of which exits non-zero on any failed check:
     bit-equal across its ``model`` group, the card's losses within 1e-2
     (relative) of the CPU's, the backward's own collectives present
     (``grad_all_to_all@model``, ``grad_reduce_scatter@model``), no kernel
-    launch;
+    launch but AdamW's;
 17. the encoder-decoder on the split: seamless-m4t-medium at its published
     widths, 2 + 2 layers, on four gloo ranks (data 2, model 2), 2 steps of
     4 x 128, its losses within 1e-2 of one rank's on the card, each step's
@@ -260,7 +277,16 @@ Phases, each of which exits non-zero on any failed check:
     width; the losses within 1e-2 of one rank's on the card, each step's
     bytes equal to ``analysis.roofline``'s count (``sum_partials``,
     ``gather_channels``, the "f" conjugates' ``grad_all_reduce``, no
-    ``gather_param@model``), no kernel launch.
+    ``gather_param@model``), no kernel launch but AdamW's.
+
+Every training phase (10-18) counts AdamW's kernels too: each optimizer step
+on the card launches a ``sumsq`` and an ``adamw_step`` a leaf of the rank's
+optimizer tree and one ``norm_scale`` (2 x leaves + 1), with every leaf on
+the kernel route (``kernels.adamw.route_leaves``); ``optim.adamw.update`` is
+wrapped to count its calls and leaves, and any other count fails the phase.
+Phase 12 prints each rank's AdamW count a step and how its leaves lie under
+ZeRO-1 (no split, or the ``pod`` block narrowed on a dim: contiguous, or
+rows of one stride).
 
 Each phase prints its seconds (``phase <name>: ... s``) and a line before
 the kernels' lists them all. The line before the last is one JSON object
@@ -389,6 +415,17 @@ WAN_BLOCK, WAN_MTU, WAN_WINDOW, WAN_LOSS = 256, 4096, 8, 0.02
 #: the n-way dequantize-sum (not a TPU kernel: the body of the reference's
 #: compressed all-gather-sum, src/repro/comm/collectives.py:147-150)
 SUM_REPLACES = "src/repro/comm/collectives.py:147 (not a TPU kernel)"
+#: AdamW's two passes a leaf (not a TPU kernel: the reference leaves its
+#: norm, clip and update to XLA)
+ADAMW_SOURCE = "src/repro_torch/kernels/adamw/csrc/adamw.cu"
+ADAMW_REPLACES = "src/repro/optim/adamw.py:40 (not a TPU kernel)"
+ADAMW_KERNELS = ("sumsq", "norm_scale", "adamw_step")
+#: the AdamW phase: llama3.2-1b's leaves at full width (the one-rank
+#: training path's tree), the card's norm within this of ``global_norm``
+ADAMW_ARCH, ADAMW_NORM_RTOL = "llama3.2-1b", 1e-6
+#: leaves of each ``optim.adamw.update`` call since the counters were last
+#: set to 0 (``_tap_adamw``)
+ADAMW_CALLS: list = []
 #: the training phases: llama3.2-1b at full width on one rank; its widths
 #: with 2 of 16 layers on two ranks that share the card
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY = 8, 8, 128, 4
@@ -401,9 +438,11 @@ SUM_N_BLOCKS = TRAIN2_PARAMS // 256
 #: library's reduction order could move a loss; none is expected
 RESTART_RTOL = 1e-6
 #: the sharded phase: four ranks, (a) on (data 2, model 2), (b) on (pod 2,
-#: model 2); its losses against one rank's, relative (the order of the sums
-#: differs: bf16 products summed over other blocks)
+#: model 2), (c) on (pod 2, data 2) with ZeRO-1 moments; its losses against
+#: one rank's, relative (the order of the sums differs: bf16 products summed
+#: over other blocks)
 SHARDED_WORLD, SHARDED_A_STEPS, SHARDED_B_STEPS, SHARDED_RTOL = 4, 3, 2, 1e-2
+SHARDED_C_STEPS = 1
 #: a rank's own shard of that gradient on (pod 2, model 2): its floats (the
 #: 10,240 replicated ones included) and the wire's blocks of 256
 RANK_NUMEL, RANK_N_BLOCKS = 192_161_792, 750_632
@@ -922,9 +961,12 @@ def phase_main_path(torch) -> dict:
 def device_events(torch, averages) -> list:
     """(device us, name, count) of a profile's ``key_averages()``, largest
     first. Device-side events only: a host op (aten::copy_) also carries the
-    device time of the copy it launched, and would count it twice."""
+    device time of the copy it launched, and would count it twice; so would
+    the program's own ranges (``repro_torch.*``, ``obs/ranges.py``), which
+    the profiler puts on the device's timeline around the kernels inside."""
     return sorted(((e.self_device_time_total, e.key, e.count) for e in averages
-                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("repro_torch.")), reverse=True)
 
 
 def phase_profile(torch, batches) -> None:
@@ -1568,13 +1610,74 @@ def _decode_steps(model, cache, tok, n):
         tok = logits.argmax(dim=-1, keepdim=True)
 
 
+def _adamw_wrappers() -> dict:
+    """AdamW's kernel wrappers, by name (every training step on the card
+    launches them)."""
+    from repro_torch.kernels.adamw.adamw import adamw_step, norm_scale, sumsq
+
+    return {"sumsq": sumsq, "norm_scale": norm_scale, "adamw_step": adamw_step}
+
+
+def _tap_adamw() -> None:
+    """Wrap ``optim.adamw.update`` (once in a process) so that each call
+    puts down its number of leaves in ``ADAMW_CALLS``."""
+    from repro_torch import tree as T
+    from repro_torch.optim import adamw
+
+    if getattr(adamw.update, "tapped", False):
+        return
+    real = adamw.update
+
+    def update(grads, state, params, *args, **kwargs):
+        ADAMW_CALLS.append(len(T.leaves(params)))
+        return real(grads, state, params, *args, **kwargs)
+
+    update.tapped = True
+    adamw.update = update
+
+
+def _reset_adamw() -> None:
+    from repro_torch.kernels.adamw import adamw as fused
+
+    _tap_adamw()
+    ADAMW_CALLS.clear()
+    fused.route_leaves.clear()
+    for w in _adamw_wrappers().values():
+        w.launches = 0
+
+
+def _adamw_taken() -> dict:
+    """``update``'s calls and their leaves, the AdamW kernels' launches and
+    ``update``'s routes since ``_reset_adamw``."""
+    from repro_torch.kernels.adamw import adamw as fused
+
+    return {"calls": len(ADAMW_CALLS), "leaves": sum(ADAMW_CALLS),
+            **{name: w.launches for name, w in _adamw_wrappers().items()},
+            "routes": dict(fused.route_leaves)}
+
+
+def check_adamw(tag: str, taken: dict, steps: int) -> None:
+    """``steps`` optimizer steps on the card: each a ``sumsq`` and an
+    ``adamw_step`` launch a leaf and one ``norm_scale`` (2 x leaves + 1),
+    every leaf on the kernel route."""
+    n = taken["leaves"]
+    want = {"calls": steps, "leaves": n, "sumsq": n, "norm_scale": steps, "adamw_step": n,
+            "routes": {"kernel": n}}
+    check(n > 0 and taken == want, f"{tag}: AdamW {taken}, want {want}")
+
+
+def _others(launches: dict) -> dict:
+    """``launches`` less AdamW's kernels."""
+    return {name: n for name, n in launches.items() if name not in ADAMW_KERNELS}
+
+
 def _all_counts() -> dict:
     """Launches of every kernel wrapper since its counter was last set to 0."""
     from repro_torch.kernels.quantize.quantize import (quantize_pack, unpack_dequant,
                                                        unpack_dequant_sum)
 
     ws = {**_wrappers(), "quantize_pack": quantize_pack, "unpack_dequant": unpack_dequant,
-          "unpack_dequant_sum": unpack_dequant_sum}
+          "unpack_dequant_sum": unpack_dequant_sum, **_adamw_wrappers()}
     return {name: w.launches for name, w in ws.items()}
 
 
@@ -1586,6 +1689,7 @@ def _reset_all_counts() -> None:
     unpack_dequant_sum.route_launches.clear()
     for w in _wrappers().values():
         w.launches = 0
+    _reset_adamw()
 
 
 def _sharded_cfg(arch, layers):
@@ -2163,6 +2267,119 @@ def phase_sum_kernel(torch) -> dict:
     return res
 
 
+def phase_adamw(torch) -> dict:
+    """AdamW's kernels at llama3.2-1b's leaf shapes, full width: one
+    ``optim.adamw.update`` on the card (a ``sumsq`` and an ``adamw_step`` a
+    leaf, one ``norm_scale``, every leaf on the kernel route) held to the
+    plain route leaf by leaf (``torch.equal`` of p, m and v against
+    ``g.mul_(scale)`` and ``_leaf_update`` at the card's scale; the norm
+    within ADAMW_NORM_RTOL of ``global_norm``); then each pass timed beside
+    its plain version and its bound by bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.adamw import adamw as fused
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda")
+    shapes = {n: tuple(p.shape) for n, p in
+              registry.build(get_config(ADAMW_ARCH), device="meta").named_parameters()}
+    n_params = sum(math.prod(s) for s in shapes.values())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    draw = lambda s, k: torch.randn(s, generator=gen, device=dev) * k  # noqa: E731
+    params = {n: draw(s, 0.02) for n, s in shapes.items()}
+    grads = {n: draw(s, 1e-3) for n, s in shapes.items()}
+    m = {n: draw(s, 1e-4).to(torch.bfloat16) for n, s in shapes.items()}
+    v = {n: draw(s, 1e-4).square_().to(torch.bfloat16) for n, s in shapes.items()}
+    cfg, lr = TrainConfig(), 3e-4
+    count = 2  # the moments of two steps: the bias corrections of step 3
+    clone = lambda tree: {k: t.clone() for k, t in tree.items()}  # noqa: E731
+    want_p, want_m, want_v = clone(params), clone(m), clone(v)
+    _reset_adamw()
+    _, _, met = adamw.update(grads, adamw.AdamWState(m, v, count), params, lr, cfg)
+    torch.cuda.synchronize()
+    taken = _adamw_taken()
+    check_adamw("adamw", taken, 1)
+    check(taken["leaves"] == len(shapes), f"adamw: {taken['leaves']} leaves, want {len(shapes)}")
+    norm = adamw.global_norm(grads)
+    gap = abs(met["grad_norm"].item() - norm.item()) / norm.item()
+    check(gap <= ADAMW_NORM_RTOL, f"adamw: norm {met['grad_norm'].item()!r} against "
+          f"global_norm {norm.item()!r}: relative gap {gap}")
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(met["grad_norm"], min=1e-12), max=1.0)
+    c1, c2 = (float(1 - adamw._f32(b) ** adamw._f32(count + 1)) for b in (cfg.beta1, cfg.beta2))
+    unequal = []
+    for k in shapes:
+        adamw._leaf_update(want_p[k], grads[k].clone().mul_(scale), want_m[k], want_v[k], lr,
+                           c1, c2, cfg)
+        unequal += [f"{k}.{name}" for name, got, want in
+                    (("p", params[k], want_p[k]), ("m", m[k], want_m[k]), ("v", v[k], want_v[k]))
+                    if not torch.equal(got, want)]
+    check(not unequal, f"adamw: the kernel route differs from the plain one at {unequal[:8]}")
+    print(f"adamw: {ADAMW_ARCH}'s {len(shapes)} leaves ({n_params} float32 parameters, bfloat16 "
+          f"moments): update on the card bit-equal to the plain route leaf by leaf (p, m, v at "
+          f"the card's scale); norm {met['grad_norm'].item()!r} against global_norm "
+          f"{norm.item()!r}, relative gap {gap:.3e} (tolerance {ADAMW_NORM_RTOL}); launches "
+          f"{json.dumps({k: taken[k] for k in ADAMW_KERNELS})}, routes {taken['routes']}")
+    del want_p, want_m, want_v
+
+    slots = torch.empty(len(shapes), dtype=torch.float32, device=dev)
+    one = torch.ones((), device=dev)
+
+    def sumsq_pass():
+        for i, g in enumerate(grads.values()):
+            fused.sumsq(g, slots[i])
+        fused.norm_scale(slots, cfg.grad_clip)
+
+    def step_pass():
+        for k in shapes:
+            fused.adamw_step(params[k], grads[k], m[k], v[k], one, lr=lr, c1=c1, c2=c2,
+                             beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
+                             weight_decay=cfg.weight_decay)
+
+    def plain_norm():
+        torch.clamp(cfg.grad_clip / torch.clamp(adamw.global_norm(grads), min=1e-12), max=1.0)
+
+    def plain_step():  # the clip's product by 1, then the plain update
+        for k in shapes:
+            adamw._leaf_update(params[k], grads[k].mul_(one), m[k], v[k], lr, c1, c2, cfg)
+
+    state = adamw.AdamWState(m, v, count)
+    host = []  # the host's time to enqueue one update, the card idle before it
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adamw.update(grads, state, params, lr, cfg)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    times = {"update": (time_ms(torch, lambda: adamw.update(grads, state, params, lr, cfg),
+                                reps=11, group=3), None, 24),
+             "sumsq": (time_ms(torch, sumsq_pass, reps=11, group=3),
+                       time_ms(torch, plain_norm, reps=5, group=1), 4),
+             "adamw_step": (time_ms(torch, step_pass, reps=11, group=3),
+                            time_ms(torch, plain_step, reps=5, group=1), 20)}
+    res = {"leaves": len(shapes), "parameters": n_params, "norm_rel_gap": gap,
+           "max_abs_err": abs(met["grad_norm"].item() - norm.item()),
+           "host_ms": statistics.median(host)}
+    for name, (ms, plain_ms, per) in times.items():
+        io = per * n_params
+        bound = io / hw("hbm_bw") * 1e3
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                     "bytes": io}
+        plain = "" if plain_ms is None else f"plain {plain_ms:.4f} ms, "
+        print(f"time adamw {name} at {ADAMW_ARCH}'s leaves: {ms:.4f} ms ({plain}bound "
+              f"{bound:.4f} ms by bytes: {io} bytes; {io / ms / 1e6:.1f} GB/s, "
+              f"{bound / ms:.1%} of the bound)")
+    res["update"]["plain_ms"] = res["sumsq"]["plain_ms"] + res["adamw_step"]["plain_ms"]
+    res["update"]["host_ms"] = res.pop("host_ms")
+    print(f"adamw: the host enqueues one update in {res['update']['host_ms']:.4f} ms (median of "
+          f"5; {res['update']['host_ms'] / len(shapes) * 1e3:.1f} us a leaf): the timed passes "
+          "are the card's time only where the host keeps ahead of it")
+    del params, grads, m, v, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_analysis(torch, smi: str, warm_prefill_ms: float) -> None:
     """The analysis slice (``repro_torch.analysis``, ``launch.dryrun``):
     llama3.2-1b's decode_32k cell priced on the meta device for the 16x16
@@ -2258,10 +2475,13 @@ def phase_train_one(torch, n_params: int) -> dict:
         t0 = time.perf_counter()
         run = train.main(argv)
         wall = time.perf_counter() - t0
-        launches = _all_counts()
-        print(f"train 1 rank: launches {json.dumps(launches)} (want 0 of each: one rank "
-              f"builds no transport chunnel, and training attends with xla_chunked)")
-        check(not any(launches.values()), f"train 1 rank launched kernels: {launches}")
+        launches, taken = _all_counts(), _adamw_taken()
+        print(f"train 1 rank: launches {json.dumps(launches)} (want 0 of each but AdamW's: one "
+              f"rank builds no transport chunnel, and training attends with xla_chunked); "
+              f"AdamW {json.dumps(taken)} (want a sumsq and an adamw_step a leaf and one "
+              f"norm_scale a step, every leaf on the kernel route)")
+        check(not any(_others(launches).values()), f"train 1 rank launched kernels: {launches}")
+        check_adamw("train 1 rank", taken, TRAIN_STEPS)
         losses = run.losses
         check(len(losses) == TRAIN_STEPS and all(math.isfinite(l) for l in losses),
               f"train 1 rank: losses {losses}")
@@ -2386,6 +2606,7 @@ def train_rank(ckpt_dir: str) -> dict:
         for w in wrappers.values():
             w.launches = 0
             w.route_launches.clear()
+        _reset_adamw()
         sent0 = sum(collectives.SENT.values())
         state, hist = tr.run(state, gen, 1)
         sums = [None] * mesh.size
@@ -2394,7 +2615,7 @@ def train_rank(ckpt_dir: str) -> dict:
             "label": label, "transport": tr.transport_name, "step": state.step,
             "loss": hist[0]["loss"], "ms": tr.step_times[-1] * 1e3,
             "sent_bytes": sum(collectives.SENT.values()) - sent0,
-            "launches": {n: w.launches for n, w in wrappers.items()},
+            "launches": {n: w.launches for n, w in wrappers.items()}, "adamw": _adamw_taken(),
             "routes": {n: {f"{r} b{b}": c for (r, b), c in w.route_launches.items()}
                        for n, w in wrappers.items()},
             "params_equal_on_ranks": all(s == sums[0] for s in sums)})
@@ -2436,7 +2657,8 @@ def phase_train_two(torch) -> dict:
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0}
+    total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0,
+             **dict.fromkeys(ADAMW_KERNELS, 0)}
     for r in ranks:
         rank = r["rank"]
         check(not r["thread_errors"], f"rank {rank}: exceptions in threads {r['thread_errors']}")
@@ -2466,8 +2688,9 @@ def phase_train_two(torch) -> dict:
             check(rec["params_equal_on_ranks"],
                   f"rank {rank} step {rec['step']}: parameters differ across the ranks")
             check(math.isfinite(rec["loss"]), f"rank {rank} step {rec['step']}: loss {rec['loss']}")
+            check_adamw(f"rank {rank} step {rec['step']}", rec["adamw"], 1)
             for name in total:
-                total[name] += rec["launches"][name]
+                total[name] += {**rec["launches"], **rec["adamw"]}[name]
     r0 = ranks[0]["records"]
     check([rec["loss"] for rec in r0] == [rec["loss"] for rec in ranks[1]["records"]],
           "the ranks report different losses")
@@ -2475,8 +2698,8 @@ def phase_train_two(torch) -> dict:
         print(f"train 2 ranks: step {rec['step']} {rec['label']}: loss {rec['loss']:.6f}, "
               f"{rec['ms']:.3f} ms (rank 0; rank 1 "
               f"{ranks[1]['records'][r0.index(rec)]['ms']:.3f} ms), {rec['sent_bytes']} bytes "
-              f"sent by rank 0, launches {json.dumps(rec['launches'])}, parameters bit-equal on "
-              "both ranks")
+              f"sent by rank 0, launches {json.dumps(rec['launches'])}, AdamW "
+              f"{json.dumps(rec['adamw'])}, parameters bit-equal on both ranks")
     for t in ("psum", "compressed_int8"):
         ms = [rec["ms"] for r in ranks for rec in r["records"] if rec["label"] == t]
         sent = [rec["sent_bytes"] for rec in r0 if rec["label"] == t]
@@ -2492,6 +2715,27 @@ def _block_checksums(torch, params) -> dict:
     """Each parameter block's float32 bit patterns summed as int64, by name."""
     return {n: p.detach().contiguous().view(torch.int32).sum(dtype=torch.int64).item()
             for n, p in sorted(params.items())}
+
+
+def _zero1_layouts(tr, state) -> dict:
+    """The rank's optimizer leaves by how ``update`` views them: with no
+    ZeRO-1 split, or as the ``pod`` block narrowed on a dim, contiguous or
+    as rows of one stride (the kernels take both)."""
+    from repro_torch.kernels.adamw import adamw as fused
+    from repro_torch.optim.adamw import _zero1_view
+    from repro_torch.train import step as step_mod
+
+    shards = step_mod.adam_shards(tr.state_sh) or {}
+    out: Counter = Counter()
+    for name, p in state.params.items():
+        sh = shards.get(name)
+        if sh is None or sh.zero1_dim is None:
+            out["no split"] += 1
+            continue
+        lay = fused.rows(_zero1_view(p, sh))
+        kind = "no layout" if lay is None else "contiguous" if lay[0] <= 1 else "rows"
+        out[f"dim {sh.zero1_dim} {kind}"] += 1
+    return dict(out)
 
 
 def train_sharded_rank(ckpt_dir: str) -> dict:
@@ -2528,6 +2772,7 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
             w.launches = 0
             w.route_launches.clear()
             w.size_launches.clear()
+        _reset_adamw()
         mesh = tr.mesh
         counted = dict(roofline.step_collectives(
             cfg, shape, AbstractMesh(dict(mesh.shape), rank=mesh.rank), sh=tr.sharding,
@@ -2549,6 +2794,7 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
         sent = {k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
                 if v - sent0.get(k, 0)}
         launches = {n: w.launches for n, w in wrappers.items()}
+        opt = _adamw_taken()
         routes = {n: {f"{r} b{b}": c for (r, b), c in w.route_launches.items()}
                   for n, w in wrappers.items()}
         at_rank_shape = {n: w.size_launches[RANK_NUMEL] for n, w in wrappers.items()}
@@ -2580,6 +2826,7 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
             "loss": hist[0]["loss"], "ms": tr.step_times[-1] * 1e3,
             "sent_by_axis": collectives.sent_by_axis(sent), "sent": sent, "counted": counted,
             "launches": launches, "routes": routes, "at_rank_shape": at_rank_shape,
+            "adamw": opt, "zero1": _zero1_layouts(tr, state),
             "checksums": _block_checksums(torch, state.params), "whole": whole})
         return state
 
@@ -2632,7 +2879,24 @@ def train_sharded_rank(ckpt_dir: str) -> dict:
                 "n_leaves": len(T.leaves(tr.state_sh.comm)),
                 "thread_errors": errors, "peak_a_bytes": peak_a,
                 "peak_b_bytes": max(peaks + [torch.cuda.max_memory_allocated()])})
-    out["peak_memory_bytes"] = max(peak_a, out["peak_b_bytes"])
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (c) FSDP over data, ZeRO-1 moments over pod (their data dim split
+    # further), psum: AdamW's kernels on the moments' blocks, some narrowed
+    # out of the parameter's block on a dim past the first
+    mesh_c = make_mesh((2, 2), ("pod", "data"), device="cuda:0")
+    tr = ReconfigurableTrainer(cfg, shape, mesh_c, tcfg=tcfg, sharding=ShardingConfig(fsdp=True),
+                               transport="psum")
+    state = tr.init_state(SEED)
+    records_c: list = []
+    for _ in range(SHARDED_C_STEPS):
+        state = one_step(tr, state, "c psum", records_c)
+    out.update({"coords_c": dict(mesh_c.coords), "records_c": records_c,
+                "peak_c_bytes": torch.cuda.max_memory_allocated()})
+    out["peak_memory_bytes"] = max(peak_a, out["peak_b_bytes"], out["peak_c_bytes"])
     return out
 
 
@@ -2670,7 +2934,8 @@ def phase_train_sharded(torch) -> dict:
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0}
+    total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0,
+             **dict.fromkeys(ADAMW_KERNELS, 0)}
     checked_whole: set = set()
     at_shape = {"quantize_pack": 0, "unpack_dequant_sum": 0}  # measured, (b)'s steps
     for r in ranks:
@@ -2707,6 +2972,7 @@ def phase_train_sharded(torch) -> dict:
                     check(rec["routes"][name] == {"vector b256": want[name]},
                           f"rank {rank} step {rec['step']}: {name} routes {rec['routes'][name]}")
             check(math.isfinite(rec["loss"]), f"rank {rank} step {rec['step']}: loss {rec['loss']}")
+            check_adamw(f"rank {rank} step {rec['step']} ({rec['label']})", rec["adamw"], 1)
             # the compute split over model ran on the sequence-parallel
             # residual: its gathers and reduce-scatters over S, no sums of
             # whole activations, the bytes the roofline counts
@@ -2751,10 +3017,14 @@ def phase_train_sharded(torch) -> dict:
                       f"{w['peak_bytes'] / 2**30:.2f} GiB ({w['peak_bytes']} bytes)")
                 checked_whole.add(rec["label"])
             for name in total:
-                total[name] += rec["launches"][name]
+                total[name] += {**rec["launches"], **rec["adamw"]}[name]
         print(f"train sharded (b), rank {rank} at {r['coords_b']}: restored step "
               f"{r['restored_at']} in {r['restore_s']:.3f} s, gathered leaves bit-equal to the "
               "saved ones")
+        for part in ("a", "b"):
+            rec = r[f"records_{part}"][-1]
+            print(f"train sharded ({part}), rank {rank}: AdamW a step {json.dumps(rec['adamw'])}; "
+                  f"the optimizer's leaves by ZeRO-1 layout {json.dumps(rec['zero1'])}")
     pairs = 0
     for a in ranks:
         for b in ranks:
@@ -2768,6 +3038,41 @@ def phase_train_sharded(torch) -> dict:
     check(pairs == 2, f"{pairs} pod pairs")
     check(checked_whole == {"b psum", "b compressed_int8"},
           f"the whole-tree check ran at {checked_whole}")
+    # (c): ZeRO-1 moments, some of them blocks narrowed on a dim past the
+    # first (rows of one stride), every leaf on AdamW's kernels
+    for r in ranks:
+        rank = r["rank"]
+        got = [rec["loss"] for rec in r["records_c"]]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(got, one_rank))
+        check(all(math.isfinite(l) for l in got) and diff <= SHARDED_RTOL,
+              f"rank {rank}: (c) losses {got}, one rank {one_rank}")
+        for rec in r["records_c"]:
+            check_adamw(f"rank {rank} step {rec['step']} ({rec['label']})", rec["adamw"], 1)
+            check(rec["sent"] == rec["counted"], f"rank {rank} step {rec['step']} "
+                  f"({rec['label']}): sent {rec['sent']}, analysis.roofline counts "
+                  f"{rec['counted']}")
+            for name in total:
+                total[name] += {**rec["launches"], **rec["adamw"]}[name]
+        zero1 = r["records_c"][-1]["zero1"]
+        check(any(k.endswith(" rows") for k in zero1),
+              f"rank {rank}: (c) no ZeRO-1 block narrowed past the first dim: {zero1}")
+        print(f"train sharded (c), rank {rank} at {r['coords_c']}: losses {got} (max relative "
+              f"difference from one rank {diff:.3e}); AdamW a step "
+              f"{json.dumps(r['records_c'][-1]['adamw'])}; the optimizer's leaves by ZeRO-1 "
+              f"layout {json.dumps(zero1)}; step ms "
+              f"{[round(rec['ms'], 3) for rec in r['records_c']]}; peak "
+              f"{r['peak_c_bytes']} bytes")
+    pairs = 0
+    for a in ranks:
+        for b in ranks:
+            ca, cb = a["coords_c"], b["coords_c"]
+            if ca["pod"] < cb["pod"] and ca["data"] == cb["data"]:
+                for ra, rb in zip(a["records_c"], b["records_c"]):
+                    check(ra["checksums"] == rb["checksums"],
+                          f"(c) step {ra['step']}: parameters differ across pod (ranks "
+                          f"{a['rank']}, {b['rank']})")
+                pairs += 1
+    check(pairs == 2, f"(c): {pairs} pod pairs")
     total["at a rank's shape"] = at_shape
     r0 = ranks[0]
     for rec in r0["records_a"] + r0["records_b"]:
@@ -2808,13 +3113,14 @@ def phase_train_hymba(torch) -> dict:
     t0 = time.perf_counter()
     run = train.main(argv)
     wall = time.perf_counter() - t0
-    launches = _all_counts()
-    check(not any(launches.values()), f"train hymba launched kernels: {launches}")
+    launches, taken = _all_counts(), _adamw_taken()
+    check(not any(_others(launches).values()), f"train hymba launched kernels: {launches}")
+    check_adamw("train hymba", taken, HYMBA_TRAIN_STEPS)
     check(len(run.losses) == HYMBA_TRAIN_STEPS and all(math.isfinite(l) for l in run.losses),
           f"train hymba: losses {run.losses}")
     check(run.n_params == HYMBA_PARAMS, f"train hymba: {run.n_params} parameters")
-    print(f"train hymba: launches {json.dumps(launches)} (want 0 of each: the plain scan and "
-          f"xla_chunked attention); {run.n_params} parameters; losses {run.losses}; first step {run.first_ms:.3f} ms, warm "
+    print(f"train hymba: launches {json.dumps(launches)} (want 0 of each but AdamW's: the plain "
+          f"scan and xla_chunked attention); AdamW {json.dumps(taken)}; {run.n_params} parameters; losses {run.losses}; first step {run.first_ms:.3f} ms, warm "
           f"{run.warm_ms:.3f} ms/step (median of steps 2-{HYMBA_TRAIN_STEPS}), "
           f"{run.tokens_per_s:.1f} tokens/s; peak memory {run.peak_memory_bytes / 2**30:.2f} GiB "
           f"({run.peak_memory_bytes} bytes); step ms {[round(t * 1e3, 3) for t in run.step_s]}; "
@@ -2951,9 +3257,10 @@ def phase_train_families(torch) -> dict:
         t0 = time.perf_counter()
         run = train.main(argv)
         wall = time.perf_counter() - t0
-        launches = _all_counts()
+        launches, taken = _all_counts(), _adamw_taken()
         total.update(launches)
-        check(not any(launches.values()), f"{tag} launched kernels: {launches}")
+        check(not any(_others(launches).values()), f"{tag} launched kernels: {launches}")
+        check_adamw(tag, taken, FAMILY_TRAIN_STEPS)
         check(len(run.losses) == FAMILY_TRAIN_STEPS and all(math.isfinite(l) for l in run.losses),
               f"{tag}: losses {run.losses}")
         check(run.n_params == n_params, f"{tag}: {run.n_params} parameters, want {n_params}")
@@ -2974,9 +3281,9 @@ def phase_train_families(torch) -> dict:
         del tr, state
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"{tag}: launches {json.dumps(launches)} (want 0 of each: xla_chunked attention, "
-              f"the plain scans, one rank builds no transport chunnel); {run.n_params} "
-              f"parameters; losses {run.losses}; first step {run.first_ms:.3f} ms, warm "
+        print(f"{tag}: launches {json.dumps(launches)} (want 0 of each but AdamW's: xla_chunked "
+              f"attention, the plain scans, one rank builds no transport chunnel); AdamW "
+              f"{json.dumps(taken)}; {run.n_params} parameters; losses {run.losses}; first step {run.first_ms:.3f} ms, warm "
               f"{run.warm_ms:.3f} ms/step (median of steps 2-{FAMILY_TRAIN_STEPS}), "
               f"{run.tokens_per_s:.1f} tokens/s ({run.tokens_per_step} tokens a step); peak "
               f"memory {run.peak_memory_bytes / 2**30:.2f} GiB ({run.peak_memory_bytes} bytes); "
@@ -3029,6 +3336,7 @@ def train_xlstm_rank() -> dict:
         for w in wrappers.values():
             w.launches = 0
             w.route_launches.clear()
+        _reset_adamw()
         sent0 = sum(collectives.SENT.values())
         state, hist = tr.run(state, gen, 1)
         sums = [None] * mesh.size
@@ -3037,7 +3345,7 @@ def train_xlstm_rank() -> dict:
             "transport": tr.transport_name, "step": state.step, "loss": hist[0]["loss"],
             "ms": tr.step_times[-1] * 1e3,
             "sent_bytes": sum(collectives.SENT.values()) - sent0,
-            "launches": {n: w.launches for n, w in wrappers.items()},
+            "launches": {n: w.launches for n, w in wrappers.items()}, "adamw": _adamw_taken(),
             "routes": {n: {f"{r} b{b}": c for (r, b), c in w.route_launches.items()}
                        for n, w in wrappers.items()},
             "params_equal_on_ranks": all(x == sums[0] for x in sums)})
@@ -3068,7 +3376,8 @@ def phase_train_xlstm_two(torch) -> dict:
     t0 = time.perf_counter()
     ranks = spawn("chip_smoke:train_xlstm_rank", 2, backend="gloo", timeout_s=600.0, reason=why)
     wall = time.perf_counter() - t0
-    total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0}
+    total = {"quantize_pack": 0, "unpack_dequant": 0, "unpack_dequant_sum": 0,
+             **dict.fromkeys(ADAMW_KERNELS, 0)}
     for r in ranks:
         rank = r["rank"]
         check(not r["thread_errors"], f"rank {rank}: exceptions in threads {r['thread_errors']}")
@@ -3090,14 +3399,15 @@ def phase_train_xlstm_two(torch) -> dict:
             check(rec["params_equal_on_ranks"],
                   f"rank {rank} step {rec['step']}: parameters differ across the ranks")
             check(math.isfinite(rec["loss"]), f"rank {rank} step {rec['step']}: loss {rec['loss']}")
+            check_adamw(f"rank {rank} step {rec['step']}", rec["adamw"], 1)
             for name in total:
-                total[name] += rec["launches"][name]
+                total[name] += {**rec["launches"], **rec["adamw"]}[name]
     r0, r1 = ranks[0]["records"], ranks[1]["records"]
     for rec, other in zip(r0, r1):
         print(f"train xlstm 2 ranks: step {rec['step']} {rec['transport']}: loss "
               f"{rec['loss']:.6f}, {rec['ms']:.3f} ms (rank 0; rank 1 {other['ms']:.3f} ms), "
               f"{rec['sent_bytes']} bytes sent by rank 0, launches {json.dumps(rec['launches'])}, "
-              "parameters bit-equal on both ranks")
+              f"AdamW {json.dumps(rec['adamw'])}, parameters bit-equal on both ranks")
     print(f"train xlstm 2 ranks: {XLSTM_LEAVES} reference leaves; launches over both ranks "
           f"{json.dumps(total)}; peak memory by rank "
           f"{[r['peak_memory_bytes'] for r in ranks]} bytes; spawn to exit {wall:.3f} s; both "
@@ -3155,7 +3465,7 @@ def moe_mesh_rank(params) -> dict:
             out[(device, impl)] = {
                 "local": local, "reported": reported,
                 "ms": [t * 1e3 for t in tr.step_times], "launches": _all_counts(),
-                "sent": dict(sent),
+                "adamw": _adamw_taken(), "sent": dict(sent),
                 "counted": {k: v * MOE_MESH_STEPS for k, v in counted.items()},
                 "split": repr(tr.model.train_split(MOE_MESH_BATCH // 2, MOE_MESH_SEQ, 2))}
             del tr, state
@@ -3193,8 +3503,9 @@ def phase_train_moe_mesh(torch) -> dict:
         for impl in MOE_MESH_DISPATCHES:
             rec = r[("cuda:0", impl)]
             total.update(rec["launches"])
-            check(not any(rec["launches"].values()),
+            check(not any(_others(rec["launches"]).values()),
                   f"rank {r['rank']} {impl}: launched kernels {rec['launches']}")
+            check_adamw(f"rank {r['rank']} {impl}", rec["adamw"], MOE_MESH_STEPS)
             check(all(math.isfinite(l) for l in rec["local"] + rec["reported"]),
                   f"rank {r['rank']} {impl}: losses {rec}")
             grads = {k for k in rec["sent"] if k.startswith("grad_")}
@@ -3284,7 +3595,8 @@ def audio_mesh_rank() -> dict:
                                  if v > sent0.get(k, 0)}})
     split = model_split(cfg, mesh).at(AUDIO_MESH_SEQ, AUDIO_MESH_SEQ // cfg.encdec.src_ratio)
     return {"rank": dist.get_rank(), "coords": dict(mesh.coords), "records": records,
-            "counted": counted, "launches": _all_counts(), "split": repr(split),
+            "counted": counted, "launches": _all_counts(), "adamw": _adamw_taken(),
+            "split": repr(split),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(), "thread_errors": errors}
 
 
@@ -3320,7 +3632,9 @@ def phase_train_audio_mesh(torch) -> dict:
         rank = r["rank"]
         check(not r["thread_errors"], f"rank {rank}: exceptions in threads")
         total.update(r["launches"])
-        check(not any(r["launches"].values()), f"rank {rank}: launched kernels {r['launches']}")
+        check(not any(_others(r["launches"]).values()),
+              f"rank {rank}: launched kernels {r['launches']}")
+        check_adamw(f"train audio mesh rank {rank}", r["adamw"], AUDIO_MESH_STEPS)
         check("src_seq=slice(" in r["split"] and "seq=slice(" in r["split"]
               and "heads=Heads(" in r["split"], f"rank {rank}: split {r['split']}")
         got = [rec["loss"] for rec in r["records"]]
@@ -3391,7 +3705,7 @@ def xlstm_mesh_rank() -> dict:
                         "sent": {k: v - sent0.get(k, 0) for k, v in collectives.SENT.items()
                                  if v > sent0.get(k, 0)}})
     return {"rank": dist.get_rank(), "coords": dict(mesh.coords), "records": records,
-            "counted": counted, "launches": _all_counts(),
+            "counted": counted, "launches": _all_counts(), "adamw": _adamw_taken(),
             "split": repr(model_split(cfg, mesh).at(XLSTM_MESH_SEQ)),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(), "thread_errors": errors}
 
@@ -3427,7 +3741,9 @@ def phase_train_xlstm_mesh(torch) -> dict:
         rank = r["rank"]
         check(not r["thread_errors"], f"rank {rank}: exceptions in threads")
         total.update(r["launches"])
-        check(not any(r["launches"].values()), f"rank {rank}: launched kernels {r['launches']}")
+        check(not any(_others(r["launches"]).values()),
+              f"rank {rank}: launched kernels {r['launches']}")
+        check_adamw(f"train xlstm mesh rank {rank}", r["adamw"], XLSTM_MESH_STEPS)
         check(r["split"].startswith("Split(heads=Heads(") and "channels=slice(" in r["split"]
               and "d_ff=slice(" in r["split"] and "seq=None" in r["split"],
               f"rank {rank}: split {r['split']}")
@@ -3490,6 +3806,7 @@ def main() -> int:
                                         tol, layers)
     paths.update(_clock("serve sharded", phase_serve_sharded, torch, flash["checked"]))
     dsum = _clock("dequantize-sum", phase_sum_kernel, torch)
+    opt = _clock("adamw", phase_adamw, torch)
     for path, phase, args in (("train 1 rank", phase_train_one, (1_235_814_400,)),
                               ("train 2 ranks", phase_train_two, ()),
                               ("train sharded", phase_train_sharded, ()),
@@ -3504,7 +3821,7 @@ def main() -> int:
           json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}),
           f"main {time.perf_counter() - t_main:.1f} s")
     names = ("quantize_pack", "unpack_dequant", "unpack_dequant_sum", "flash_attention",
-             "selective_scan", "ssm_scan_chunk")
+             "selective_scan", "ssm_scan_chunk", *ADAMW_KERNELS)
     # every serve and train path for every kernel, zeros included; the
     # connection and WAN paths where the kernel ran
     by_path = {name: {path: n.get(name, 0) for path, n in paths.items()
@@ -3590,6 +3907,22 @@ def main() -> int:
                     "launches": sum(n["ssm_scan_chunk"] for n in serve_paths),
                     **{k: scan[k] for k in keys}, "launches_by_path": by_path["ssm_scan_chunk"],
                     "serving_route": "selective_scan", "cases": scan["cases"]})
+    # AdamW's two passes a leaf: their numbers at llama3.2-1b's leaves, the
+    # launches of every training path (norm_scale, once a step, beside sumsq)
+    train_paths = [n for path, n in paths.items() if path.startswith("train")]
+    for name in ("sumsq", "adamw_step"):
+        kernels.append({"name": name, "route": "cuda", "source": ADAMW_SOURCE,
+                        "replaces": ADAMW_REPLACES,
+                        "launches": sum(n.get(name, 0) for n in train_paths),
+                        "max_abs_err": opt["max_abs_err"] if name == "sumsq" else 0.0,
+                        **{k: opt[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                        "library_ms": None, "launches_by_path": by_path[name],
+                        "shape": f"{ADAMW_ARCH}'s {opt['leaves']} leaves, {opt['parameters']} "
+                                 "float32 parameters, bfloat16 moments"})
+    kernels[-2]["norm_scale"] = {"launches": sum(n.get("norm_scale", 0) for n in train_paths),
+                                 "launches_by_path": by_path["norm_scale"]}
+    kernels[-1]["update"] = opt["update"]  # the whole update, host enqueue beside it
+    check(all(k["launches"] > 0 for k in kernels[-2:]), "no training path launched AdamW's kernels")
     check(not THREAD_ERRORS, f"exceptions in threads: {THREAD_ERRORS}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

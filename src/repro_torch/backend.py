@@ -40,6 +40,7 @@ KERNEL_SOURCES: Dict[str, Path] = {
     "quantize": PACKAGE_DIR / "kernels" / "quantize" / "csrc" / "quantize.cu",
     "flash_attention": PACKAGE_DIR / "kernels" / "flash_attention" / "csrc" / "flash_attention.cu",
     "ssm_scan": PACKAGE_DIR / "kernels" / "ssm_scan" / "csrc" / "ssm_scan.cu",
+    "adamw": PACKAGE_DIR / "kernels" / "adamw" / "csrc" / "adamw.cu",
 }
 
 #: IEEE division and rounding stay on: no --use_fast_math, -prec-div=false or

@@ -27,6 +27,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.comm import collectives
 from repro_torch.configs.base import TrainConfig
+from repro_torch.kernels.adamw import adamw as fused
 
 
 class AdamWState(NamedTuple):
@@ -64,26 +65,51 @@ def init(params, dtype=torch.bfloat16, shards=None) -> AdamWState:
     return AdamWState(m=zeros(), v=zeros(), count=0)
 
 
+def _group_sums(sqs, leaf_shards) -> list:
+    """The leaves' squares ``sqs`` summed per group of leaves split over the
+    same axes, each group all-reduced over those axes, in sorted order of
+    the axes (one order on every rank)."""
+    groups: dict = {}
+    for sq, sh in zip(sqs, leaf_shards):
+        axes = sh.norm_axes if sh is not None else ()
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    parts = []
+    for axes in sorted(groups):
+        part = groups[axes]
+        for a in axes:
+            mesh = next(sh.mesh for sh in leaf_shards if sh is not None)
+            part = collectives.all_reduce_sum(part, mesh, a, op="grad_norm")
+        parts.append(part)
+    return parts
+
+
 def global_norm(tree, shards=None) -> torch.Tensor:
     """The norm of the logical tree. With ``shards``, the squares of the
     leaves split over the same axes are summed on each rank and all-reduced
     over those axes, one group at a time in one order on every rank."""
+    sqs = [torch.sum(torch.square(g.to(torch.float32))) for g in T.leaves(tree)]
     if shards is None:
-        return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                              for g in T.leaves(tree)))
-    groups: dict = {}
-    for g, sh in zip(T.leaves(tree), T.leaves(shards)):
-        axes = sh.norm_axes if sh is not None else ()
-        sq = torch.sum(torch.square(g.to(torch.float32)))
-        groups[axes] = groups[axes] + sq if axes in groups else sq
+        return torch.sqrt(sum(sqs))
     total = None
-    for axes in sorted(groups):
-        part = groups[axes]
-        mesh = next(sh.mesh for sh in T.leaves(shards) if sh is not None)
-        for a in axes:
-            part = collectives.all_reduce_sum(part, mesh, a, op="grad_norm")
+    for part in _group_sums(sqs, T.leaves(shards)):
         total = part if total is None else total + part
     return torch.sqrt(total)
+
+
+def _card_norm(grads: list, leaf_shards: list, max_norm: float):
+    """``global_norm`` of the CUDA leaves ``grads`` and the clip's scale
+    (None without a clip), both 0-d tensors on the card, with no host
+    synchronisation: each leaf's sum of squares into its slot (the
+    ``sumsq`` kernel), the slots grouped and all-reduced as ``global_norm``
+    does, then one ``norm_scale`` launch."""
+    slots = torch.empty(len(grads), dtype=torch.float32, device=grads[0].device)
+    for i, g in enumerate(grads):
+        fused.sumsq(g, slots[i])
+    parts = slots
+    if any(sh is not None for sh in leaf_shards):
+        parts = torch.stack(_group_sums(list(slots), leaf_shards))
+    out = fused.norm_scale(parts, max_norm)
+    return out[0], (out[1] if max_norm > 0 else None)
 
 
 def clip_by_global_norm(tree, max_norm: float, shards=None):
@@ -102,12 +128,25 @@ def _f32(x: float) -> torch.Tensor:
 
 
 def update(grads, state: AdamWState, params, lr: float, cfg: TrainConfig, shards=None):
-    """One AdamW step, in place (the gradients are clipped in place too).
-    Returns (params, new_state, metrics).
+    """One AdamW step, in place. Returns (params, new_state, metrics).
     ``shards``: a tree of :class:`LeafShard` (or None) of ``params``'
-    structure, for a sharded state."""
+    structure, for a sharded state.
+
+    When every gradient is a CUDA tensor, the norm and the clip's scale stay
+    on the card (:func:`_card_norm`) and each leaf takes one ``adamw_step``
+    launch, which clips as it reads (the gradient is left as it was); the
+    kernels raise on a leaf they do not take. Otherwise (the CPU) the
+    gradients are clipped in place and every leaf takes
+    :func:`_leaf_update`. ``kernels.adamw.route_leaves`` counts the leaves
+    of each route."""
     grads = T.map(lambda g: g.to(torch.float32), grads)
-    if cfg.grad_clip > 0:
+    leaf_grads = T.leaves(grads)
+    leaf_shards = T.leaves(shards) if shards is not None else [None] * len(leaf_grads)
+    on_card = bool(leaf_grads) and all(g.is_cuda for g in leaf_grads)
+    scale = None
+    if on_card:
+        gnorm, scale = _card_norm(leaf_grads, leaf_shards, cfg.grad_clip)
+    elif cfg.grad_clip > 0:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shards)
     else:
         gnorm = global_norm(grads, shards)
@@ -115,12 +154,17 @@ def update(grads, state: AdamWState, params, lr: float, cfg: TrainConfig, shards
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = float(1 - _f32(b1) ** _f32(count))
     c2 = float(1 - _f32(b2) ** _f32(count))
-    leaf_shards = T.leaves(shards) if shards is not None else [None] * len(T.leaves(params))
     with torch.no_grad():
-        for p, g, m, v, sh in zip(T.leaves(params), T.leaves(grads), T.leaves(state.m),
+        for p, g, m, v, sh in zip(T.leaves(params), leaf_grads, T.leaves(state.m),
                                   T.leaves(state.v), leaf_shards):
-            pv = _zero1_view(p, sh)
-            _leaf_update(pv, _zero1_view(g, sh), m, v, lr, c1, c2, cfg)
+            pv, gv = _zero1_view(p, sh), _zero1_view(g, sh)
+            if on_card:
+                fused.adamw_step(pv, gv, m, v, scale, lr=lr, c1=c1, c2=c2, beta1=b1,
+                                 beta2=b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+                fused.route_leaves["kernel"] += 1
+            else:
+                _leaf_update(pv, gv, m, v, lr, c1, c2, cfg)
+                fused.route_leaves["plain"] += 1
             if pv is not p:  # ZeRO-1: every pod rank's block into the parameter
                 p.copy_(collectives.gather_dim(pv.contiguous(), sh.mesh, "pod", sh.zero1_dim,
                                                op="zero1_gather"))

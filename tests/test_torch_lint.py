@@ -73,13 +73,14 @@ class TestKernelBoundary:
         assert lint_sources({"src/repro_torch/comm/x.py": src}) == []
 
     def test_shipped_kernel_homes_are_the_only_users(self):
-        """Today exactly backend.py and the three kernels' wrappers use
-        ctypes or nvcc, and the rule passes them."""
+        """Today exactly backend.py and the four kernel libraries' wrappers
+        use ctypes or nvcc, and the rule passes them."""
         src = REPO / "src" / "repro_torch"
         # a file uses them when the rule fires on it placed outside the homes
         users = sorted(str(p.relative_to(src)) for p in src.rglob("*.py")
                        if lint_sources({"src/repro_torch/comm/probe.py": p.read_text()}))
-        assert users == ["backend.py", "kernels/flash_attention/flash_attention.py",
+        assert users == ["backend.py", "kernels/adamw/adamw.py",
+                         "kernels/flash_attention/flash_attention.py",
                          "kernels/quantize/quantize.py", "kernels/ssm_scan/ssm_scan.py"]
         findings, _ = lint_paths([str(src / u) for u in users], root=REPO)
         assert findings == [], [f.format() for f in findings]
