@@ -25,13 +25,20 @@ def token_gap(ref_logits: torch.Tensor, served: torch.Tensor) -> float:
     return float((ref.amax(-1) - picked).max())
 
 
+def worst(values) -> float:
+    """The largest of ``values``, NaN where any is NaN (``max`` keeps a NaN
+    only where it comes first)."""
+    values = [float(v) for v in values]
+    return float("nan") if any(v != v for v in values) else max(values)
+
+
 def norm_gap(got: Dict[str, float], want: Dict[str, float], keep=None) -> float:
     """The worst leaf's gap between two norms, |got - want|, over the larger
     of the reference's norm of that leaf and of the median leaf; ``keep``
     names the leaves compared (all by default)."""
     names = [n for n in want if keep is None or n in keep]
     med = sorted(want[n] for n in names)[len(names) // 2]
-    return max(abs(got[n] - want[n]) / max(want[n], med, 1e-300) for n in names)
+    return worst(abs(got[n] - want[n]) / max(want[n], med, 1e-300) for n in names)
 
 
 def judge(readings: Dict[str, float], limits: dict) -> Tuple[bool, Dict[str, dict], List[str]]:

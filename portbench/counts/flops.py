@@ -8,20 +8,25 @@ and the selective scan is counted as ``kernels.selective_scan`` counts it.
 So the whole step's share of the peak counts only the work a prompt needs,
 and reads no higher than the kernels' rooflines allow.
 
-A prefill's head is counted over the last position only, a training
-forward's head over every position, as in the original.
+A configuration's meta tokens (``meta_tokens``, M) are work: every layer is
+counted over M + S positions, the window layers' attention over the pairs
+that a prefix of M leaves. A K/V group's later layers (``kv_groups``) project
+no K and V. A prefill's head is counted over the last position only, a
+training forward's head over every prompt position, as in the original.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from portbench.counts.kernels import attention_pairs, selective_scan
+from portbench.reference.common import kv_owners, layer_windows
 
 
-def _attn_fwd(batch: int, seq: int, H, KH, hd, D, window: Optional[int]):
+def _attn_fwd(batch: int, seq: int, H, KH, hd, D, window: Optional[int], prefix: int,
+              owns_kv: bool):
     T = batch * seq
-    proj = 2 * T * D * (H + 2 * KH) * hd + 2 * T * H * hd * D
-    scores = 4 * batch * H * hd * attention_pairs(seq, seq, True, window)
+    proj = 2 * T * D * (H + (2 * KH if owns_kv else 0)) * hd + 2 * T * H * hd * D
+    scores = 4 * batch * H * hd * attention_pairs(seq, seq, True, window, prefix)
     return proj + scores
 
 
@@ -39,15 +44,10 @@ def _ssm_fwd(batch: int, seq: int, cfg: dict):
     return proj + conv + scan
 
 
-def layer_windows(cfg: dict) -> list:
-    """Each layer's attention window: None for global attention."""
-    W, glob = cfg.get("sliding_window"), set(cfg.get("global_layers", []))
-    return [None if W is None or i in glob else W for i in range(cfg["num_layers"])]
-
-
 def fwd_flops(cfg: dict, batch: int, seq: int, kind: str) -> float:
     """The forward FLOPs of one batch of ``batch`` x ``seq`` tokens, ``kind``
-    "prefill" or "train": the layers' plus the head's."""
+    "prefill" or "train": the layers' over the meta tokens and the tokens,
+    plus the head's."""
     if kind not in ("prefill", "train"):
         raise ValueError(f"kind {kind!r}: 'prefill' or 'train'")
     family = cfg["family"]
@@ -55,9 +55,11 @@ def fwd_flops(cfg: dict, batch: int, seq: int, kind: str) -> float:
         raise ValueError(f"no frozen count for the {family} family")
     D, V, hd = cfg["d_model"], cfg["vocab_size"], cfg["head_dim"]
     H, KH, F, L = cfg["num_heads"], cfg["num_kv_heads"], cfg["d_ff"], cfg["num_layers"]
-    T = batch * seq
-    attn = sum(_attn_fwd(batch, seq, H, KH, hd, D, w) for w in layer_windows(cfg))
-    ffn = L * _mlp_fwd(T, D, F, cfg["mlp_gated"])
-    ssm = L * _ssm_fwd(batch, seq, cfg) if family == "hybrid" else 0.0
-    head = 2 * T * D * V if kind == "train" else 2 * batch * D * V
+    M = cfg.get("meta_tokens", 0)
+    n = M + seq
+    attn = sum(_attn_fwd(batch, n, H, KH, hd, D, w, M, owner == i)
+               for i, (w, owner) in enumerate(zip(layer_windows(cfg), kv_owners(cfg))))
+    ffn = L * _mlp_fwd(batch * n, D, F, cfg["mlp_gated"])
+    ssm = L * _ssm_fwd(batch, n, cfg) if family == "hybrid" else 0.0
+    head = 2 * batch * seq * D * V if kind == "train" else 2 * batch * D * V
     return float(attn + ffn + ssm + head)

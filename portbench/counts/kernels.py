@@ -20,28 +20,37 @@ def least_seconds(ops: float, nbytes: float, op_dtype: str) -> float:
     return max(ops / PEAK_FLOPS[op_dtype], nbytes / HBM_BYTES_PER_S)
 
 
-def attention_pairs(sq: int, skv: int, causal: bool, window: Optional[int]) -> int:
+def attention_pairs(sq: int, skv: int, causal: bool, window: Optional[int],
+                    prefix: int = 0) -> int:
     """The (query, key) pairs that the masks leave, for a prompt whose
-    queries are its keys (sq == skv) or for unmasked attention."""
+    queries are its keys (sq == skv) or for unmasked attention. ``prefix``:
+    keys k < prefix are seen by every query at or after them, window or not
+    (``reference.common.attention``)."""
     if not causal:
-        if window is not None:
-            raise ValueError("a window without causality is not counted")
+        if window is not None or prefix:
+            raise ValueError("a window or a prefix without causality is not counted")
         return sq * skv
     if sq != skv:
         raise ValueError(f"causal attention is counted for sq == skv, not {sq}, {skv}")
     w = skv if window is None else min(window, skv)
     # query p sees min(p + 1, w) keys
-    return w * (w + 1) // 2 + (sq - w) * w
+    pairs = w * (w + 1) // 2 + (sq - w) * w
+    # and the j = p - w + 1 prefix keys left of its window, at most ``prefix``
+    n, P = sq - w + 1, min(prefix, sq)
+    if window is None or n <= 0 or not P:
+        return pairs
+    return pairs + (n * (n - 1) // 2 if n <= P else P * (P - 1) // 2 + P * (n - P))
 
 
 def flash_attention(q_shape, kv_shape, causal: bool, window: Optional[int],
-                    dtypes: dict) -> tuple:
+                    dtypes: dict, prefix: int = 0) -> tuple:
     """(ops, bytes, op dtype) of attention over q (B, Sq, H, hd) and k, v
-    (B, Skv, KH, hd): QK^T and PV over the unmasked pairs; q, k, v read and
-    o written once in the compute dtype."""
+    (B, Skv, KH, hd): QK^T and PV over the unmasked pairs (a ``prefix`` as
+    ``attention_pairs`` has it); q, k, v read and o written once in the
+    compute dtype."""
     B, Sq, H, hd = q_shape
     _, Skv, KH, _ = kv_shape
-    ops = 4.0 * B * H * hd * attention_pairs(Sq, Skv, causal, window)
+    ops = 4.0 * B * H * hd * attention_pairs(Sq, Skv, causal, window, prefix)
     nbytes = (2 * B * Sq * H * hd + 2 * B * Skv * KH * hd) * BYTES[dtypes["compute"]]
     return ops, float(nbytes), dtypes["compute"]
 

@@ -17,7 +17,14 @@ length, the longest among them) are kept as the program returned them: the
 last position's logits, the served tokens and the cache (K/V, with the
 sliding-window layers' ring layout, and the hybrid family's SSM state and
 conv history). After the window the model is freed and the family's
-reference runs each kept batch from the same weights and prompts.
+reference runs each kept batch from the same weights and prompts;
+``compare_prefill`` compares a batch, with no program needed.
+
+The program's cache, laid out as the reference's in ``as_program``: a window
+layer's K/V holds the configuration's M meta tokens whole, then the ring of
+the prompt's positions (``ring``); a global layer's all M + S positions in
+order; a K/V group's later layer (``kv_groups``) none, or the very tensors
+of its group's first layer.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import time
 import torch
 
 from portbench import compare, port
+from portbench.reference.common import kv_owners, layer_windows
 from portbench.weights import Weights
 
 #: seeds of the prompts and the patches, apart from the weights'
@@ -45,6 +53,71 @@ def ring(t: torch.Tensor, S: int, cap: int) -> torch.Tensor:
     if S <= cap:
         return t
     return torch.roll(t[:, S - cap:], (S - cap) % cap, dims=1)
+
+
+def as_program(cfg: dict, out: dict, S: int) -> tuple:
+    """A reference's outputs for prompts of S tokens in the program's form:
+    (logits, served tokens, cache), as a control or fault put in the
+    program's place gives them. A window layer's K/V: the M meta positions
+    whole, then ``ring`` of the prompt's positions (capacity min(W, S)); a
+    global layer's: all M + S positions in order; a layer without K/V (a
+    group's later layer) keeps none."""
+    M, windows = cfg.get("meta_tokens", 0), layer_windows(cfg)
+    layers = []
+    for idx, c in enumerate(out["layers"]):
+        if "k" in c:
+            cap = S if windows[idx] is None else min(windows[idx], S)
+            kv = {n: ring(c[n][:, M:], S, cap) for n in ("k", "v")}
+            if M:
+                kv = {n: torch.cat([c[n][:, :M], t], dim=1) for n, t in kv.items()}
+            c = dict(c, **kv)
+        layers.append(c)
+    return out["logits"], out["logits"].argmax(-1), {"layers": layers}
+
+
+def _same(t: torch.Tensor, other) -> bool:
+    """Whether ``t`` is the very tensor ``other`` (one storage, offset, shape
+    and strides)."""
+    return (other is not None and t.untyped_storage().data_ptr()
+            == other.untyped_storage().data_ptr() and t.storage_offset()
+            == other.storage_offset() and t.shape == other.shape
+            and t.stride() == other.stride())
+
+
+def compare_prefill(cfg: dict, got: tuple, want: dict) -> dict:
+    """The compared numbers of one batch: ``got`` = (logits, served tokens,
+    cache) as the program returned them, ``want`` the reference's
+    ``prefill`` of the same prompts. ``logits_err``: the worst row's relative
+    error of the last logits; ``token_gap``: the widest gap below the
+    reference's best logit of a served token; ``kv_err``: the worst K or V of
+    a layer that owns its K/V, inf where a group's later layer holds any
+    other K or V than its owner's very tensors; ``ssm_err`` (hybrid): the
+    worst SSM state or conv history."""
+    logits, tok, cache = got
+    V, M = cfg["vocab_size"], cfg.get("meta_tokens", 0)
+    S = want["layers"][0]["k"].shape[1] - M  # layer 0 owns its K/V
+    ref, mine = as_program(cfg, want, S)[2]["layers"], _layers(cache)
+    out = {"logits_err": compare.worst(
+               compare.rel_err(logits[r, :V].float(), want["logits"][r, :V])
+               for r in range(want["logits"].shape[0])),
+           "token_gap": compare.token_gap(want["logits"][:, :V], tok),
+           "kv_err": 0.0 if len(mine) == len(ref) else float("inf")}
+    hybrid = cfg["family"] == "hybrid"
+    if hybrid:
+        out["ssm_err"] = 0.0
+    owners = kv_owners(cfg)
+    for idx, (m, r) in enumerate(zip(mine, ref)):
+        for n in ("k", "v"):
+            if n in r:
+                err = compare.rel_err(m[n], r[n]) if n in m else float("inf")
+            else:
+                err = 0.0 if n not in m or _same(m[n], mine[owners[idx]].get(n)) else float("inf")
+            out["kv_err"] = compare.worst([out["kv_err"], err])
+        if hybrid:
+            out["ssm_err"] = compare.worst([out["ssm_err"],
+                                            compare.rel_err(m["ssm_h"], r["ssm_h"]),
+                                            compare.rel_err(m["ssm_conv"], r["ssm_conv"])])
+    return out
 
 
 class Session:
@@ -83,8 +156,8 @@ class Session:
             h.attr(self.model, "prefill", "prefill")
             h.attr(attention, "attention", "attention")
             h.attr(attention, "flash_attention", "flash_attention",
-                   lambda q, k, v, causal=True, window=None: (tuple(q.shape), tuple(k.shape),
-                                                             causal, window))
+                   lambda q, k, v, causal=True, window=None, prefix=0, **kw: (
+                       tuple(q.shape), tuple(k.shape), causal, window, prefix))
             if self.cfg["family"] == "hybrid":
                 h.attr(ssm, "ssm_apply", "ssm")
                 h.item(ssm.SCANS, "pallas", "selective_scan",
@@ -155,16 +228,6 @@ class Session:
         if self.dev.type == "cuda":
             torch.cuda.empty_cache()
 
-    def _as_program(self, out: dict, S: int) -> tuple:
-        """A reference's outputs in the program's form: (logits, tokens,
-        cache), as a control or fault put in the program's place gives them."""
-        layers = []
-        for idx, c in enumerate(out["layers"]):
-            cap = S if idx in self.cfg.get("global_layers", []) or not self.cfg.get(
-                "sliding_window") else min(self.cfg["sliding_window"], S)
-            layers.append(dict(c, k=ring(c["k"], S, cap), v=ring(c["v"], S, cap)))
-        return out["logits"], out["logits"].argmax(-1), {"layers": layers}
-
     def readings(self, produce: str = "program") -> dict:
         """The compared numbers over the kept batches, the program's
         (``produce="program"``) or those of the reference computed in
@@ -176,34 +239,16 @@ class Session:
         if first:  # the reference, once for every produce
             self._want = {i: self.ref.prefill(w, self.cfg, *self._inputs(i))
                           for i in sorted(self.kept)}
-        worst = {"logits_err": 0.0, "token_gap": 0.0, "kv_err": 0.0}
-        if self.cfg["family"] == "hybrid":
-            worst["ssm_err"] = 0.0
+        worst: dict = {}
         for i in sorted(self.kept):
-            key, logits, tok, cache = self.kept[i]
-            tokens, patches = self._inputs(i)
-            S = tokens.shape[1]
-            want = self._want[i]
+            got = self.kept[i][1:]
             if produce != "program":
-                logits, tok, cache = self._as_program(self.ref.prefill(
-                    w, self.cfg, tokens, patches, precision=produce), S)
-            V = self.cfg["vocab_size"]
-            got = self._as_program(want, S)[2]
-            worst["logits_err"] = max(worst["logits_err"], max(
-                compare.rel_err(logits[r, :V].float(), want["logits"][r, :V])
-                for r in range(tokens.shape[0])))
-            worst["token_gap"] = max(worst["token_gap"],
-                                     compare.token_gap(want["logits"][:, :V], tok))
-            if len(_layers(cache)) != len(got["layers"]):
-                worst["kv_err"] = float("inf")
-            for mine, ref in zip(_layers(cache), got["layers"]):
-                worst["kv_err"] = max(worst["kv_err"], compare.rel_err(mine["k"], ref["k"]),
-                                      compare.rel_err(mine["v"], ref["v"]))
-                if "ssm_err" in worst:
-                    worst["ssm_err"] = max(worst["ssm_err"],
-                                           compare.rel_err(mine["ssm_h"], ref["ssm_h"]),
-                                           compare.rel_err(mine["ssm_conv"], ref["ssm_conv"]))
-            del want, got
+                tokens, patches = self._inputs(i)
+                got = as_program(self.cfg, self.ref.prefill(
+                    w, self.cfg, tokens, patches, precision=produce), tokens.shape[1])
+            for name, value in compare_prefill(self.cfg, got, self._want[i]).items():
+                worst[name] = compare.worst([worst.get(name, 0.0), value])
+            del got
         return worst
 
     def _inputs(self, i: int) -> tuple:

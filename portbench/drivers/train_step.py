@@ -200,7 +200,8 @@ class Session:
         med = sorted(want["grads"].values())[len(want["grads"]) // 2]
         moving = {n for n, v in want["grads"].items() if v >= QUIET * med}
         return {
-            "loss_gap": max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"])),
+            "loss_gap": compare.worst(abs(a - b) / abs(b)
+                                      for a, b in zip(got["losses"], want["losses"])),
             "grad_norm_gap": abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
             "grad_gap": compare.norm_gap(got["grads"], want["grads"]),
             "change_gap": compare.norm_gap(got["changes"], want["changes"], moving),

@@ -1,7 +1,7 @@
 """flash_attn_roofline.prefill: flash attention's least time on the chip
 (``counts.kernels.flash_attention`` of every call in the profiled stretch:
-the pairs the causal and window masks leave; q, k, v and o once, at the
-configuration's declared compute dtype) over the device time of the
+the pairs the causal, window and prefix masks leave; q, k, v and o once, at
+the configuration's declared compute dtype) over the device time of the
 operations launched inside the calls (%)."""
 from portbench.counts.kernels import flash_attention, least_seconds
 
@@ -12,6 +12,6 @@ def read(run):
     if not calls or not device_s:
         return None
     dtypes = run.cfg["dtypes"]
-    least = sum(least_seconds(*flash_attention(q, k, causal, window, dtypes))
-                for _, _, (q, k, causal, window) in calls)
+    least = sum(least_seconds(*flash_attention(q, k, causal, window, dtypes, prefix))
+                for _, _, (q, k, causal, window, prefix) in calls)
     return least / device_s * 100.0

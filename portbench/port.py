@@ -1,6 +1,11 @@
 """The program under test, as the drivers reach it: its configuration of an
 arch, checked number for number against the benchmark's configuration file,
-so that a change to the program's sizes cannot pass unseen."""
+so that a change to the program's sizes cannot pass unseen.
+
+``meta_tokens`` and ``kv_groups`` (``reference/hybrid.py``) are compared
+with the program's ``ModelConfig`` attributes of the same names, read as
+0 and no groups where the program has none: a file that declares meta
+tokens or K/V groups differs from a program without them."""
 from __future__ import annotations
 
 import math
@@ -16,6 +21,8 @@ FIELDS = {"family": "family", "num_layers": "num_layers", "d_model": "d_model",
 def _port_values(pc) -> dict:
     out = {k: getattr(pc, a) for k, a in FIELDS.items()}
     out["global_layers"] = list(pc.global_layers)
+    out["meta_tokens"] = getattr(pc, "meta_tokens", 0)
+    out["kv_groups"] = [list(g) for g in getattr(pc, "kv_groups", ())]
     out["dtypes.param"], out["dtypes.compute"] = pc.param_dtype, pc.compute_dtype
     if pc.ssm is not None:
         s = pc.ssm
@@ -30,6 +37,8 @@ def _port_values(pc) -> dict:
 def _file_values(cfg: dict) -> dict:
     out = {k: cfg[k] for k in FIELDS if k in cfg}
     out["global_layers"] = list(cfg.get("global_layers", []))
+    out["meta_tokens"] = cfg.get("meta_tokens", 0)
+    out["kv_groups"] = [list(g) for g in cfg.get("kv_groups", [])]
     out["dtypes.param"], out["dtypes.compute"] = cfg["dtypes"]["param"], cfg["dtypes"]["compute"]
     for k in ("ssm", "patch_positions", "patch_dim"):
         if k in cfg:

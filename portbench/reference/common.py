@@ -2,8 +2,9 @@
 
 Written for this benchmark from the published layer equations (RMSNorm,
 rotary embedding on split halves, causal and windowed softmax attention with
-grouped KV heads, gated MLP, cross-entropy); it imports nothing of the
-program under test and takes nothing the program made.
+grouped KV heads and a prefix that every query sees, gated MLP,
+cross-entropy); it imports nothing of the program under test and takes
+nothing the program made.
 
 Every matrix product goes through :func:`mm`, so that one switch moves the
 whole reference to another precision. ``"fp32"`` is the reference itself.
@@ -83,12 +84,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              window: Optional[int] = None, block: int = 512,
+              window: Optional[int] = None, prefix: int = 0, block: int = 512,
               precision: str = "fp32") -> torch.Tensor:
     """Causal softmax attention, q (B, S, H, hd), k and v (B, S, KH, hd); query
     head h reads KV head h // (H / KH). ``window``: a query at p sees keys
-    p - window < k <= p. Computed a block of queries at a time, over only the
-    keys the block can see."""
+    p - window < k <= p. ``prefix``: keys k < prefix are seen by every query
+    at or after them, window or not (Hymba's meta tokens). Computed a block of
+    queries at a time, over only the keys the block can see: ``[0, prefix)``
+    and the block's own window."""
     B, S, H, hd = q.shape
     KH = k.shape[2]
     group = H // KH
@@ -99,15 +102,52 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for q0 in range(0, S, block):
         q1 = min(q0 + block, S)
         k0 = 0 if window is None else max(0, q0 - window + 1)
+        pre = min(prefix, k0)  # prefix keys left of the block's window
         qp = torch.arange(q0, q1, device=q.device)[:, None]
         kp = torch.arange(k0, q1, device=q.device)[None, :]
+        kb, vb = kh[:, :, k0:q1], vh[:, :, k0:q1]
+        if pre:
+            kp = torch.cat([torch.arange(pre, device=q.device)[None, :], kp], dim=1)
+            kb = torch.cat([kh[:, :, :pre], kb], dim=2)
+            vb = torch.cat([vh[:, :, :pre], vb], dim=2)
         ok = kp <= qp
         if window is not None:
-            ok = ok & (qp - kp < window)
-        s = mm(qh[:, :, q0:q1], kh[:, :, k0:q1].transpose(-1, -2), precision) / math.sqrt(hd)
+            ok = ok & ((qp - kp < window) | (kp < prefix))
+        s = mm(qh[:, :, q0:q1], kb.transpose(-1, -2), precision) / math.sqrt(hd)
         s = s.masked_fill(~ok, NEG_INF)
-        out.append(mm(torch.softmax(s, dim=-1), vh[:, :, k0:q1], precision))
+        out.append(mm(torch.softmax(s, dim=-1), vb, precision))
     return torch.cat(out, dim=2).transpose(1, 2)  # (B, S, H, hd)
+
+
+def layer_windows(cfg: dict) -> list:
+    """Each layer's attention window: None for global attention."""
+    W, glob = cfg.get("sliding_window"), set(cfg.get("global_layers", []))
+    return [None if W is None or i in glob else W for i in range(cfg["num_layers"])]
+
+
+def kv_owners(cfg: dict) -> list:
+    """Each layer's K/V owner under the configuration's ``kv_groups`` (Hymba's
+    ``kv_reuse_group``): the group's first layer for its later members, the
+    layer itself otherwise. Raises on groups that overlap or leave the model,
+    on a consumer before its owner, and on a group that mixes window and
+    global layers."""
+    L, windows = cfg["num_layers"], layer_windows(cfg)
+    owners = list(range(L))
+    seen = set()
+    for g in cfg.get("kv_groups", []):
+        g = [int(i) for i in g]
+        if not g or any(not 0 <= i < L for i in g):
+            raise ValueError(f"kv group {g}: empty or outside layers 0..{L - 1}")
+        if seen & set(g) or len(set(g)) != len(g):
+            raise ValueError(f"kv group {g} overlaps another group or itself")
+        if any(i < g[0] for i in g[1:]):
+            raise ValueError(f"kv group {g}: a consumer comes before its owner {g[0]}")
+        if len({windows[i] for i in g}) != 1:
+            raise ValueError(f"kv group {g} mixes window and global layers")
+        seen |= set(g)
+        for i in g[1:]:
+            owners[i] = g[0]
+    return owners
 
 
 def gated_mlp(x: torch.Tensor, w_gate, w_up, w_down, precision: str = "fp32") -> torch.Tensor:

@@ -8,7 +8,7 @@ kernels, no cache, no batching tricks.
 
 SSM branch of input u (B, S, D), d_in = expand * D:
   xs, z = split(u W_in)                      (x and the gate)
-  xs = silu(causal depthwise conv_K(xs) + b)  (zero history before the prompt)
+  xs = silu(causal depthwise conv_K(xs) + b)  (zero history before p = 0)     
   dt_in, Bt, Ct = split(xs W_x)              (dt_rank, N, N)
   dt = softplus(dt_in W_dt + dt_bias); A = -exp(A_log)
   h_t = exp(dt_t A) h_{t-1} + dt_t xs_t Bt_t;  y_t = h_t . Ct_t + D xs_t
@@ -18,36 +18,76 @@ then the state carried from chunk to chunk (the cumulative product of the
 decays brings it forward), a different summation order from a one-step loop
 and from any kernel, exact in real arithmetic.
 
+Meta tokens and K/V groups, each off unless the configuration file names it:
+
+``meta_tokens`` (M, default 0; the release's ``num_memory_tokens``): M learned
+  vectors of width d_model, the leaf ``meta_tokens`` (M, D), put before every
+  prompt and passed through every layer, in both branches (the paper's
+  "meta tokens": prepended to the input sequence, which both heads read).
+  Sequence position p counts them first: prompt token t is at p = M + t. A
+  global layer's query at p sees every key k <= p; a window layer's sees
+  k <= p where k < M or p - k < W (the paper: the sliding-window layers
+  always attend the meta tokens). The conv history is zero before p = 0,
+  and the SSM state after the prompt is h at p = M + S - 1. Logits are the
+  last position's only; a prompt's tokens are its S positions, the meta
+  positions are work.
+``kv_groups`` (lists of layer indices, default []; the release's
+  ``kv_reuse_group``): the first layer of a group computes K and V from its
+  own normed input; each later layer of the group attends with those K and
+  V and has no ``attn.wk.w`` or ``attn.wv.w`` (the paper's cross-layer K/V
+  sharing between consecutive layers). Groups that overlap, a consumer
+  before its owner and a group that mixes window and global layers are
+  refused (``common.kv_owners``).
+
+Assumed, as the paper's text does not state them: rotary angles at the
+sequence position p, meta tokens counted (not at t); a consumer reads the
+owner's rotated keys as they are; the meta vectors' initialisation (seeded
+normals of scale 0.02, as the embedding's).
+
 ``prefill`` returns the last position's logits and what a cache must hold
-after the prompt: every layer's rotated keys and values of all S positions,
-the last SSM state h_S (B, d_in, N) and the conv history, the last K - 1
-conv inputs (B, K - 1, d_in).
+after the prompt: on each layer that owns its K/V (a group's first layer or a
+layer in no group) the rotated keys and the values of all M + S positions,
+on a group's later layers none; on every layer the last SSM state (B, d_in,
+N) and the conv history, the last K - 1 conv inputs (B, K - 1, d_in).
 """
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
 
-from portbench.reference.common import attention, gated_mlp, masked_logits, mm, rmsnorm, rope
+from portbench.reference.common import (
+    attention,
+    gated_mlp,
+    kv_owners,
+    layer_windows,
+    masked_logits,
+    mm,
+    rmsnorm,
+    rope,
+)
 
 CHUNK = 64
 
 
 def param_specs(cfg: dict) -> list:
     """(name, shape, init) of every parameter, in drawing order; ``init`` is
-    ("normal", scale) | ("ones",) | ("zeros",) | ("a_log",) | ("dt_bias",)."""
+    ("normal", scale) | ("ones",) | ("zeros",) | ("a_log",) | ("dt_bias",).
+    The meta tokens come last and draw from a stream of their own
+    (``weights``), so that every other leaf draws what it draws without
+    them; a K/V group's later layers have no ``wk``, ``wv``."""
     D, L, H, KH, hd = (cfg[k] for k in ("d_model", "num_layers", "num_heads", "num_kv_heads",
                                         "head_dim"))
     F_, Vp = cfg["d_ff"], cfg["vocab_padded"]
     s = cfg["ssm"]
     d_in, N, K, r = s["expand"] * D, s["state_dim"], s["conv_dim"], s["dt_rank"]
     lin = lambda n, a, b: (n, (a, b), ("normal", a ** -0.5))  # noqa: E731
+    owners = kv_owners(cfg)
     specs = [("embed.table", (Vp, D), ("normal", 0.02))]
     for i in range(L):
         p = f"layers.{i}."
-        specs += [(p + "ln1.scale", (D,), ("ones",)),
-                  lin(p + "attn.wq.w", D, H * hd), lin(p + "attn.wk.w", D, KH * hd),
-                  lin(p + "attn.wv.w", D, KH * hd), lin(p + "attn.wo.w", H * hd, D),
+        kv = [lin(p + "attn.wk.w", D, KH * hd), lin(p + "attn.wv.w", D, KH * hd)]
+        specs += [(p + "ln1.scale", (D,), ("ones",)), lin(p + "attn.wq.w", D, H * hd),
+                  *(kv if owners[i] == i else []), lin(p + "attn.wo.w", H * hd, D),
                   lin(p + "ssm.in_proj.w", D, 2 * d_in),
                   (p + "ssm.conv_w", (K, d_in), ("normal", 0.2)),
                   (p + "ssm.conv_b", (d_in,), ("zeros",)),
@@ -61,7 +101,8 @@ def param_specs(cfg: dict) -> list:
                   lin(p + "mlp.up.w", D, F_), lin(p + "mlp.down.w", F_, D),
                   lin(p + "mlp.gate.w", D, F_)]
     specs += [("final_norm.scale", (D,), ("ones",)), lin("lm_head.w", D, Vp)]
-    return specs
+    M = cfg.get("meta_tokens", 0)
+    return specs + ([("meta_tokens", (M, D), ("normal", 0.02, 1))] if M else [])
 
 
 def selective_scan(dt, x, Bm, Cm, A, D, h0, chunk: int = CHUNK):
@@ -113,32 +154,39 @@ def ssm_branch(w: dict, p: str, u: torch.Tensor, cfg: dict, precision: str):
 def prefill(w: dict, cfg: dict, tokens: torch.Tensor, patches=None, *,
             precision: str = "fp32") -> dict:
     """tokens (B, S) -> {"logits": (B, vocab_padded) float32 at the last
-    position, padded columns -1e30; "layers": per layer {"k", "v" (B, S, KH,
-    hd) (k rotated), "ssm_h" (B, d_in, N), "ssm_conv" (B, K - 1, d_in)}}."""
+    position, padded columns -1e30; "layers": per layer {"k", "v" (B, M + S,
+    KH, hd) (k rotated; owners only), "ssm_h" (B, d_in, N), "ssm_conv"
+    (B, K - 1, d_in)}}."""
     if patches is not None:
         raise ValueError("the hybrid family takes no patches")
     H, KH, hd, eps = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"], cfg["norm_eps"]
+    M = cfg.get("meta_tokens", 0)
+    owners, windows = kv_owners(cfg), layer_windows(cfg)
     B, S = tokens.shape
-    pos = torch.arange(S, device=tokens.device)
     x = w["embed.table"][tokens].float()
-    layers = []
+    if M:
+        x = torch.cat([w["meta_tokens"].float().expand(B, M, -1), x], dim=1)
+    n = M + S
+    pos = torch.arange(n, device=tokens.device)
+    layers, kv = [], {}
     for i in range(cfg["num_layers"]):
         p = f"layers.{i}."
         u = rmsnorm(x, w[p + "ln1.scale"], eps)
-        q = rope(mm(u, w[p + "attn.wq.w"], precision).view(B, S, H, hd), pos, cfg["rope_theta"])
-        k = rope(mm(u, w[p + "attn.wk.w"], precision).view(B, S, KH, hd), pos,
-                 cfg["rope_theta"])
-        v = mm(u, w[p + "attn.wv.w"], precision).view(B, S, KH, hd)
-        window = None if i in cfg["global_layers"] else cfg["sliding_window"]
-        o = attention(q, k, v, window=window, precision=precision)
-        a = mm(o.reshape(B, S, H * hd), w[p + "attn.wo.w"], precision)
+        q = rope(mm(u, w[p + "attn.wq.w"], precision).view(B, n, H, hd), pos, cfg["rope_theta"])
+        if owners[i] == i:
+            kv[i] = (rope(mm(u, w[p + "attn.wk.w"], precision).view(B, n, KH, hd), pos,
+                          cfg["rope_theta"]),
+                     mm(u, w[p + "attn.wv.w"], precision).view(B, n, KH, hd))
+        k, v = kv[owners[i]]
+        o = attention(q, k, v, window=windows[i], prefix=M, precision=precision)
+        a = mm(o.reshape(B, n, H * hd), w[p + "attn.wo.w"], precision)
         s, h, tail = ssm_branch(w, p + "ssm.", u, cfg, precision)
         x = x + 0.5 * (rmsnorm(a, w[p + "gn_attn.scale"], eps)
                        + rmsnorm(s, w[p + "gn_ssm.scale"], eps))
         x = x + gated_mlp(rmsnorm(x, w[p + "ln2.scale"], eps), w[p + "mlp.gate.w"],
                           w[p + "mlp.up.w"], w[p + "mlp.down.w"], precision)
-        layers.append({"k": k, "v": v, "ssm_h": h, "ssm_conv": tail})
+        own = {"k": k, "v": v} if owners[i] == i else {}
+        layers.append(dict(own, ssm_h=h, ssm_conv=tail))
     last = rmsnorm(x[:, -1], w["final_norm.scale"], eps)
     logits = masked_logits(mm(last, w["lm_head.w"], precision), cfg["vocab_size"])
     return {"logits": logits, "layers": layers}
-

@@ -18,6 +18,10 @@ def program_cfg(arch: str, name: str = "smoke", smoke: bool = True) -> dict:
            "dtypes": {"param": "float32", "compute": "bfloat16", "kv_cache": "bfloat16",
                       "ssm_dt": "float32", "ssm_state": "float32", "ssm_out": "float32",
                       "moments": "bfloat16"}}
+    if getattr(pc, "meta_tokens", 0):  # where the program has them
+        cfg["meta_tokens"] = pc.meta_tokens
+    if getattr(pc, "kv_groups", ()):
+        cfg["kv_groups"] = [list(g) for g in pc.kv_groups]
     if pc.ssm is not None:
         s = pc.ssm
         cfg["ssm"] = {"state_dim": s.state_dim, "conv_dim": s.conv_dim, "expand": s.expand,

@@ -16,12 +16,14 @@ import torch
 from portbench import compare, spec
 from portbench.run import measure
 from portbench.smoke import program_cfg
+from portbench.weights import Weights
 
 CPU = torch.device("cpu")
 SEED = 2_147_483_661
 PREFILL_LIMITS = {"numbers": {"logits_err": {"limit": 0.06}, "token_gap": {"limit": 0.05},
                               "kv_err": {"limit": 0.06}}}
 HYBRID_LIMITS = {"numbers": dict(PREFILL_LIMITS["numbers"], ssm_err={"limit": 0.06})}
+PREFILL = spec.load_module(spec.HERE / "drivers" / "serve_prefill.py", "driver")
 TRAIN_LIMITS = {"numbers": {"loss_gap": {"limit": 5e-4}, "grad_norm_gap": {"limit": 5e-3},
                             "grad_gap": {"limit": 8e-3}, "change_gap": {"limit": 3e-3}}}
 
@@ -170,3 +172,77 @@ def test_a_training_step_on_half_the_batch_is_not_correct(monkeypatch):
         model, {n: t[: t.shape[0] // 2] for n, t in batch.items()}, **k))
     result = _run(train_cell(), seconds=0.3)
     assert not result["correct"], result["check"]
+
+
+def _meta_case(S=40):
+    """The hybrid smoke config with 4 meta tokens and layers 1, 2 (window
+    layers, W 8) sharing K/V; its weights, prompts of S tokens and the
+    reference's prefill of them."""
+    from portbench.reference import hybrid
+
+    cfg = {**{k: v for k, v in program_cfg("hymba-1.5b").items()
+              if k not in ("meta_tokens", "kv_groups")}, "meta_tokens": 4, "kv_groups": [[1, 2]]}
+    w = Weights(hybrid.param_specs(cfg), SEED, CPU).make()
+    tokens = torch.randint(0, cfg["vocab_size"], (2, S), generator=torch.Generator().manual_seed(9))
+    return cfg, w, tokens, hybrid.prefill(w, cfg, tokens)
+
+
+def test_the_reference_in_the_programs_layout_reads_0():
+    cfg, _, tokens, want = _meta_case()
+    logits, tok, cache = PREFILL.as_program(cfg, want, tokens.shape[1])
+    zero = {"logits_err": 0.0, "token_gap": 0.0, "kv_err": 0.0, "ssm_err": 0.0}
+    assert "k" not in cache["layers"][2]
+    assert PREFILL.compare_prefill(cfg, (logits, tok, cache), want) == zero
+    owner = cache["layers"][1]  # the consumer may hold its owner's very tensors
+    cache["layers"][2] = dict(cache["layers"][2], k=owner["k"], v=owner["v"])
+    assert PREFILL.compare_prefill(cfg, (logits, tok, cache), want) == zero
+
+
+def _meta_dropped(cfg, w, tokens, want):
+    from portbench.reference import hybrid
+
+    bare = dict(cfg, meta_tokens=0)
+    return PREFILL.as_program(bare, hybrid.prefill(w, bare, tokens), tokens.shape[1])
+
+
+def _consumer_recomputes(cfg, w, tokens, want):
+    """Layer 2 projects its own normed input with its owner's wk and wv."""
+    from portbench.reference import hybrid
+
+    alone = dict(cfg, kv_groups=[])
+    w = dict(w, **{f"layers.2.attn.{n}.w": w[f"layers.1.attn.{n}.w"] for n in ("wk", "wv")})
+    return PREFILL.as_program(alone, hybrid.prefill(w, alone, tokens), tokens.shape[1])
+
+
+def _consumer_holds_a_copy(cfg, w, tokens, want):
+    logits, tok, cache = PREFILL.as_program(cfg, want, tokens.shape[1])
+    owner = cache["layers"][1]
+    cache["layers"][2] = dict(cache["layers"][2], k=owner["k"].clone(), v=owner["v"].clone())
+    return logits, tok, cache
+
+
+def _ring_over_sequence_positions(cfg, w, tokens, want):
+    """The window layers' ring laid out by sequence position p = M + t."""
+    M, S, W = cfg["meta_tokens"], tokens.shape[1], cfg["sliding_window"]
+    logits, tok, cache = PREFILL.as_program(cfg, want, S)
+    for i, c in enumerate(want["layers"]):
+        if "k" in c and i not in cfg["global_layers"]:
+            cache["layers"][i] = dict(cache["layers"][i], **{n: torch.cat(
+                [c[n][:, :M], PREFILL.ring(c[n], M + S, min(W, S))], dim=1) for n in ("k", "v")})
+    return logits, tok, cache
+
+
+def _nan_in_a_later_row(cfg, w, tokens, want):
+    logits, tok, cache = PREFILL.as_program(cfg, want, tokens.shape[1])
+    logits = logits.clone()
+    logits[1, 0] = float("nan")
+    return logits, tok, cache
+
+
+@pytest.mark.parametrize("fault", [_meta_dropped, _consumer_recomputes, _consumer_holds_a_copy,
+                                   _ring_over_sequence_positions, _nan_in_a_later_row])
+def test_the_prefill_comparison_fails_a_meta_token_or_kv_group_fault(fault):
+    cfg, w, tokens, want = _meta_case()
+    readings = PREFILL.compare_prefill(cfg, fault(cfg, w, tokens, want), want)
+    correct, table, _ = compare.judge(readings, HYBRID_LIMITS)
+    assert not correct, table

@@ -5,13 +5,14 @@ under what a wrong equation gives."""
 import pytest
 import torch
 
-from portbench import compare
+from portbench import compare, spec
 from portbench.reference import adamw as ref_adamw
 from portbench.reference import common, hybrid, vlm
 from portbench.smoke import program_cfg
 from portbench.weights import Weights
 
 SEED = 3_000_000_019
+PREFILL = spec.load_module(spec.HERE / "drivers" / "serve_prefill.py", "driver")
 
 
 def _port(arch, cfg, **replace):
@@ -44,6 +45,9 @@ def test_param_specs_are_the_programs_parameters_at_full_size(arch):
 
 
 def test_hybrid_prefill_matches_the_program():
+    """Through the driver's comparison, which lays the reference out as the
+    program's cache, meta tokens and K/V groups included where the program's
+    smoke config has them."""
     cfg = program_cfg("hymba-1.5b")
     model = _port("hymba-1.5b", cfg, attn_impl="pallas").prepare()
     g = torch.Generator().manual_seed(1)
@@ -51,16 +55,131 @@ def test_hybrid_prefill_matches_the_program():
     cache, logits = model.prefill(tokens)
     w = Weights(hybrid.param_specs(cfg), SEED, "cpu").make()
     ref = hybrid.prefill(w, cfg, tokens)
-    V = cfg["vocab_size"]
-    assert compare.rel_err(logits[:, :V].float(), ref["logits"][:, :V]) < 0.05
-    W = cfg["sliding_window"]
-    for i, (mine, want) in enumerate(zip(cache["layers"], ref["layers"])):
-        k, v = want["k"], want["v"]
-        if i not in cfg["global_layers"]:  # the ring: the last W positions, p % W at slot j
-            k, v = (torch.roll(t[:, -W:], (24 - W) % W, dims=1) for t in (k, v))
-        for got, exp in ((mine["k"], k), (mine["v"], v), (mine["ssm_h"], want["ssm_h"]),
-                         (mine["ssm_conv"], want["ssm_conv"])):
-            assert compare.rel_err(got, exp) < 0.05, i
+    got = PREFILL.compare_prefill(cfg, (logits, logits.argmax(-1), cache), ref)
+    for name in ("logits_err", "kv_err", "ssm_err"):
+        assert got[name] < 0.05, got
+
+
+#: the hybrid smoke config with meta tokens and a K/V group (layers 1, 2 are
+#: window layers; 0 and 3 global)
+META, GROUPS = 4, [[1, 2]]
+
+
+def _meta_cfg(**over) -> dict:
+    base = {k: v for k, v in program_cfg("hymba-1.5b").items()
+            if k not in ("meta_tokens", "kv_groups")}
+    return {**base, "meta_tokens": META, "kv_groups": GROUPS, **over}
+
+
+def _tokens(cfg, B=2, S=40, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg["vocab_size"], (B, S), generator=g)
+
+
+@pytest.mark.parametrize("S,W,P", [(40, 8, 4), (40, 8, 0), (40, None, 4), (9, 16, 3),
+                                   (33, 5, 12), (20, 20, 2), (64, 7, 70), (1, 3, 1)])
+def test_attention_with_a_prefix_is_a_dense_softmax_under_the_mask(S, W, P):
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(2, S, h, 8, generator=g, dtype=torch.float64) for h in (4, 2, 2))
+    qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    ok = kp <= qp
+    if W is not None:
+        ok &= (qp - kp < W) | (kp < P)
+    kk, vv = (t.repeat_interleave(2, dim=2).transpose(1, 2) for t in (k, v))
+    s = (q.transpose(1, 2) @ kk.transpose(-1, -2)) / 8 ** 0.5
+    want = (torch.softmax(s.masked_fill(~ok, float("-inf")), -1) @ vv).transpose(1, 2)
+    got = common.attention(q, k, v, window=W, prefix=P, block=8)
+    torch.testing.assert_close(got, want.float(), rtol=1e-5, atol=1e-6)
+
+
+def test_no_meta_tokens_and_no_groups_are_the_keys_left_out():
+    cfg = _meta_cfg(meta_tokens=0, kv_groups=[])
+    bare = {k: v for k, v in cfg.items() if k not in ("meta_tokens", "kv_groups")}
+    assert hybrid.param_specs(cfg) == hybrid.param_specs(bare)
+    w = Weights(hybrid.param_specs(bare), SEED, "cpu").make()
+    tokens = _tokens(cfg)
+    a, b = hybrid.prefill(w, cfg, tokens), hybrid.prefill(w, bare, tokens)
+    assert torch.equal(a["logits"], b["logits"])
+    for x, y in zip(a["layers"], b["layers"]):
+        assert x.keys() == y.keys() == {"k", "v", "ssm_h", "ssm_conv"}
+        assert all(torch.equal(x[n], y[n]) for n in x)
+
+
+def test_meta_tokens_draw_last_and_leave_every_other_leaf_as_it_was():
+    cfg = _meta_cfg(kv_groups=[])
+    without = Weights(hybrid.param_specs(dict(cfg, meta_tokens=0)), SEED, "cpu").make()
+    with_meta = Weights(hybrid.param_specs(cfg), SEED, "cpu").make()
+    assert list(with_meta)[-1] == "meta_tokens" and set(with_meta) - set(without) == {
+        "meta_tokens"}
+    assert with_meta["meta_tokens"].shape == (META, cfg["d_model"])
+    assert all(torch.equal(with_meta[n], t) for n, t in without.items())
+
+
+def test_a_groups_later_layers_have_no_kv_projection_and_no_cache():
+    cfg = _meta_cfg()
+    names = {n for n, _, _ in hybrid.param_specs(cfg)}
+    for i in range(cfg["num_layers"]):
+        assert (f"layers.{i}.attn.wk.w" in names) == (i != 2)
+        assert (f"layers.{i}.attn.wv.w" in names) == (i != 2)
+    out = hybrid.prefill(Weights(hybrid.param_specs(cfg), SEED, "cpu").make(), cfg,
+                         _tokens(cfg))
+    assert [set(c) for c in out["layers"]] == [
+        {"k", "v", "ssm_h", "ssm_conv"}, {"k", "v", "ssm_h", "ssm_conv"},
+        {"ssm_h", "ssm_conv"}, {"k", "v", "ssm_h", "ssm_conv"}]
+    assert out["layers"][0]["k"].shape[1] == META + 40
+
+
+def test_the_meta_positions_kv_precede_the_prompt():
+    """The same for every row and for other prompts of another length."""
+    cfg = _meta_cfg()
+    w = Weights(hybrid.param_specs(cfg), SEED, "cpu").make()
+    a = hybrid.prefill(w, cfg, _tokens(cfg, B=3, S=40, seed=7))
+    b = hybrid.prefill(w, cfg, _tokens(cfg, B=1, S=17, seed=8))
+    for x, y in zip(a["layers"], b["layers"]):
+        for n in set(x) & {"k", "v"}:
+            meta = x[n][:, :META]
+            torch.testing.assert_close(meta, meta[:1].expand_as(meta), rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(y[n][:, :META], meta[:1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("prefix_seen", [True, False])
+def test_meta_tokens_are_seen_beyond_the_window(prefix_seen, monkeypatch):
+    """With S > W + M, every layer a window layer and the SSM branch's output
+    zeroed, only the window layers' prefix carries the meta tokens to the
+    last position (4 layers reach 4 (W - 1) = 28 < 40 positions back):
+    changing them changes its logits, and does not where the prefix is
+    taken away."""
+    cfg = _meta_cfg(global_layers=[])
+    ssm_branch = hybrid.ssm_branch
+
+    def quiet_ssm(*a):
+        s, h, tail = ssm_branch(*a)
+        return torch.zeros_like(s), h, tail
+
+    monkeypatch.setattr(hybrid, "ssm_branch", quiet_ssm)
+    if not prefix_seen:
+        attention = hybrid.attention
+        monkeypatch.setattr(hybrid, "attention", lambda *a, prefix, **k: attention(*a, **k))
+    w = Weights(hybrid.param_specs(cfg), SEED, "cpu").make()
+    tokens = _tokens(cfg)
+    a = hybrid.prefill(w, cfg, tokens)["logits"]
+    w["meta_tokens"] = w["meta_tokens"].flip(0) * 3
+    b = hybrid.prefill(w, cfg, tokens)["logits"]
+    assert (compare.rel_err(b, a) > 1e-3) == prefix_seen
+
+
+@pytest.mark.parametrize("groups,message", [
+    ([[1, 2], [2]], "overlaps"), ([[1, 1]], "overlaps"), ([[2, 1]], "before its owner"),
+    ([[0, 1]], "mixes window and global"), ([[1, 4]], "outside")])
+def test_kv_groups_that_cannot_be_are_refused(groups, message):
+    cfg = _meta_cfg(kv_groups=groups)
+    with pytest.raises(ValueError, match=message):
+        hybrid.param_specs(cfg)
+
+
+def test_kv_owners_name_each_groups_first_layer():
+    cfg = _meta_cfg(num_layers=8, global_layers=[0, 7], kv_groups=[[1, 2, 3], [5, 6]])
+    assert common.kv_owners(cfg) == [0, 1, 1, 1, 4, 5, 5, 7]
 
 
 def test_chunked_scan_equals_the_one_step_recurrence():
@@ -157,3 +276,40 @@ def test_fp8_products_round_both_operands():
     assert compare.rel_err(a.grad, torch.ones(8, 4) @ b.T) < 0.2
     with pytest.raises(ValueError):
         common.mm(a, b, "fp4")
+
+
+@pytest.mark.cuda
+def test_hybrid_prefill_takes_hymbas_prefill_mix_on_the_card(capsys):
+    """hymba-1.5b as released (128 meta tokens, its K/V groups) through the
+    reference at its published widths, one batch of each length of the
+    prefill mix, 4 x 4096 the longest: what a hybrid cell's check costs. Its
+    seconds and peak memory are printed; it has to fit on the card the model
+    was freed from."""
+    import json
+    import time
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from portbench.test_portbench_spec import _hymba_file
+
+    cfg, dev = _hymba_file(), torch.device("cuda", 0)
+    common.no_tf32()
+    w = Weights(hybrid.param_specs(cfg), SEED, dev).make()
+    torch.cuda.reset_peak_memory_stats(dev)  # the peak from here counts the weights
+    seconds = {}
+    for S in (1024, 2048, 4096):
+        tokens = torch.randint(0, cfg["vocab_size"], (4, S), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(S))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = hybrid.prefill(w, cfg, tokens)
+        torch.cuda.synchronize(dev)
+        seconds[S] = time.perf_counter() - t0
+        assert torch.isfinite(out["logits"][:, :cfg["vocab_size"]]).all()
+        assert out["layers"][0]["k"].shape[1] == 128 + S and "k" not in out["layers"][2]
+        del out
+    peak = torch.cuda.max_memory_allocated(dev)
+    with capsys.disabled():
+        print(json.dumps({"hybrid_prefill_s": seconds, "peak_bytes": peak,
+                          "card": torch.cuda.get_device_name(dev)}))
+    assert peak < 40 * 2**30

@@ -8,6 +8,7 @@ import shutil
 import pytest
 
 from portbench import spec
+from portbench.smoke import program_cfg
 
 BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -80,6 +81,89 @@ def test_an_added_cell_needs_only_files_and_an_entry(tmp_path):
     assert cell.traffic["lengths"] == [16384]
     assert set(cell.metric_readers()) == {m["name"] for m in cell.per_layer()}
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+#: hymba-1.5b's K/V groups: adjacent window layers in pairs (the paper's
+#: cross-layer sharing), 16-18 as one where 16-30 leaves an odd count (assumed)
+HYMBA_GROUPS = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14], [16, 17, 18],
+                [19, 20], [21, 22], [23, 24], [25, 26], [27, 28], [29, 30]]
+
+
+def _hymba_file() -> dict:
+    """hymba-1.5b as released: its widths, 128 meta tokens, K/V groups."""
+    cfg = {k: v for k, v in program_cfg("hymba-1.5b", "hymba-1.5b", smoke=False).items()
+           if k not in ("name", "meta_tokens", "kv_groups")}
+    return dict(cfg, source="https://huggingface.co/nvidia/Hymba-1.5B-Base", meta_tokens=128,
+                kv_groups=HYMBA_GROUPS, reduced=[])
+
+
+def test_an_added_hybrid_cell_with_meta_tokens_needs_only_files_and_entries(tmp_path):
+    """Open questions' first cell, hymba-prefill-mix: hymba-1.5b as released
+    under the prefill mix. A configuration file, a limits file and entries
+    (the cell's name in the prefill metrics' lists, the SSM's readers) find
+    the hybrid reference, the prefill driver and the readers, with no change
+    to any existing file."""
+    shutil.copytree(spec.HERE, tmp_path / spec.HERE.name,
+                    ignore=shutil.ignore_patterns("__pycache__", "test_*"))
+    here = tmp_path / spec.HERE.name
+    before = {p: p.read_bytes() for p in here.rglob("*") if p.is_file()}
+    (here / "configs" / "hymba-1.5b.json").write_text(json.dumps(_hymba_file()))
+    (here / "limits" / "hymba-prefill-mix.json").write_text(
+        json.dumps({"numbers": {n: {"limit": 0.1} for n in ("logits_err", "token_gap",
+                                                            "kv_err", "ssm_err")}}))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "hymba-1.5b", "source": _hymba_file()["source"],
+                             "file": "portbench/configs/hymba-1.5b.json", "reduced": [],
+                             "why": "x"})
+    bench["workloads"].append({"name": "hymba-prefill-mix", "config": "hymba-1.5b",
+                               "traffic": "prefill-mix", "chips": 1, "why": "x"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("prefill_tokens_per_s", "ttft_p95_ms", "mfu.prefill"):
+            m["workloads"].append("hymba-prefill-mix")
+    bench["per_layer"] += [
+        {"name": n, "unit": u, "better": b, "source": "device_trace", "layer": layer,
+         "moves": "prefill_tokens_per_s", "workloads": ["hymba-prefill-mix"]}
+        for n, u, b, layer in (("ssm_ms.prefill", "ms", "lower", "model: SSM"),
+                               ("selective_scan_roofline", "%", "higher", "kernels"))]
+    cell = spec.Cell(bench, "hymba-prefill-mix", root=tmp_path)
+    assert cell.driver().__file__.endswith("serve_prefill.py")
+    assert cell.reference().__name__ == "portbench.reference.hybrid"
+    assert {m["name"] for m in cell.end_to_end()} == {"prefill_tokens_per_s", "ttft_p95_ms",
+                                                      "setup_s"}
+    assert set(cell.metric_readers()) == {"ssm_ms.prefill", "selective_scan_roofline",
+                                          "mfu.prefill"}
+    names = {n for n, _, _ in cell.reference().param_specs(cell.cfg)}
+    assert "meta_tokens" in names and "layers.2.attn.wk.w" not in names
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+    from portbench import port
+    from repro_torch.configs import get_config
+
+    pc = get_config("hymba-1.5b")
+    if (getattr(pc, "meta_tokens", 0), [list(g) for g in getattr(pc, "kv_groups", ())]) == (
+            128, HYMBA_GROUPS):  # a program with hymba's meta tokens and K/V groups
+        assert port.model_config(cell.cfg).name == "hymba-1.5b"
+    else:
+        with pytest.raises(ValueError, match="differs"):
+            port.model_config(cell.cfg)
+
+
+@pytest.mark.parametrize("key", [None, "meta_tokens", "kv_groups"])
+def test_meta_tokens_and_kv_groups_are_compared_with_the_program(key):
+    """A file as the program has them matches; one that adds meta tokens or
+    a K/V group it lacks differs."""
+    from portbench import port
+
+    cfg = program_cfg("hymba-1.5b", "hymba-1.5b", smoke=False)
+    if key == "meta_tokens":
+        cfg["meta_tokens"] = cfg.get("meta_tokens", 0) + 128
+    elif key == "kv_groups":
+        cfg["kv_groups"] = cfg.get("kv_groups", []) + [[40, 41]]
+    if key is None:
+        assert port.model_config(cfg).name == "hymba-1.5b"
+    else:
+        with pytest.raises(ValueError, match="differs"):
+            port.model_config(cfg)
 
 
 def test_the_configuration_files_match_the_programs_configs():

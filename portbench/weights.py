@@ -11,6 +11,12 @@ the family's ``param_specs``) says what it is made of:
 ``("dt_bias",)``    the inverse softplus of dt = 1e-3 + u (0.1 - 1e-3), u the
                     normal CDF of its slice (Mamba's dt initialisation)
 ``("ones",)``, ``("zeros",)``, ``("a_log",)``  constants (A_log = log n, n = 1..N)
+
+A random leaf whose ``init`` ends in a stream number s > 0, as
+``("normal", scale, 1)``, draws from stream s, a virtual stream of its own
+(chunks seeded from (seed, s * STREAM_CHUNKS + chunk index)), so that adding
+such a leaf leaves every other leaf's draw as it was, bit for bit. (Adding
+it to stream 0 would not: a chunk's draw depends on its length.)
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 CHUNK = 1 << 26
 RANDOM = ("normal", "dt_bias")
+STREAM_CHUNKS = 1 << 32
 
 
 def chunk_seed(seed: int, index: int) -> int:
@@ -32,31 +39,32 @@ class Weights:
 
     def __init__(self, specs, seed: int, device, chunk: int = CHUNK):
         self.specs, self.seed, self.device, self.chunk = list(specs), int(seed), device, chunk
-        self._offsets: Dict[str, int] = {}
-        off = 0
+        self._offsets: Dict[str, Tuple[int, int]] = {}  # name -> (stream, offset)
+        self.numel: Dict[int, int] = {}  # stream -> elements
         for name, shape, init in self.specs:
             if init[0] in RANDOM:
-                self._offsets[name] = off
-                off += math.prod(shape)
-        self.numel = off
-        self._cached: Tuple[int, torch.Tensor] = (-1, None)
+                stream = init[2] if len(init) > 2 else 0
+                self._offsets[name] = (stream, self.numel.get(stream, 0))
+                self.numel[stream] = self.numel.get(stream, 0) + math.prod(shape)
+        self._cached: Tuple[tuple, torch.Tensor] = (None, None)
 
-    def _draw(self, index: int) -> torch.Tensor:
-        if self._cached[0] != index:
-            self._cached = (-1, None)  # free the last chunk first
-            g = torch.Generator(device=self.device).manual_seed(chunk_seed(self.seed, index))
-            n = min(self.chunk, self.numel - index * self.chunk)
+    def _draw(self, stream: int, index: int) -> torch.Tensor:
+        if self._cached[0] != (stream, index):
+            self._cached = (None, None)  # free the last chunk first
+            g = torch.Generator(device=self.device).manual_seed(
+                chunk_seed(self.seed, stream * STREAM_CHUNKS + index))
+            n = min(self.chunk, self.numel[stream] - index * self.chunk)
             buf = torch.empty(n, dtype=torch.float32, device=self.device)
             torch.nn.init.trunc_normal_(buf, 0.0, 1.0, -2.0, 2.0, generator=g)
-            self._cached = (index, buf)
+            self._cached = ((stream, index), buf)
         return self._cached[1]
 
-    def _stream(self, out: torch.Tensor, start: int) -> None:
-        """Fill the flat ``out`` with the stream's elements from ``start``."""
+    def _stream(self, out: torch.Tensor, stream: int, start: int) -> None:
+        """Fill the flat ``out`` with ``stream``'s elements from ``start``."""
         flat, done = out.view(-1), 0
         while done < flat.numel():
             index, at = divmod(start + done, self.chunk)
-            src = self._draw(index)
+            src = self._draw(stream, index)
             n = min(flat.numel() - done, src.numel() - at)
             flat[done:done + n].copy_(src[at:at + n])
             done += n
@@ -65,7 +73,7 @@ class Weights:
     def leaf_into(self, out: torch.Tensor, name: str, shape, init) -> torch.Tensor:
         kind = init[0]
         if kind in RANDOM:
-            self._stream(out, self._offsets[name])
+            self._stream(out, *self._offsets[name])
             if kind == "normal":
                 out.mul_(init[1])
             else:  # dt_bias
@@ -89,7 +97,7 @@ class Weights:
         for name, shape, init in self.specs:
             yield name, self.leaf_into(torch.empty(shape, dtype=torch.float32,
                                                    device=self.device), name, shape, init)
-        self._cached = (-1, None)
+        self._cached = (None, None)
 
     def make(self) -> Dict[str, torch.Tensor]:
         return dict(self.leaves())
@@ -108,5 +116,5 @@ class Weights:
                 raise ValueError(f"{name}: the program's shape {tuple(p.shape)}, the "
                                  f"configuration's {tuple(shape)}")
             self.leaf_into(p.data, name, shape, init)
-        self._cached = (-1, None)
+        self._cached = (None, None)
 
